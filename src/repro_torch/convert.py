@@ -1,0 +1,33 @@
+"""Load the reference's parameters into the port.
+
+``params_from_jax(model, tree, device)`` takes the JAX parameter tree as
+numpy arrays (``jax.tree.map(np.asarray, params)``), layers stacked on a
+leading L axis as the reference stacks them, and returns the port's tree:
+same keys and shapes, each leaf in its storage dtype
+(``model_zoo.param_dtype``).  Dense weights keep the reference's
+``(d_in, d_out)`` orientation, so nothing is transposed.  Casting matmul
+weights and the embedding table to the compute dtype here is exact,
+because every reader in the reference casts them so before use.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.models import model_zoo as zoo
+from repro_torch.models.common import resolve_device
+
+
+def params_from_jax(model: zoo.Model, tree: Dict[str, Any],
+                    device=None) -> Dict[str, Any]:
+    device = resolve_device(device)
+
+    def convert(node, path: Tuple[str, ...]):
+        if isinstance(node, dict):
+            return {k: convert(v, path + (k,)) for k, v in node.items()}
+        return torch.tensor(np.asarray(node, np.float32), device=device,
+                            dtype=zoo.param_dtype(model, path))
+
+    return convert(tree, ())

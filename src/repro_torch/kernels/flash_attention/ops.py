@@ -1,0 +1,111 @@
+"""Flash attention forward: the CUDA kernel's wrapper and its plain version.
+
+Port of ``repro.kernels.flash_attention`` (Pallas kernel
+``flash_attention_fwd``).  Model layout in and out: q ``(B,Sq,H,D)``,
+k/v ``(B,Skv,Hkv,D)`` -> ``(B,Sq,H,D)``; q head h reads kv head
+``h // (H/Hkv)``.
+
+Masking follows the Pallas kernel: causal is top-left aligned
+(``qpos >= kpos``, kernel.py:58-63), which differs from the reference's
+``ref.py`` (bottom-right) when ``Sq != Skv``; key positions at or past
+``Skv`` are masked.  The kernel (``kernels/csrc/flash_attention.cu``)
+masks ragged lengths itself, so none of the TPU wrapper's padding of the
+sequence to the block and of head_dim to 128 (with its rescaling of q,
+ops.py:53-60) is carried over.
+
+``flash_attention`` runs ``flash_attention_ref`` for CPU tensors and the
+kernel for CUDA tensors; on a CUDA tensor it launches or raises.
+``launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+NEG_INF = -1e30
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (64, 128)
+
+#: kernel launches since the last reset (plain-version calls not counted)
+launches = 0
+
+
+def flash_attention_ref(q, k, v, *, causal: bool = True,
+                        softcap: float = 0.0):
+    """Plain version: materialized fp32 scores, masked softmax."""
+    b, sq, h, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    group = h // hkv
+    kf = k.repeat_interleave(group, dim=2).float()
+    vf = v.repeat_interleave(group, dim=2).float()
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kf) * (d ** -0.5)
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    if causal:
+        qpos = torch.arange(sq, device=q.device)[:, None]
+        kpos = torch.arange(skv, device=q.device)[None, :]
+        s = torch.where(qpos >= kpos, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhqk,bkhd->bqhd", p, vf)
+    return o.to(q.dtype)
+
+
+def _launcher():
+    lib = build.load("flash_attention")
+    fn = lib.flash_attention_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 4
+                       + [ctypes.c_int] * 7 + [ctypes.c_float] * 2
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(q, k, v):
+    if q.dim() != 4 or k.dim() != 4 or v.shape != k.shape:
+        raise ValueError("flash_attention expects q (B,Sq,H,D) and k/v "
+                         "(B,Skv,Hkv,D)")
+    b, sq, h, d = q.shape
+    bk, skv, hkv, dk = k.shape
+    if bk != b or dk != d or h % hkv or sq == 0 or skv == 0:
+        raise ValueError(f"shapes q {tuple(q.shape)} and k/v "
+                         f"{tuple(k.shape)} do not fit")
+    if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
+        raise TypeError(f"flash_attention kernel takes bf16 or fp32 q/k/v "
+                        f"of one dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
+    for t in (q, k, v):
+        if t.device != q.device:
+            raise ValueError("all tensors must be on one device")
+        if not t.is_contiguous():
+            raise ValueError("flash_attention kernel needs contiguous "
+                             "tensors")
+        if t.data_ptr() % 16:
+            raise ValueError("q, k and v must be 16-byte aligned")
+
+
+def flash_attention(q, k, v, *, causal: bool = True, softcap: float = 0.0):
+    """Model layout in/out: q (B,Sq,H,D) -> (B,Sq,H,D)."""
+    global launches
+    if q.device.type == "cpu":
+        return flash_attention_ref(q, k, v, causal=causal, softcap=softcap)
+    if q.device.type != "cuda":
+        raise ValueError(f"flash_attention runs on cuda or cpu, not "
+                         f"{q.device}")
+    _check(q, k, v)
+    b, sq, h, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    out = torch.empty_like(q)
+    err = _launcher()(
+        DTYPES[q.dtype], q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        out.data_ptr(), b, sq, skv, h, hkv, d, int(causal), d ** -0.5,
+        float(softcap), torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"flash_attention kernel launch failed "
+                           f"(error {err})")
+    launches += 1
+    return out

@@ -1,0 +1,127 @@
+"""Paged decode attention: the CUDA kernel's wrapper and its plain version.
+
+Port of ``repro.kernels.paged_attention`` (Pallas kernel
+``paged_attention_fwd``).  Takes the serving layout: q ``(B,Hq,D)``,
+token-major pages ``(NP,P,Hkv,D)``, block tables ``(B,MP)`` and context
+lengths ``(B,)``; returns ``(B,Hq,D)``.  The kernel
+(``kernels/csrc/paged_attention.cu``) reads the pages where they lie;
+unlike the reference wrapper, nothing transposes the store.
+
+Unlike the Pallas kernel, both versions take ``softcap``, so the kernel
+path computes what the reference's default ``gather`` path computes
+(paged_model.py:124-125); the reference's Pallas route drops it.
+
+``paged_attention`` runs ``paged_attention_ref`` for CPU tensors and the
+kernel for CUDA tensors; on a CUDA tensor it launches or raises.
+``launches`` counts kernel launches.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+
+NEG_INF = -1e30
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+HEAD_DIMS = (64, 128)
+GROUPS = (1, 2, 4, 8)
+
+#: kernel launches since the last reset (plain-version calls not counted)
+launches = 0
+
+
+def paged_attention_ref(q, k_pages, v_pages, block_tables, context_lens, *,
+                        softcap: float = 0.0):
+    """Plain version: gather each sequence's pages into a contiguous
+    cache, then masked fp32 softmax attention."""
+    b, hq, d = q.shape
+    _, page, hkv, _ = k_pages.shape
+    mp = block_tables.shape[1]
+    group = hq // hkv
+    tables = block_tables.long()
+    k_seq = k_pages[tables].reshape(b, mp * page, hkv, d)
+    v_seq = v_pages[tables].reshape(b, mp * page, hkv, d)
+    k_seq = k_seq.repeat_interleave(group, dim=2).float()
+    v_seq = v_seq.repeat_interleave(group, dim=2).float()
+    s = torch.einsum("bhd,bshd->bhs", q.float(), k_seq) * (d ** -0.5)
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    pos = torch.arange(mp * page, device=q.device)
+    valid = pos[None, None, :] < context_lens.to(q.device)[:, None, None]
+    s = torch.where(valid, s, torch.full_like(s, NEG_INF))
+    p = torch.softmax(s, dim=-1)
+    o = torch.einsum("bhs,bshd->bhd", p, v_seq)
+    return o.to(q.dtype)
+
+
+def _launcher():
+    lib = build.load("paged_attention")
+    fn = lib.paged_attention_launch
+    if fn.argtypes is None:
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
+                       + [ctypes.c_int] * 6 + [ctypes.c_float] * 2
+                       + [ctypes.c_void_p])
+        fn.restype = ctypes.c_int
+    return fn
+
+
+def _check(q, k_pages, v_pages, block_tables, context_lens):
+    if q.dim() != 3 or k_pages.dim() != 4 or block_tables.dim() != 2 \
+            or context_lens.dim() != 1:
+        raise ValueError("paged_attention expects q (B,Hq,D), pages "
+                         "(NP,P,Hkv,D), tables (B,MP), lens (B,)")
+    b, hq, d = q.shape
+    _, _, hkv, dk = k_pages.shape
+    if v_pages.shape != k_pages.shape or dk != d:
+        raise ValueError(f"page shapes {tuple(k_pages.shape)} / "
+                         f"{tuple(v_pages.shape)} do not fit q {tuple(q.shape)}")
+    if block_tables.shape[0] != b or context_lens.shape[0] != b:
+        raise ValueError("tables and lens need one row per sequence")
+    if q.dtype not in DTYPES or k_pages.dtype != q.dtype \
+            or v_pages.dtype != q.dtype:
+        raise TypeError(f"paged_attention kernel takes bf16 or fp32 q/k/v "
+                        f"of one dtype, got {q.dtype}/{k_pages.dtype}/"
+                        f"{v_pages.dtype}")
+    if block_tables.dtype != torch.int32 or context_lens.dtype != torch.int32:
+        raise TypeError("block tables and context lens must be int32")
+    if d not in HEAD_DIMS:
+        raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
+    if hq % hkv or hq // hkv not in GROUPS:
+        raise ValueError(f"q heads per kv head {hq}/{hkv} not in {GROUPS}")
+    for t in (q, k_pages, v_pages, block_tables, context_lens):
+        if t.device != q.device:
+            raise ValueError("all tensors must be on one device")
+        if not t.is_contiguous():
+            raise ValueError("paged_attention kernel needs contiguous tensors")
+    for t in (q, k_pages, v_pages):
+        if t.data_ptr() % 16:
+            raise ValueError("q and pages must be 16-byte aligned")
+
+
+def paged_attention(q, k_pages, v_pages, block_tables, context_lens, *,
+                    softcap: float = 0.0):
+    """q: (B,Hq,D); k/v_pages: (NP,P,Hkv,D) -> (B,Hq,D)."""
+    global launches
+    if q.device.type == "cpu":
+        return paged_attention_ref(q, k_pages, v_pages, block_tables,
+                                   context_lens, softcap=softcap)
+    if q.device.type != "cuda":
+        raise ValueError(f"paged_attention runs on cuda or cpu, not "
+                         f"{q.device}")
+    _check(q, k_pages, v_pages, block_tables, context_lens)
+    b, hq, d = q.shape
+    _, page, hkv, _ = k_pages.shape
+    out = torch.empty_like(q)
+    err = _launcher()(
+        DTYPES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
+        v_pages.data_ptr(), block_tables.data_ptr(), context_lens.data_ptr(),
+        out.data_ptr(), b, hq, hkv, d, page, block_tables.shape[1],
+        d ** -0.5, float(softcap),
+        torch.cuda.current_stream(q.device).cuda_stream)
+    if err != 0:
+        raise RuntimeError(f"paged_attention kernel launch failed "
+                           f"(error {err})")
+    launches += 1
+    return out

@@ -1,0 +1,153 @@
+"""Building-block layers: the port of ``repro.models.layers``.
+
+Plain functions over dicts of tensors, with the reference's parameter
+names and shapes: a dense weight is ``(d_in, d_out)`` and applies as
+``y = x @ w``, so weights load from the JAX tree without transposes.
+
+Numerics follow the reference: norms, RoPE and the SwiGLU activation
+run in fp32 and cast back; ``dense_apply`` and ``embed_apply`` cast the
+weight to the compute dtype first (the port stores those weights in the
+compute dtype already, so the cast is free); ``unembed_apply`` runs in
+fp32 when asked.  Cross-entropy comes with the training slice.
+"""
+from __future__ import annotations
+
+import torch
+import torch.nn.functional as F
+
+
+# ---------------------------------------------------------------------------
+# Initializers (torch.Generator draws; same shapes and scales as the
+# reference, not the same random stream)
+# ---------------------------------------------------------------------------
+def normal(shape, scale, *, generator, device, dtype):
+    x = torch.randn(shape, generator=generator, device=device,
+                    dtype=torch.float32)
+    return (x * scale).to(dtype)
+
+
+def dense_init(d_in, d_out, *, generator, device, dtype, bias=False,
+               scale=None):
+    scale = scale if scale is not None else d_in ** -0.5
+    p = {"w": normal((d_in, d_out), scale, generator=generator,
+                     device=device, dtype=dtype)}
+    if bias:
+        p["b"] = torch.zeros((d_out,), device=device, dtype=dtype)
+    return p
+
+
+def dense_apply(p, x, compute_dtype=None):
+    w = p["w"]
+    if compute_dtype is not None:
+        w = w.to(compute_dtype)
+        x = x.to(compute_dtype)
+    y = x @ w
+    if "b" in p:
+        y = y + p["b"].to(y.dtype)
+    return y
+
+
+# ---------------------------------------------------------------------------
+# Norms
+# ---------------------------------------------------------------------------
+def norm_init(d, kind, *, device):
+    """Norm parameters stay fp32: their readers compute in fp32."""
+    p = {"scale": torch.ones((d,), device=device, dtype=torch.float32)}
+    if kind == "layernorm":
+        p["bias"] = torch.zeros((d,), device=device, dtype=torch.float32)
+    return p
+
+
+def norm_apply(p, x, kind, eps=1e-5):
+    """RMSNorm / LayerNorm in fp32, output in x.dtype."""
+    xf = x.float()
+    if kind == "rmsnorm":
+        var = torch.mean(xf * xf, dim=-1, keepdim=True)
+        y = xf * torch.rsqrt(var + eps)
+    elif kind == "layernorm":
+        mu = torch.mean(xf, dim=-1, keepdim=True)
+        var = torch.var(xf, dim=-1, keepdim=True, unbiased=False)
+        y = (xf - mu) * torch.rsqrt(var + eps)
+    else:
+        raise ValueError(kind)
+    y = y * p["scale"].float()
+    if "bias" in p:
+        y = y + p["bias"].float()
+    return y.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# Rotary position embedding
+# ---------------------------------------------------------------------------
+def rope_freqs(head_dim: int, theta: float, device=None):
+    # a Python-scalar base: no host-to-device copy, which would stall the
+    # host on the stream every layer
+    exponent = -torch.arange(0, head_dim, 2, dtype=torch.float32,
+                             device=device) / head_dim
+    return theta ** exponent
+
+
+def apply_rope(x, positions, theta: float):
+    """x: (B, S, H, D); positions: (B, S) or (S,).
+
+    Rotates the split halves ``x[..., :D/2]`` and ``x[..., D/2:]``
+    (GPT-NeoX style), as the reference's code does; its docstring's
+    "interleaved" does not describe what it computes."""
+    d = x.shape[-1]
+    freqs = rope_freqs(d, theta, device=x.device)            # (D/2,)
+    if positions.ndim == 1:
+        positions = positions[None, :]
+    angles = positions[..., None].float() * freqs            # (B,S,D/2)
+    cos = torch.cos(angles)[:, :, None, :]
+    sin = torch.sin(angles)[:, :, None, :]
+    x1, x2 = torch.chunk(x.float(), 2, dim=-1)
+    out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
+    return out.to(x.dtype)
+
+
+# ---------------------------------------------------------------------------
+# MLPs
+# ---------------------------------------------------------------------------
+def mlp_init(d_model, d_ff, act, *, generator, device, dtype, bias=False):
+    kw = dict(generator=generator, device=device, dtype=dtype, bias=bias)
+    if act == "silu":  # SwiGLU
+        return {"gate": dense_init(d_model, d_ff, **kw),
+                "up": dense_init(d_model, d_ff, **kw),
+                "down": dense_init(d_ff, d_model, scale=d_ff ** -0.5, **kw)}
+    return {"up": dense_init(d_model, d_ff, **kw),
+            "down": dense_init(d_ff, d_model, scale=d_ff ** -0.5, **kw)}
+
+
+def mlp_apply(p, x, act, compute_dtype):
+    if "gate" in p:
+        g = dense_apply(p["gate"], x, compute_dtype)
+        u = dense_apply(p["up"], x, compute_dtype)
+        h = F.silu(g.float()).to(g.dtype) * u
+    else:
+        u = dense_apply(p["up"], x, compute_dtype)
+        # jax.nn.gelu defaults to the tanh approximation
+        h = F.gelu(u.float(), approximate="tanh").to(u.dtype)
+    return dense_apply(p["down"], h, compute_dtype)
+
+
+# ---------------------------------------------------------------------------
+# Embedding / unembedding
+# ---------------------------------------------------------------------------
+def embed_init(vocab, d_model, *, generator, device, dtype):
+    # the reference writes the scale as 0.02·√d/√d
+    return {"table": normal((vocab, d_model), 0.02,
+                            generator=generator, device=device, dtype=dtype)}
+
+
+def embed_apply(p, ids, compute_dtype):
+    return p["table"].to(compute_dtype)[ids]
+
+
+def unembed_apply(table, x, *, vocab_logical: int, fp32: bool = True):
+    """x @ table.T with padded-vocab masking. table: (Vp, D)."""
+    dt = torch.float32 if fp32 else x.dtype
+    logits = x.to(dt) @ table.to(dt).T
+    vp = table.shape[0]
+    if vp != vocab_logical:
+        logits[..., vocab_logical:] = -1e30
+    return logits

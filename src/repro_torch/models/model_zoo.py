@@ -1,0 +1,315 @@
+"""Model zoo, dense family: the port of ``repro.models.model_zoo``.
+
+``Model`` is a frozen bundle of (ArchConfig, PadPlan, RunSettings), as in
+the reference.  Parameters are a dict tree with the reference's keys and
+shapes, layers stacked on a leading L axis; the functions below loop over
+layers in Python where the reference has ``lax.scan``.
+
+Storage dtypes (``param_dtype``): matmul weights and the embedding table
+in the compute dtype, because every reader casts them to it first;
+norm scales in fp32, and the unembedding table in fp32 when
+``logits_fp32``, because their readers compute in fp32.  A tied embedding
+table is therefore fp32 and cast at the lookup.  At llama2-7b that is
+about 13 GB of bf16 weights plus a 0.5 GB fp32 unembedding table.
+
+Entry points
+------------
+* ``init_params(model, seed, device)`` — random parameters.
+* ``forward(model, params, batch)``   — full-seq logits.
+* ``init_cache / prefill / decode_step`` — contiguous decode cache
+  ``{k,v: (L,B,Smax,Hkv,hd), len: (B,)}``, updated in place.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Any, Dict, Tuple
+
+import torch
+
+from repro_torch.configs.base import ArchConfig, DENSE
+from repro_torch.distributed.padding import PadPlan, make_pad_plan
+from repro_torch.models.attention_impl import attend, decode_attention
+from repro_torch.models.common import (DEFAULT_SETTINGS, RunSettings,
+                                       resolve_device)
+from repro_torch.models.layers import (apply_rope, dense_apply, dense_init,
+                                       embed_apply, embed_init, mlp_apply,
+                                       mlp_init, norm_apply, norm_init,
+                                       unembed_apply)
+
+#: families this slice ports; the others raise
+PORTED_FAMILIES = (DENSE,)
+
+
+@dataclass(frozen=True)
+class Model:
+    cfg: ArchConfig
+    plan: PadPlan
+    settings: RunSettings = DEFAULT_SETTINGS
+
+    @property
+    def compute_dtype(self) -> torch.dtype:
+        return getattr(torch, self.cfg.dtype)
+
+    def with_settings(self, **kw) -> "Model":
+        return dataclasses.replace(
+            self, settings=dataclasses.replace(self.settings, **kw))
+
+
+def build(cfg: ArchConfig, tp: int = 1,
+          settings: RunSettings = DEFAULT_SETTINGS) -> Model:
+    if cfg.family not in PORTED_FAMILIES:
+        raise NotImplementedError(
+            f"{cfg.name}: family {cfg.family!r} is not ported yet "
+            f"(have {PORTED_FAMILIES})")
+    if cfg.qk_norm or cfg.pos_emb not in ("rope", "none"):
+        raise NotImplementedError(
+            f"{cfg.name}: qk-norm and learned positions are not ported yet")
+    return Model(cfg=cfg, plan=make_pad_plan(cfg, tp), settings=settings)
+
+
+def param_dtype(model: Model, path: Tuple[str, ...]) -> torch.dtype:
+    """Storage dtype of the parameter at ``path`` in the tree."""
+    fp32_logits = model.settings.logits_fp32
+    if path[-2:] == ("unembed", "table") and fp32_logits:
+        return torch.float32
+    if path[-2:] == ("embed", "table") and fp32_logits \
+            and model.cfg.tie_embeddings:
+        return torch.float32
+    if path[-1] in ("scale", "bias"):
+        return torch.float32
+    return model.compute_dtype
+
+
+def layer(layers: Dict[str, Any], i: int) -> Dict[str, Any]:
+    """Layer ``i`` of a stacked layer tree (views, no copies)."""
+    return {k: layer(v, i) if isinstance(v, dict) else v[i]
+            for k, v in layers.items()}
+
+
+# ---------------------------------------------------------------------------
+# Attention block
+# ---------------------------------------------------------------------------
+def _q_proj(p, x, model: Model, positions):
+    cfg, plan = model.cfg, model.plan
+    b, s, _ = x.shape
+    q = dense_apply(p["wq"], x, model.compute_dtype) \
+        .reshape(b, s, plan.n_q, cfg.head_dim)
+    if cfg.pos_emb == "rope":
+        q = apply_rope(q, positions, cfg.rope_theta)
+    return q
+
+
+def _kv_proj(p, x, model: Model, positions):
+    """K/V in *physical* head layout (kv_rep applied)."""
+    cfg, plan = model.cfg, model.plan
+    cd = model.compute_dtype
+    b, s, _ = x.shape
+    nkv_log = plan.n_kv // plan.kv_rep
+    k = dense_apply(p["wk"], x, cd).reshape(b, s, nkv_log, cfg.head_dim)
+    v = dense_apply(p["wv"], x, cd).reshape(b, s, nkv_log, cfg.head_dim)
+    if cfg.pos_emb == "rope" and positions is not None:
+        k = apply_rope(k, positions, cfg.rope_theta)
+    if plan.kv_rep > 1:
+        k = k.repeat_interleave(plan.kv_rep, dim=2)
+        v = v.repeat_interleave(plan.kv_rep, dim=2)
+    return k, v
+
+
+def _attn_out(p, ctx, model: Model):
+    """ctx: (B,S,nq,hd) -> (B,S,d); padded q heads masked."""
+    plan = model.plan
+    b, s = ctx.shape[:2]
+    if plan.has_q_padding:
+        mask = torch.as_tensor(plan.q_head_mask(), dtype=ctx.dtype,
+                               device=ctx.device)
+        ctx = ctx * mask[None, None, :, None]
+    ctx = ctx.reshape(b, s, plan.n_q * model.cfg.head_dim)
+    return dense_apply(p["wo"], ctx, model.compute_dtype)
+
+
+def _attn_full(p, x, model: Model, positions, *, causal: bool):
+    """Full-sequence attention. Returns (out, (k, v))."""
+    q = _q_proj(p, x, model, positions)
+    k, v = _kv_proj(p, x, model, positions)
+    impl = model.settings.resolve_attn(q.shape[1])
+    ctx = attend(q, k, v, causal=causal, impl=impl,
+                 logit_softcap=model.cfg.attn_logit_softcap)
+    return _attn_out(p, ctx, model), (k, v)
+
+
+def _ffn_apply(p, x, model: Model):
+    return mlp_apply(p["mlp"], x, model.cfg.act, model.compute_dtype)
+
+
+def _block_apply(p, x, model: Model, positions):
+    """Pre-norm causal transformer block (full-seq). Returns (x, (k, v))."""
+    cfg = model.cfg
+    h = norm_apply(p["ln1"], x, cfg.norm)
+    attn, kv = _attn_full(p["attn"], h, model, positions, causal=True)
+    x = x + attn
+    h = norm_apply(p["ln2"], x, cfg.norm)
+    return x + _ffn_apply(p, h, model), kv
+
+
+# ---------------------------------------------------------------------------
+# Parameters
+# ---------------------------------------------------------------------------
+def init_params(model: Model, seed: int = 0, device=None) -> Dict[str, Any]:
+    """Random parameters with the reference's shapes and scales
+    (model_zoo.py:266-282), drawn from a ``torch.Generator`` on
+    ``device`` (not the reference's random stream).  ``device=None``
+    means the CUDA card."""
+    device = resolve_device(device)
+    cfg, plan = model.cfg, model.plan
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    d, hd, L = cfg.d_model, cfg.head_dim, cfg.num_layers
+    nq, nkv = plan.n_q, plan.n_kv // plan.kv_rep
+    cd = model.compute_dtype
+    kw = dict(generator=gen, device=device)
+
+    def stacked(make):
+        """Stack L per-layer trees, drawn one layer at a time into
+        preallocated (L, ...) tensors (peak: the stack plus one layer)."""
+        first = make()
+        out = _tree_map(lambda a: torch.empty((L,) + a.shape, dtype=a.dtype,
+                                              device=a.device), first)
+        for i in range(L):
+            tree = first if i == 0 else make()
+            _tree_map(lambda dst, src: dst[i].copy_(src), out, tree)
+        return out
+
+    def block():
+        dense = dict(dtype=cd, bias=cfg.qkv_bias, **kw)
+        return {
+            "ln1": norm_init(d, cfg.norm, device=device),
+            "attn": {
+                "wq": dense_init(d, nq * hd, **dense),
+                "wk": dense_init(d, nkv * hd, **dense),
+                "wv": dense_init(d, nkv * hd, **dense),
+                "wo": dense_init(nq * hd, d, dtype=cd, scale=(nq * hd) ** -0.5,
+                                 **kw),
+            },
+            "ln2": norm_init(d, cfg.norm, device=device),
+            "mlp": mlp_init(d, cfg.d_ff, cfg.act, dtype=cd,
+                            bias=cfg.mlp_bias, **kw),
+        }
+
+    params: Dict[str, Any] = {
+        "embed": embed_init(plan.vocab, d, dtype=param_dtype(
+            model, ("embed", "table")), **kw),
+        "layers": stacked(block),
+        "final_norm": norm_init(d, cfg.norm, device=device),
+    }
+    if not cfg.tie_embeddings:
+        params["unembed"] = embed_init(plan.vocab, d, dtype=param_dtype(
+            model, ("unembed", "table")), **kw)
+    return params
+
+
+def _tree_map(fn, *trees):
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in first}
+    return fn(*trees)
+
+
+# ---------------------------------------------------------------------------
+# Full-sequence forward / prefill
+# ---------------------------------------------------------------------------
+def _embed_tokens(model: Model, params, tokens):
+    return embed_apply(params["embed"], tokens, model.compute_dtype)
+
+
+def _lm_head(model: Model, params, x):
+    x = norm_apply(params["final_norm"], x, model.cfg.norm)
+    table = params.get("unembed", params["embed"])["table"]
+    return unembed_apply(table, x, vocab_logical=model.plan.vocab_logical,
+                         fp32=model.settings.logits_fp32)
+
+
+def _run_blocks(model: Model, params, tokens, on_kv=None):
+    """Embed, run every block, and hand each layer's (k, v) to on_kv."""
+    s = tokens.shape[1]
+    positions = torch.arange(s, device=tokens.device)
+    x = _embed_tokens(model, params, tokens)
+    for i in range(model.cfg.num_layers):
+        x, kv = _block_apply(layer(params["layers"], i), x, model, positions)
+        if on_kv is not None:
+            on_kv(i, kv)
+    return x
+
+
+def forward(model: Model, params, batch) -> Tuple[torch.Tensor, Dict]:
+    """Full-sequence logits.  batch: {"tokens": (B,S)}.
+
+    Returns (logits (B,S,V_phys), aux dict — empty for dense models)."""
+    x = _run_blocks(model, params, batch["tokens"])
+    return _lm_head(model, params, x), {}
+
+
+def init_cache(model: Model, batch: int, max_len: int, device=None):
+    device = resolve_device(device)
+    cfg, plan = model.cfg, model.plan
+    kv = (cfg.num_layers, batch, max_len, plan.n_kv, cfg.head_dim)
+    return {"k": torch.zeros(kv, dtype=model.compute_dtype, device=device),
+            "v": torch.zeros(kv, dtype=model.compute_dtype, device=device),
+            "len": torch.zeros((batch,), dtype=torch.int32, device=device)}
+
+
+def prefill(model: Model, params, batch, cache, prompt_lens=None):
+    """Full-prompt forward that also fills the decode cache in place.
+
+    batch: {"tokens": (B,S)}.  ``prompt_lens`` (B,) defaults to S for
+    every row.  Returns (logits (B,S,V), cache)."""
+    tokens = batch["tokens"]
+    b, s = tokens.shape
+    if prompt_lens is None:
+        prompt_lens = torch.full((b,), s, dtype=torch.int32,
+                                 device=tokens.device)
+
+    def write(i, kv):
+        cache["k"][i, :, :s] = kv[0]
+        cache["v"][i, :, :s] = kv[1]
+
+    x = _run_blocks(model, params, tokens, on_kv=write)
+    cache["len"] = prompt_lens
+    return _lm_head(model, params, x), cache
+
+
+# ---------------------------------------------------------------------------
+# Decode step
+# ---------------------------------------------------------------------------
+def _attn_decode(p, x_t, model: Model, k_cache, v_cache, cache_len):
+    """One-token self-attention against a contiguous cache, written in
+    place at ``cache_len``.  x_t: (B,1,d). Returns out (B,1,d)."""
+    bsz = x_t.shape[0]
+    positions = cache_len[:, None].long()
+    q = _q_proj(p, x_t, model, positions)
+    k_t, v_t = _kv_proj(p, x_t, model, positions)
+    bidx = torch.arange(bsz, device=x_t.device)
+    k_cache[bidx, cache_len.long()] = k_t[:, 0].to(k_cache.dtype)
+    v_cache[bidx, cache_len.long()] = v_t[:, 0].to(v_cache.dtype)
+    ctx = decode_attention(q, k_cache, v_cache, cache_len + 1,
+                           logit_softcap=model.cfg.attn_logit_softcap)
+    return _attn_out(p, ctx, model)
+
+
+def decode_step(model: Model, params, cache, tokens):
+    """One autoregressive step.  tokens: (B,) int (the current token).
+
+    Returns (logits (B,V_phys), cache with the new token's K/V written in
+    place and ``len`` advanced)."""
+    cfg = model.cfg
+    cache_len = cache["len"]
+    x = _embed_tokens(model, params, tokens[:, None])
+    for i in range(cfg.num_layers):
+        lp = layer(params["layers"], i)
+        h = norm_apply(lp["ln1"], x, cfg.norm)
+        x = x + _attn_decode(lp["attn"], h, model, cache["k"][i],
+                             cache["v"][i], cache_len)
+        h = norm_apply(lp["ln2"], x, cfg.norm)
+        x = x + _ffn_apply(lp, h, model)
+    cache["len"] = cache_len + 1
+    return _lm_head(model, params, x)[:, 0], cache

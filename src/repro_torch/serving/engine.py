@@ -1,0 +1,283 @@
+"""Serving engine: continuous batching over a paged KV cache.  The port
+of ``repro.serving.engine``.
+
+The reference engine is the ground-truth system the simulator is
+validated against: it plans each iteration with the simulator's own
+``BlockManager`` and ``ContinuousBatching``, so its batch and memory
+traces are exact, and its iteration walls calibrate the simulator's
+``TabularBackend``.  The port keeps its own copies of those classes
+(``repro_torch.core``); tests/test_torch_engine.py holds it to the
+reference engine's greedy tokens and iteration records, one by one.
+
+Only the paged path (attention families) is ported.  The reference's
+slot-cache path for SSM, hybrid and encoder-decoder models comes with
+those families and raises ``NotImplementedError`` until then.
+
+``device=None`` means the CUDA card; without one the engine raises.
+Each iteration wall ends with a device synchronisation.
+"""
+from __future__ import annotations
+
+import time
+from collections import deque
+from dataclasses import dataclass
+from typing import Dict, List, Optional, Tuple
+
+import numpy as np
+import torch
+
+from repro_torch.core.costmodel.operators import BatchMix
+from repro_torch.core.mem.block_manager import BlockManager, MemoryConfig
+from repro_torch.core.request import Request, State
+from repro_torch.core.sched.local import make_local_scheduler
+from repro_torch.models import model_zoo as zoo
+from repro_torch.models.common import resolve_device
+from repro_torch.serving import paged_model
+from repro_torch.serving.sampling import sample_token
+
+
+@dataclass
+class EngineConfig:
+    num_blocks: int = 256
+    block_size: int = 16
+    max_batch: int = 8
+    max_batched_tokens: int = 2048
+    max_pages_per_seq: int = 32
+    local_policy: str = "continuous"
+    attn_path: str = "gather"            # gather | pallas
+    greedy: bool = True
+    temperature: float = 1.0
+    seed: int = 0
+    max_mem_ratio: float = 1.0
+
+
+@dataclass
+class IterationRecord:
+    mix: BatchMix
+    wall: float
+    t_virtual: float
+    batch_ids: Tuple[int, ...]
+    kind: str                            # prefill | decode
+
+
+class ServingEngine:
+    """``pool`` (a multi-round KV pool with ``store``/``lookup``) and
+    ``discipline`` (a tenant-aware queue order with ``select``,
+    ``victim_key``, ``admit_key`` and ``on_service_start``) are taken by
+    duck typing, as the reference's scheduler uses them."""
+
+    def __init__(self, model: zoo.Model, params, ec: EngineConfig,
+                 pool=None, discipline=None, device=None):
+        if not paged_model.supports_paged(model):
+            raise NotImplementedError(
+                f"{model.cfg.name}: the slot-cache path for family "
+                f"{model.cfg.family!r} is not ported yet")
+        self.device = resolve_device(device)
+        self.model = model
+        self.params = params
+        self.ec = ec
+        #: tenant-aware queue ordering; None = FIFO
+        self.discipline = discipline
+
+        mc = MemoryConfig(num_blocks=ec.num_blocks,
+                          block_size=ec.block_size,
+                          kv_bytes_per_token=1.0,
+                          watermark=max(0.0, 1.0 - ec.max_mem_ratio))
+        # scheduler shim state (same classes as the simulator's Worker)
+        self.mem = BlockManager(mc)
+        self.pool = pool
+        self.waiting: deque = deque()
+        self.running: List[Request] = []
+        self.sched = make_local_scheduler(
+            ec.local_policy, max_batch=ec.max_batch,
+            max_batched_tokens=ec.max_batched_tokens)
+
+        self.max_ctx = ec.max_pages_per_seq * ec.block_size
+        # physical page `num_blocks` is the trash page for padded slots
+        self.pages = paged_model.init_pages(
+            model, ec.num_blocks + 1, ec.block_size, ec.max_batch,
+            ec.max_pages_per_seq, self.device)
+        self.trash_page = ec.num_blocks
+
+        self.tokens_by_req: Dict[int, List[int]] = {}
+        self.prompt_tokens: Dict[int, np.ndarray] = {}
+        self.clock = 0.0                 # virtual time (sum of iter walls)
+        self.records: List[IterationRecord] = []
+        self.finished: List[Request] = []
+        self._gen = torch.Generator(device=self.device)
+        self._gen.manual_seed(ec.seed)
+
+    # ------------------------------------------------------------------
+    def add_request(self, req: Request, prompt_tokens=None) -> None:
+        if prompt_tokens is None:
+            rng = np.random.RandomState(req.id % (2 ** 31))
+            prompt_tokens = rng.randint(
+                0, self.model.plan.vocab_logical,
+                size=(req.prompt_len,)).astype(np.int32)
+        if req.prompt_len + req.output_len > self.max_ctx:
+            raise ValueError(
+                f"request {req.id}: prompt {req.prompt_len} + output "
+                f"{req.output_len} exceeds the context {self.max_ctx}")
+        self.prompt_tokens[req.id] = np.asarray(prompt_tokens, np.int32)
+        self.tokens_by_req[req.id] = []
+        req.state = State.WAITING
+        self.waiting.append(req)
+
+    @property
+    def has_work(self) -> bool:
+        return bool(self.waiting or self.running)
+
+    # -- waiting-queue protocol shared with the simulator's Worker -------
+    def next_waiting(self) -> Optional[Request]:
+        if not self.waiting:
+            return None
+        if self.discipline is None:
+            return self.waiting[0]
+        return self.discipline.select(self.waiting, self.clock)
+
+    def pop_waiting(self, req: Request) -> None:
+        self.waiting.remove(req)
+
+    def victim_sort_key(self):
+        if self.discipline is None:
+            return lambda r: (r.arrival_time, r.id)
+        return self.discipline.victim_key(self.clock)
+
+    # ------------------------------------------------------------------
+    def step(self) -> Optional[IterationRecord]:
+        plan = self.sched.plan(self)
+        if plan.empty:
+            return None
+        for req in plan.admitted:
+            req.state = State.PREFILL if req.remaining_prefill else \
+                State.DECODE
+            if req not in self.running:
+                self.running.append(req)
+            if self.discipline is not None:
+                self.discipline.on_service_start(req, self.clock)
+        for req in plan.preempted:
+            req.state = State.PREEMPTED
+            if req in self.running:
+                self.running.remove(req)
+            self.waiting.appendleft(req)
+
+        for req in plan.decode:
+            self.mem.append_tokens(req, 1)
+
+        t0 = time.perf_counter()
+        if plan.prefill:
+            self._run_prefill(plan)
+            kind = "prefill"
+            batch = tuple(r.id for r, _, _ in plan.prefill)
+        else:
+            self._run_decode(plan)
+            kind = "decode"
+            batch = tuple(r.id for r in plan.decode)
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+        wall = time.perf_counter() - t0
+
+        mix = BatchMix.from_batch(
+            [(c, b) for _, c, b in plan.prefill],
+            [r.context_len for r in plan.decode])
+        self.clock += wall
+        rec = IterationRecord(mix=mix, wall=wall, t_virtual=self.clock,
+                              batch_ids=batch, kind=kind)
+        self.records.append(rec)
+
+        now = self.clock
+        for req, chunk, _ in plan.prefill:
+            req.prefill_done_len = max(req.cached_len,
+                                       req.prefill_done_len) + chunk
+            if req.remaining_prefill == 0:
+                self._emit(req, now)
+        for req in plan.decode:
+            self._emit(req, now)
+        return rec
+
+    def run(self, max_steps: int = 1_000_000) -> None:
+        steps = 0
+        while self.has_work and steps < max_steps:
+            if self.step() is None:
+                break
+            steps += 1
+
+    # ------------------------------------------------------------------
+    def _emit(self, req: Request, now: float) -> None:
+        first = req.tokens_generated == 0
+        req.tokens_generated += 1
+        req.token_times.append(now)
+        if first:
+            req.t_first_token = now
+        req.state = State.DECODE
+        if req.finished:
+            req.state = State.FINISHED
+            req.t_finish = now
+            self.running.remove(req)
+            self.mem.free(req)
+            if self.pool is not None:
+                self.pool.store(req.session_id, req.context_len)
+            self.finished.append(req)
+
+    # -- prefill -----------------------------------------------------------
+    def _full_sequence(self, req: Request) -> np.ndarray:
+        return np.concatenate([
+            self.prompt_tokens[req.id],
+            np.asarray(self.tokens_by_req[req.id], np.int32)])
+
+    @staticmethod
+    def _bucket(n: int) -> int:
+        """Pad prompt lengths to power-of-two buckets, as the reference
+        does for its jit cache, so both engines run the same shapes."""
+        return max(8, 1 << (int(n) - 1).bit_length())
+
+    def _run_prefill(self, plan) -> None:
+        for req, chunk, ctx in plan.prefill:
+            seq = self._full_sequence(req)[:ctx + chunk]
+            plen = int(seq.shape[0])
+            spad = min(self._bucket(plen), self.max_ctx)
+            padded = np.zeros((1, spad), np.int64)
+            padded[0, :plen] = seq
+            toks = torch.from_numpy(padded).to(self.device)
+            last_logits, k, v = paged_model.prefill_collect(
+                self.model, self.params, toks, plen)
+            table = np.full((self.ec.max_pages_per_seq,), self.trash_page,
+                            np.int64)
+            blocks = self.mem.block_table(req)
+            table[:len(blocks)] = blocks
+            paged_model.scatter_prefill(
+                self.model, self.pages, k, v,
+                torch.from_numpy(table).to(self.device), plen)
+            self.tokens_by_req[req.id].append(self._sample(last_logits))
+
+    # -- decode ------------------------------------------------------------
+    def _run_decode(self, plan) -> None:
+        reqs = plan.decode
+        bsz = self.ec.max_batch
+        tables = np.full((bsz, self.ec.max_pages_per_seq), self.trash_page,
+                         np.int32)
+        lens = np.zeros((bsz,), np.int32)
+        toks = np.zeros((bsz,), np.int64)
+        for i, r in enumerate(reqs):
+            bt = self.mem.block_table(r)
+            tables[i, :len(bt)] = bt
+            lens[i] = r.context_len - 1      # KV before this token
+            toks[i] = self._current_token(r)
+        self.pages["tables"] = torch.from_numpy(tables).to(self.device)
+        self.pages["len"] = torch.from_numpy(lens).to(self.device)
+        logits, self.pages = paged_model.paged_decode_step(
+            self.model, self.params, self.pages,
+            torch.from_numpy(toks).to(self.device), self.ec.attn_path)
+        for i, r in enumerate(reqs):
+            self.tokens_by_req[r.id].append(self._sample(logits[i]))
+
+    def _current_token(self, req: Request) -> int:
+        gen = self.tokens_by_req[req.id]
+        if gen:
+            return int(gen[-1])
+        return int(self.prompt_tokens[req.id][-1])
+
+    def _sample(self, logits) -> int:
+        return sample_token(logits, self._gen, greedy=self.ec.greedy,
+                            temperature=self.ec.temperature,
+                            vocab_logical=self.model.plan.vocab_logical)

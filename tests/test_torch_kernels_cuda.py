@@ -1,0 +1,211 @@
+"""The port's CUDA kernels against their plain PyTorch versions.
+
+The kernel tests need a CUDA card and skip without one.  This file
+imports no JAX, so it runs where the card is:
+
+    python -m pytest -q --noconftest tests/test_torch_kernels_cuda.py
+
+(``--noconftest`` because tests/conftest.py imports jax).  The kernel's
+output is held against its plain version run in fp32 on the same
+values, row by row (one q head of one token): the row's largest error
+over its largest |value| stays within 1e-2 in bf16 and 1e-4 in fp32, as
+in chip_smoke.py.  ``test_relative_limit_catches_an_off_by_one`` plants
+an off-by-one in a copy of each kernel's source and shows that the limit
+catches it on long rows; ``-s`` prints both readings.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels.flash_attention import ops as flash  # noqa: E402
+from repro_torch.kernels.paged_attention import ops as paged  # noqa: E402
+
+REL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+
+
+def _row_rel_err(got, want):
+    """Per output row (the last axis): largest |error| over largest
+    |value| of ``want``."""
+    err = (got.float() - want.float()).abs().amax(-1)
+    return err / want.float().abs().amax(-1).clamp_min(1e-30)
+
+
+def _paged_plain(args, **kw):
+    q, kp, vp, bt, cl = args
+    return paged.paged_attention_ref(q.float(), kp.float(), vp.float(), bt,
+                                     cl, **kw)
+
+
+def _flash_plain(q, k, v, **kw):
+    return flash.flash_attention_ref(q.float(), k.float(), v.float(), **kw)
+
+
+@pytest.fixture
+def cuda():
+    if not torch.cuda.is_available():
+        pytest.skip("needs a CUDA card")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    return torch.device("cuda")
+
+
+def _paged_inputs(b, hq, hkv, d, npages, page, mp, dtype, device, seed=0):
+    rng = np.random.RandomState(seed)
+    q = torch.from_numpy(rng.randn(b, hq, d).astype(np.float32))
+    kp = torch.from_numpy(rng.randn(npages, page, hkv, d).astype(np.float32))
+    vp = torch.from_numpy(rng.randn(npages, page, hkv, d).astype(np.float32))
+    # distinct pages per row (a permutation), the last row a padded row of
+    # length 1 on the trash page (the last page)
+    perm = rng.permutation(npages - 1)
+    bt = np.full((b, mp), npages - 1, np.int32)
+    cl = rng.randint(1, mp * page + 1, size=(b,)).astype(np.int32)
+    for i in range(b - 1):
+        bt[i] = perm[i * mp:(i + 1) * mp]
+    cl[-1] = 1
+    return ([t.to(device=device, dtype=dtype) for t in (q, kp, vp)]
+            + [torch.from_numpy(a).to(device) for a in (bt, cl)])
+
+
+#: (b, hq, hkv, d, npages, page, mp, dtype)
+PAGED = [
+    (8, 32, 32, 128, 129, 16, 16, torch.bfloat16),   # llama2-7b
+    (8, 32, 8, 128, 129, 16, 16, torch.bfloat16),    # GQA 4
+    (4, 16, 2, 64, 65, 16, 16, torch.bfloat16),      # GQA 8, d 64
+    (3, 8, 4, 64, 33, 8, 8, torch.float32),
+    (3, 4, 4, 128, 33, 32, 8, torch.float32),
+]
+
+
+@pytest.mark.parametrize("case", PAGED, ids=lambda c: "-".join(map(str, c)))
+def test_paged_kernel_vs_plain(cuda, case):
+    *shape, dtype = case
+    args = _paged_inputs(*shape, dtype, cuda)
+    before = paged.launches
+    got = paged.paged_attention(*args)
+    torch.cuda.synchronize()
+    assert paged.launches == before + 1
+    want = _paged_plain(args)
+    assert torch.isfinite(got).all()
+    assert _row_rel_err(got, want).max() <= REL_TOL[dtype]
+
+
+def test_paged_kernel_softcap(cuda):
+    args = _paged_inputs(4, 8, 2, 128, 33, 16, 8, torch.float32, cuda)
+    got = paged.paged_attention(*args, softcap=5.0)
+    want = paged.paged_attention_ref(*args, softcap=5.0)
+    assert _row_rel_err(got, want).max() <= REL_TOL[torch.float32]
+
+
+#: (b, sq, skv, h, hkv, d, causal, softcap, dtype)
+FLASH = [
+    (1, 512, 512, 32, 32, 128, True, 0.0, torch.bfloat16),
+    (2, 200, 200, 8, 2, 128, True, 0.0, torch.bfloat16),   # ragged, GQA
+    (2, 64, 192, 4, 1, 64, False, 0.0, torch.bfloat16),    # non-causal
+    (1, 100, 260, 4, 4, 64, True, 0.0, torch.bfloat16),    # top-left
+    (1, 256, 256, 4, 4, 128, True, 30.0, torch.bfloat16),  # softcap
+    (2, 128, 128, 4, 2, 64, True, 0.0, torch.float32),
+    (1, 70, 150, 4, 2, 128, False, 20.0, torch.float32),
+]
+
+
+@pytest.mark.parametrize("case", FLASH, ids=lambda c: "-".join(map(str, c)))
+def test_flash_kernel_vs_plain(cuda, case):
+    b, sq, skv, h, hkv, d, causal, softcap, dtype = case
+    rng = np.random.RandomState(1)
+    q, k, v = (torch.from_numpy(rng.randn(b, s, n, d).astype(np.float32))
+               .to(device=cuda, dtype=dtype)
+               for s, n in ((sq, h), (skv, hkv), (skv, hkv)))
+    before = flash.launches
+    got = flash.flash_attention(q, k, v, causal=causal, softcap=softcap)
+    torch.cuda.synchronize()
+    assert flash.launches == before + 1
+    want = _flash_plain(q, k, v, causal=causal, softcap=softcap)
+    assert torch.isfinite(got).all()
+    assert _row_rel_err(got, want).max() <= REL_TOL[dtype]
+
+
+#: planted faults: source, the text replaced, its replacement
+FAULTS = {
+    "paged-drops-last-position": (
+        "paged_attention", "p[t][g] = (pos0 + t < len) ? s : kNegInf;",
+        "p[t][g] = (pos0 + t < len - 1) ? s : kNegInf;"),
+    "paged-reads-one-more-position": (
+        "paged_attention", "const int len = min(lens[b], max_pages * page);",
+        "const int len = min(lens[b] + 1, max_pages * page);"),
+    "flash-drops-the-diagonal": (
+        "flash_attention", "(!causal || qpos >= kpos)",
+        "(!causal || qpos > kpos)"),
+    "flash-reads-one-more-position": (
+        "flash_attention", "(!causal || qpos >= kpos)",
+        "(!causal || qpos + 1 >= kpos)"),
+}
+
+
+def _serving_shape_case(name, device):
+    """Run kernel ``name`` once at the serving path's shape (llama2-7b,
+    bf16); returns (kernel output, fp32 plain output, the long rows).
+    Long rows: paged, every row but the padded one (contexts up to 2048);
+    flash, causal S 2048, the rows at positions 512 and later."""
+    dtype = torch.bfloat16
+    if name == "paged_attention":
+        args = _paged_inputs(8, 32, 32, 128, 1025, 16, 128, dtype, device)
+        return paged.paged_attention(*args), _paged_plain(args), \
+            slice(0, -1)
+    rng = np.random.RandomState(2)
+    q, k, v = (torch.from_numpy(rng.randn(1, 2048, 32, 128)
+                                .astype(np.float32)).to(device, dtype)
+               for _ in range(3))
+    return flash.flash_attention(q, k, v), _flash_plain(q, k, v), \
+        (slice(None), slice(512, None))
+
+
+@pytest.mark.parametrize("fault", sorted(FAULTS))
+def test_relative_limit_catches_an_off_by_one(cuda, fault, tmp_path,
+                                              monkeypatch):
+    """The sound kernel reads within the bf16 limit at the serving shape;
+    a copy of its source with one off-by-one planted reads past it on
+    the long rows alone."""
+    name, old, new = FAULTS[fault]
+    got, want, rows = _serving_shape_case(name, cuda)
+    sound = float(_row_rel_err(got, want)[rows].max())
+    src = (build.CSRC / f"{name}.cu").read_text()
+    assert src.count(old) == 1
+    (tmp_path / f"{name}.cu").write_text(src.replace(old, new))
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "lib")
+    monkeypatch.setattr(build, "_loaded", {})
+    got, want, rows = _serving_shape_case(name, cuda)
+    planted = float(_row_rel_err(got, want)[rows].max())
+    print(f"\n{fault}: long-row relative error, sound {sound:.3e}, "
+          f"planted {planted:.3e}, limit {REL_TOL[torch.bfloat16]:.0e}")
+    assert sound <= REL_TOL[torch.bfloat16] < planted
+
+
+def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    q = torch.zeros(2, 4, 96, device=cuda)              # head_dim 96
+    kp = torch.zeros(8, 16, 2, 96, device=cuda)
+    bt = torch.zeros(2, 4, dtype=torch.int32, device=cuda)
+    cl = torch.ones(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        paged.paged_attention(q, kp, kp, bt, cl)
+    x = torch.zeros(1, 64, 2, 64, device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        flash.flash_attention(x, x, x)
+
+
+def test_cpu_tensors_take_the_plain_version():
+    """On CPU tensors the wrappers compute the plain version and launch
+    nothing."""
+    args = _paged_inputs(3, 8, 4, 64, 33, 8, 8, torch.float32, "cpu")
+    before = paged.launches
+    torch.testing.assert_close(paged.paged_attention(*args),
+                               paged.paged_attention_ref(*args))
+    assert paged.launches == before
+    q = torch.randn(1, 40, 4, 64)
+    before = flash.launches
+    torch.testing.assert_close(flash.flash_attention(q, q[:, :, :2],
+                                                     q[:, :, :2]),
+                               flash.flash_attention_ref(q, q[:, :, :2],
+                                                         q[:, :, :2]))
+    assert flash.launches == before

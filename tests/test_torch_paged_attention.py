@@ -1,0 +1,124 @@
+"""repro_torch.kernels.paged_attention against the reference.
+
+On the CPU the wrapper runs the kernel's plain version; it is held to
+the JAX wrapper ``repro.kernels.paged_attention.ops.paged_attention``
+(the Pallas kernel in interpret mode, as tests/test_kernels.py runs it)
+on the reference's PAGED_CASES.  Tolerances as there: 2e-5 in fp32,
+3e-2 in bf16.  The CUDA kernel is held to the plain version on
+the card in tests/test_torch_kernels_cuda.py.
+"""
+import numpy as np
+import pytest
+
+torch = pytest.importorskip("torch")
+
+import jax.numpy as jnp  # noqa: E402
+
+from repro.kernels.paged_attention import ops as jax_paged  # noqa: E402
+from repro_torch.kernels.paged_attention import ops  # noqa: E402
+
+#: (b, hq, hkv, d, npages, page, mp, dtype) — tests/test_kernels.py
+PAGED_CASES = [
+    (2, 4, 2, 64, 16, 16, 4, "float32"),
+    (3, 8, 1, 32, 32, 8, 6, "float32"),
+    (2, 4, 4, 64, 16, 16, 3, "bfloat16"),
+    (1, 16, 2, 128, 8, 32, 2, "float32"),
+]
+
+
+def _inputs(case, seed=2):
+    b, hq, hkv, d, npages, page, mp, _ = case
+    rng = np.random.RandomState(seed)
+    q = rng.randn(b, hq, d).astype(np.float32)
+    kp = rng.randn(npages, page, hkv, d).astype(np.float32)
+    vp = rng.randn(npages, page, hkv, d).astype(np.float32)
+    bt = rng.randint(0, npages, size=(b, mp)).astype(np.int32)
+    cl = rng.randint(1, mp * page + 1, size=(b,)).astype(np.int32)
+    return q, kp, vp, bt, cl
+
+
+def _tol(dtype):
+    return 3e-2 if dtype == "bfloat16" else 2e-5
+
+
+def _jax(q, kp, vp, bt, cl, dtype):
+    jd = getattr(jnp, dtype)
+    out = jax_paged.paged_attention(jnp.asarray(q, jd), jnp.asarray(kp, jd),
+                                    jnp.asarray(vp, jd), jnp.asarray(bt),
+                                    jnp.asarray(cl))
+    return np.asarray(out.astype(jnp.float32))
+
+
+def _torch(q, kp, vp, bt, cl, dtype, device="cpu", softcap=0.0):
+    td = getattr(torch, dtype)
+    args = [torch.from_numpy(a).to(device=device, dtype=td)
+            for a in (q, kp, vp)]
+    args += [torch.from_numpy(a).to(device) for a in (bt, cl)]
+    return ops.paged_attention(*args, softcap=softcap)
+
+
+@pytest.mark.parametrize("case", PAGED_CASES)
+def test_plain_vs_jax(case):
+    dtype = case[-1]
+    q, kp, vp, bt, cl = _inputs(case)
+    got = _torch(q, kp, vp, bt, cl, dtype)
+    assert got.dtype == getattr(torch, dtype)
+    tol = _tol(dtype)
+    np.testing.assert_allclose(got.float().numpy(),
+                               _jax(q, kp, vp, bt, cl, dtype),
+                               rtol=tol, atol=tol)
+
+
+def test_block_table_permutation():
+    """Same KV content through permuted page tables -> same output."""
+    b, hq, hkv, d, npages, page, mp = 1, 2, 1, 64, 8, 4, 4
+    rng = np.random.RandomState(3)
+    q = torch.from_numpy(rng.randn(b, hq, d).astype(np.float32))
+    kseq = torch.from_numpy(rng.randn(mp * page, hkv, d).astype(np.float32))
+    vseq = torch.from_numpy(rng.randn(mp * page, hkv, d).astype(np.float32))
+    outs = []
+    for perm in ([0, 1, 2, 3], [3, 1, 0, 2]):
+        kp = torch.zeros(npages, page, hkv, d)
+        vp = torch.zeros(npages, page, hkv, d)
+        for logical, phys in enumerate(perm):
+            kp[phys] = kseq[logical * page:(logical + 1) * page]
+            vp[phys] = vseq[logical * page:(logical + 1) * page]
+        bt = torch.tensor([perm], dtype=torch.int32)
+        cl = torch.tensor([mp * page], dtype=torch.int32)
+        outs.append(ops.paged_attention(q, kp, vp, bt, cl))
+    np.testing.assert_allclose(outs[0].numpy(), outs[1].numpy(),
+                               rtol=1e-5, atol=1e-5)
+
+
+def test_padded_row_on_trash_page_is_finite():
+    """The engine pads the decode batch with rows of length 1 whose table
+    points only at the trash page; they must come out finite."""
+    case = (3, 4, 2, 64, 9, 16, 4, "float32")
+    q, kp, vp, bt, cl = _inputs(case, seed=4)
+    trash = kp.shape[0] - 1
+    bt[2] = trash
+    cl[2] = 1
+    got = _torch(q, kp, vp, bt, cl, "float32")
+    assert torch.isfinite(got).all()
+    np.testing.assert_allclose(got.numpy(), _jax(q, kp, vp, bt, cl,
+                                                 "float32"),
+                               rtol=2e-5, atol=2e-5)
+
+
+def test_softcap_matches_gather_formula():
+    """With a softcap the plain version equals the reference's gather-path
+    decode attention (which the Pallas kernel does not implement)."""
+    from repro.models.attention_impl import decode_attention
+    case = (2, 4, 2, 64, 16, 16, 4, "float32")
+    q, kp, vp, bt, cl = _inputs(case, seed=5)
+    got = _torch(q, kp, vp, bt, cl, "float32", softcap=5.0)
+    b, mp, page = q.shape[0], bt.shape[1], kp.shape[1]
+    kseq = jnp.asarray(kp)[jnp.asarray(bt)].reshape(b, mp * page,
+                                                   *kp.shape[2:])
+    vseq = jnp.asarray(vp)[jnp.asarray(bt)].reshape(b, mp * page,
+                                                   *vp.shape[2:])
+    want = decode_attention(jnp.asarray(q)[:, None], kseq, vseq,
+                            jnp.asarray(cl), logit_softcap=5.0)[:, 0]
+    np.testing.assert_allclose(got.numpy(), np.asarray(want),
+                               rtol=2e-5, atol=2e-5)
+
