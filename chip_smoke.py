@@ -20,7 +20,16 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    on prefilled pages, kernel path against plain path; a profile of a
    decode step and of a 1024-token prefill; the same requests on the
    plain path;
-5. the ``kernels`` JSON line, then the result line.
+5. serving: mamba2-130m at full width and depth (random weights from
+   ``init_params(seed=0)``) through ``launch/serve.py``'s engine on the
+   slot path, 16 requests of 20-990 prompt tokens (buckets on both SSD
+   branches) and 32 output tokens; the SSD kernel's launches over that
+   run, which must be 24 per prefill whose bucket is a multiple of the
+   chunk (256); every layer's ``mamba2_apply`` through the kernel
+   against ``impl="recurrent"`` on the hidden states the prefill feeds
+   it, and first-token logits of the two routes; a profile of a decode
+   step at batch 8 and of a 1024-token prefill;
+6. the ``kernels`` JSON line, then the result line.
 
 Without a CUDA device, or without the rest of the checkout, it fails
 before printing a result.
@@ -43,8 +52,12 @@ from repro_torch.core.request import Request  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as paged_ops  # noqa: E402
+from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
+from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.models import model_zoo as zoo  # noqa: E402
+from repro_torch.models import ssm  # noqa: E402
 from repro_torch.models.common import RunSettings  # noqa: E402
+from repro_torch.models.layers import norm_apply  # noqa: E402
 from repro_torch.serving import paged_model  # noqa: E402
 from repro_torch.serving.engine import EngineConfig, ServingEngine  # noqa: E402
 
@@ -69,6 +82,28 @@ REL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 #: above it.  A wrong kernel gives errors of the logits' own size.
 LOGIT_REL_MAX = 0.1
 LOGIT_REL_L2 = 0.1
+
+#: mamba2-130m, kernel route vs ``impl="recurrent"`` on the card, per
+#: layer: the norm of the difference over the recurrent route's norm, of
+#: the block output and of the final state.  Both routes compute the SSD
+#: in fp32 and differ in summation order; the chunked form also takes
+#: exp(seg_i - seg_j) of cumulative sums that grow large on heads that
+#: decay fast, and the block output rounds to bf16 (gated norm,
+#: out_proj).  Those differences are local, so the largest error of a
+#: row (printed too) is far larger than the norm; a kernel fault moves
+#: every row.  The limits lie between the sound readings and those of a
+#: planted kernel fault (PERF.md;
+#: tests/test_torch_kernels_cuda.py::test_ssd_limits_catch_a_planted_
+#: fault).
+SSM_BLOCK_REL = 1e-4
+SSM_STATE_REL = 1e-4
+#: first-token logits of the all-kernel chain against the all-recurrent
+#: chain through 24 bf16 layers, largest error over the largest |logit|:
+#: each layer's rounding differences pass through every layer above, so
+#: sound and planted readings lie close together, and the per-layer
+#: limits above are the ones that tell a fault.  This limit lies between
+#: the two readings.
+SSM_LOGIT_REL = 1.8e-2
 
 PAGE = 16
 NUM_BLOCKS = 1024
@@ -485,6 +520,332 @@ def profile_serving(model, params, pages, lens, toks, free_row):
     profile("prefill_1024", prefill, 3)
 
 
+# ---------------------------------------------------------------------------
+# The SSD kernel, and mamba2-130m on the slot path
+# ---------------------------------------------------------------------------
+def ssd_inputs(b, s, h, p, g, n, *, bc_dtype=torch.float32, strided=False,
+               with_state=False, model_decay=False, seed=0):
+    """SSD inputs on the card, drawn like tests/test_kernels.py's (dt·A
+    about -1 a step).  ``model_decay`` draws dt·A as a mamba2 layer does
+    (dt = softplus(N(0,1) + dt_bias), dt_bias as ``mamba2_init`` draws
+    it, A = -linspace(1, 16)), so slow heads carry the state across
+    chunks.  With ``strided``, B/C are column slices of one
+    (B,S,H*P+2*G*N) tensor, as the model hands them over."""
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    dev = "cuda"
+    xbar = torch.randn(b, s, h, p, generator=gen, device=dev)
+    if model_decay:
+        lo, hi = np.log(1e-3), np.log(1e-1)
+        u = torch.rand(h, generator=gen, device=dev) * (hi - lo) + lo
+        dt = torch.nn.functional.softplus(
+            torch.randn(b, s, h, generator=gen, device=dev)
+            + torch.log(torch.expm1(torch.exp(u))))
+        dA_log = -dt * torch.linspace(1.0, 16.0, h, device=dev)
+    else:
+        dt = torch.nn.functional.softplus(
+            torch.randn(b, s, h, generator=gen, device=dev))
+        dA_log = -dt * torch.exp(torch.rand(1, 1, h, generator=gen,
+                                            device=dev))
+    if strided:
+        xbc = torch.randn(b, s, h * p + 2 * g * n, generator=gen,
+                          device=dev).to(bc_dtype)
+        Bm = xbc[..., h * p:h * p + g * n].reshape(b, s, g, n)
+        Cm = xbc[..., h * p + g * n:].reshape(b, s, g, n)
+    else:
+        Bm = torch.randn(b, s, g, n, generator=gen, device=dev).to(bc_dtype)
+        Cm = torch.randn(b, s, g, n, generator=gen, device=dev).to(bc_dtype)
+    state0 = torch.randn(b, h, n, p, generator=gen, device=dev) \
+        if with_state else None
+    return xbar, dA_log, Bm, Cm, state0
+
+
+def ssd_flops(b, s, h, p, g, n, chunk):
+    """(least, as counted by the Pallas kernel) flops of one scan: the
+    least counts the lower triangle of each chunk's L x L products only
+    and C.B^T once per group; the Pallas count is
+    2 L^2 N + 2 L^2 P + 4 L N P per (chunk, head)."""
+    full, ragged = divmod(s, chunk)
+    lens = [chunk] * full + ([ragged] if ragged else [])
+    least = pallas = 0
+    for L in lens:
+        tri = L * (L + 1) // 2
+        least += b * (2 * tri * n * g + h * (2 * tri * p + 4 * L * n * p))
+        pallas += b * h * (2 * L * L * n + 2 * L * L * p + 4 * L * n * p)
+    return least, pallas
+
+
+def ssd_case(name, b, s, h, p, g, n, chunk, **kw):
+    """The SSD kernel against its plain version (fp32, on the same
+    values, the ragged case through the wrapper's padding), per row of
+    P: y and the final state."""
+    xbar, dA_log, Bm, Cm, state0 = ssd_inputs(b, s, h, p, g, n, **kw)
+    y, fs = ssd_ops.ssd_scan(xbar, dA_log, Bm, Cm, chunk=chunk,
+                             state0=state0)
+    torch.cuda.synchronize()
+
+    yw, fw = ssd_ops.ssd_scan(xbar.cpu(), dA_log.cpu(), Bm.float().cpu(),
+                              Cm.float().cpu(), chunk=chunk,
+                              state0=None if state0 is None
+                              else state0.cpu())
+    yw, fw = yw.cuda(), fw.cuda()
+    rel_y = float(row_rel_err(y, yw).max())
+    rel_s = float(row_rel_err(fs, fw).max())
+    err = max(float((y - yw).abs().max()), float((fs - fw).abs().max()))
+    finite = bool(torch.isfinite(y).all() and torch.isfinite(fs).all())
+    ok = finite and max(rel_y, rel_s) <= REL_TOL[torch.float32]
+
+    least, pallas = ssd_flops(b, s, h, p, g, n, chunk)
+    nbytes = (2 * xbar.numel() + dA_log.numel() + fs.numel()
+              * (2 if state0 is not None else 1)) * 4 \
+        + 2 * b * s * g * n * esize(Bm.dtype)
+    bound_ms, bound_by = bound(nbytes, least, torch.float32)
+    # the plain version on the card: the chunked formula in fp32, on
+    # inputs made contiguous as it would need them
+    xc, dc, bc, cc = (t.contiguous() for t in (xbar, dA_log, Bm.float(),
+                                               Cm.float()))
+    pad = (-s) % chunk
+    plain_ms = None
+    if not pad and s >= chunk:
+        plain_ms = time_ms(lambda: ssd_ops.ssd_chunked_ref(
+            xc, dc, bc, cc, chunk, state0), 5)
+    rec = {"case": name, "b": b, "s": s, "h": h, "p": p, "g": g, "n": n,
+           "chunk": chunk, "bc_dtype": str(Bm.dtype),
+           "model_decay": kw.get("model_decay", False),
+           "bc_strided": not Bm.is_contiguous(),
+           "state0": state0 is not None, "max_abs_err": err,
+           "max_rel_err_y": rel_y, "max_rel_err_state": rel_s,
+           "tol_rel": REL_TOL[torch.float32], "finite": finite,
+           "kernel_ms": time_ms(lambda: ssd_ops.ssd_scan(
+               xbar, dA_log, Bm, Cm, chunk=chunk, state0=state0), 20),
+           "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "flops_least": least, "flops_pallas_count": pallas,
+           "bytes": nbytes, "library_ms": None}
+    phase("ssd_scan", **rec)
+    if not ok:
+        raise AssertionError(f"ssd_scan {name}: row errors y {rel_y}, "
+                             f"state {rel_s} (tol {REL_TOL[torch.float32]})"
+                             f", finite={finite}")
+    return rec
+
+
+def check_ssd_kernel():
+    """tests/test_kernels.py's SSD_CASES (b, s, h, p, g, n, chunk; the
+    third ragged), then the serving path's shapes; returns the record of
+    the mamba2-130m prefill shape."""
+    bf16 = torch.bfloat16
+    for i, c in enumerate([(2, 128, 4, 32, 1, 64, 32),
+                           (1, 96, 4, 16, 2, 32, 32),
+                           (2, 100, 2, 16, 1, 16, 32),
+                           (1, 64, 8, 64, 1, 128, 64)]):
+        ssd_case(f"SSD_CASES[{i}]", *c)
+    full = ssd_case("mamba2-130m prefill S=1024", 1, 1024, 24, 64, 1, 128,
+                    256, bc_dtype=bf16, strided=True, model_decay=True,
+                    seed=1)
+    ssd_case("G=2", 1, 512, 24, 64, 2, 128, 256, bc_dtype=bf16,
+             strided=True, model_decay=True, seed=2)
+    ssd_case("initial state", 2, 512, 8, 64, 1, 128, 256, with_state=True,
+             model_decay=True, seed=3)
+    return full
+
+
+MAMBA_PROMPTS_SHORT = (20, 128)     # bucket <= 128: the recurrent scan
+MAMBA_PROMPTS_LONG = (300, 990)     # bucket 512 or 1024: the SSD kernel
+MAMBA_SHORT, MAMBA_LONG = 4, 12
+
+
+def mamba_requests():
+    rng = np.random.RandomState(SEED)
+    lens = np.concatenate([
+        rng.randint(MAMBA_PROMPTS_SHORT[0], MAMBA_PROMPTS_SHORT[1] + 1,
+                    size=MAMBA_SHORT),
+        rng.randint(MAMBA_PROMPTS_LONG[0], MAMBA_PROMPTS_LONG[1] + 1,
+                    size=MAMBA_LONG)])
+    rng.shuffle(lens)
+    return [Request(id=i, arrival_time=0.0, prompt_len=int(p),
+                    output_len=OUTPUT_LEN) for i, p in enumerate(lens)]
+
+
+def check_mamba2():
+    args = serve_cli.parse_args(["--arch", "mamba2-130m", "--max-batch",
+                                 str(MAX_BATCH), "--seed", str(SEED)])
+    cfg = get_config(args.arch)
+    t0 = time.perf_counter()
+    engine = serve_cli.build_engine(args)
+    torch.cuda.synchronize()
+    model, params = engine.model, engine.params
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    phase("mamba2_init_params", model=cfg.name, layers=cfg.num_layers,
+          d_model=cfg.d_model, ssd_heads=model.plan.ssm_heads,
+          head_dim=cfg.ssm.head_dim, d_state=cfg.ssm.d_state,
+          chunk=cfg.ssm.chunk_size, vocab=model.plan.vocab,
+          param_gb=n_bytes / 1e9, seconds=time.perf_counter() - t0)
+
+    # count the prefill calls whose bucket takes the chunked scan
+    spads = []
+    prefill = zoo.prefill
+
+    def counted(model_, params_, batch, cache, *a, **kw):
+        spads.append(int(batch["tokens"].shape[1]))
+        return prefill(model_, params_, batch, cache, *a, **kw)
+
+    zoo.prefill = counted
+    reqs = mamba_requests()
+    torch.cuda.reset_peak_memory_stats()
+    ssd_ops.launches = 0
+    t0 = time.perf_counter()
+    try:
+        summary = serve_cli.serve(engine, reqs)
+    finally:
+        zoo.prefill = prefill
+    torch.cuda.synchronize()
+    run_s = time.perf_counter() - t0
+    launches = ssd_ops.launches
+    chunk = cfg.ssm.chunk_size
+    chunked = sum(1 for s in spads if s % chunk == 0 and s > 1)
+    pre = [r.wall for r in engine.records if r.kind == "prefill"]
+    dec = [r.wall for r in engine.records if r.kind == "decode"]
+    generated = sum(r.tokens_generated for r in reqs)
+    prompt = sum(r.prompt_len for r in reqs)
+    walls = sum(r.wall for r in engine.records)
+    stats = {"model": cfg.name, "max_ctx": engine.max_ctx,
+             "requests": len(reqs),
+             "prompt_lens": [r.prompt_len for r in reqs],
+             "finished": summary["n_finished"],
+             "iterations": summary["iterations"],
+             "prefill_iterations": len(pre), "decode_iterations": len(dec),
+             "prefill_calls": len(spads),
+             "prefill_buckets": sorted(set(spads)),
+             "chunked_prefill_calls": chunked,
+             "launches": {"ssd_scan": launches},
+             "expected_ssd_launches": cfg.num_layers * chunked,
+             "mean_prefill_wall_ms": 1e3 * float(np.mean(pre)),
+             "mean_decode_wall_ms": 1e3 * float(np.mean(dec)),
+             "generated_tokens": generated, "prompt_tokens": prompt,
+             "generated_tokens_per_s": generated / walls,
+             "all_tokens_per_s": (generated + prompt) / walls,
+             "run_s": run_s,
+             "preemptions": sum(r.preempt_count for r in reqs),
+             "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    phase("serve_mamba2_slot_path", **stats)
+    if summary["n_finished"] != len(reqs) or \
+            any(r.tokens_generated != OUTPUT_LEN for r in reqs):
+        raise AssertionError("mamba2: not every request finished")
+    if chunked == 0 or chunked == len(spads):
+        raise AssertionError(f"mamba2: prefill buckets {sorted(set(spads))}"
+                             f" do not reach both SSD branches")
+    if launches != cfg.num_layers * chunked:
+        raise AssertionError(f"ssd_scan launched {launches} times, expected "
+                             f"{cfg.num_layers} x {chunked}")
+
+    compare_ssm_routes(model, params, route_prompts(engine), engine.max_ctx)
+    profile_mamba2(model, params, engine.max_ctx)
+    del engine
+    torch.cuda.empty_cache()
+    return stats
+
+
+def route_prompts(engine):
+    """The engine's first two prompts of over 128 tokens, by request id:
+    those the two routes are compared on."""
+    return [p for _, p in sorted(engine.prompt_tokens.items())
+            if len(p) > MAMBA_PROMPTS_SHORT[1]][:2]
+
+
+def ssm_route_errors(model, params, prompts, max_ctx):
+    """For each prompt, padded as the engine pads it: every layer's block
+    through the kernel (``impl="chunked"``) against ``impl="recurrent"``
+    on the hidden states the kernel-route prefill feeds that layer, and
+    first-token logits of the all-kernel chain against the all-recurrent
+    chain.  Returns the worst layer's relative L2 error (norm of the
+    difference over the recurrent route's norm) and worst row error of
+    the block output and of the final state, the worst prompt's logit
+    error (largest error over the largest |logit|), and the two chains'
+    logits."""
+    cfg = model.cfg
+    cd = model.compute_dtype
+    err = {"block_rel_l2": 0.0, "state_rel_l2": 0.0, "block_row_rel": 0.0,
+           "state_row_rel": 0.0, "logits_rel": 0.0}
+    got_logits, want_logits = [], []
+
+    def worst(key, value):
+        err[key] = max(err[key], float(value))
+
+    for p in prompts:
+        plen = len(p)
+        spad = min(ServingEngine._bucket(plen), max_ctx)
+        toks = torch.zeros((1, spad), dtype=torch.long, device="cuda")
+        toks[0, :plen] = torch.from_numpy(p.astype(np.int64))
+        xk = xr = zoo._embed_tokens(model, params, toks)
+        for i in range(cfg.num_layers):
+            lp = zoo.layer(params["layers"], i)
+            h = norm_apply(lp["ln"], xk, cfg.norm)
+            yk, (_, sk) = ssm.mamba2_apply(lp["mixer"], h, cfg.ssm,
+                                           compute_dtype=cd)
+            yr, (_, sr) = ssm.mamba2_apply(lp["mixer"], h, cfg.ssm,
+                                           compute_dtype=cd,
+                                           impl="recurrent")
+            for key, a, b in (("block", yk, yr), ("state", sk, sr)):
+                a, b = a.float(), b.float()
+                worst(f"{key}_rel_l2", (a - b).norm() / b.norm())
+                worst(f"{key}_row_rel", row_rel_err(a, b).max())
+            hr = norm_apply(lp["ln"], xr, cfg.norm)
+            yr2, _ = ssm.mamba2_apply(lp["mixer"], hr, cfg.ssm,
+                                      compute_dtype=cd, impl="recurrent")
+            xk, xr = xk + yk, xr + yr2
+        vocab = model.plan.vocab_logical          # past it: the -1e30 mask
+        got_logits.append(zoo._lm_head(model, params, xk)[0, plen - 1,
+                                                           :vocab])
+        want_logits.append(zoo._lm_head(model, params, xr)[0, plen - 1,
+                                                            :vocab])
+        a, b = got_logits[-1], want_logits[-1]
+        worst("logits_rel", (a - b).abs().max() / b.abs().max())
+    return err, got_logits, want_logits
+
+
+def compare_ssm_routes(model, params, prompts, max_ctx):
+    """``ssm_route_errors``, printed and held to the limits."""
+    err, got_logits, want_logits = ssm_route_errors(model, params, prompts,
+                                                    max_ctx)
+    rel = err.pop("logits_rel")
+    phase("mamba2_kernel_vs_recurrent", prompts=[len(p) for p in prompts],
+          layers=model.cfg.num_layers, **err,
+          tol_block_rel_l2=SSM_BLOCK_REL, tol_state_rel_l2=SSM_STATE_REL)
+    if err["block_rel_l2"] > SSM_BLOCK_REL or \
+            err["state_rel_l2"] > SSM_STATE_REL:
+        raise AssertionError(f"mamba2 block routes differ: {err}")
+    phase("mamba2_first_token_logits", rows=len(got_logits),
+          max_rel_err=rel, tol_rel=SSM_LOGIT_REL,
+          argmax_agree=sum(int(a.argmax() == b.argmax())
+                           for a, b in zip(got_logits, want_logits)),
+          finite=all(bool(torch.isfinite(a).all()) for a in got_logits))
+    if rel > SSM_LOGIT_REL or not all(
+            torch.isfinite(a).all()
+            and a.shape == (model.plan.vocab_logical,)
+            for a in got_logits):
+        raise AssertionError(f"mamba2 first-token logits differ: {rel}")
+
+
+def profile_mamba2(model, params, max_ctx):
+    """One decode step of all MAX_BATCH slots and one prefill of a
+    1024-token prompt, as the engine runs them."""
+    rng = np.random.RandomState(3)
+    cache = zoo.init_cache(model, MAX_BATCH, max_ctx, "cuda")
+    toks = torch.from_numpy(rng.randint(0, model.cfg.vocab_size,
+                                        size=MAX_BATCH)).cuda()
+    prompt = torch.from_numpy(rng.randint(0, model.cfg.vocab_size,
+                                          size=(1, 1024))).cuda()
+
+    def decode():
+        zoo.decode_step(model, params, cache, toks)
+
+    def prefill():
+        cache1 = zoo.init_cache(model, 1, max_ctx, "cuda")
+        zoo.prefill(model, params, {"tokens": prompt}, cache1)
+
+    profile("mamba2_decode_step", decode, 5)
+    profile("mamba2_prefill_1024", prefill, 3)
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -515,19 +876,25 @@ def main():
 
     with torch.no_grad():
         paged, flash = check_kernels()
+        ssd = check_ssd_kernel()
         serving = check_serving()
+        mamba = check_mamba2()
 
     kernels = []
+    launches = {**serving["launches"], **mamba["launches"]}
     for name, rec, src, replaces in (
             ("paged_attention", paged,
              "src/repro_torch/kernels/csrc/paged_attention.cu",
              "src/repro/kernels/paged_attention/kernel.py:79"),
             ("flash_attention", flash,
              "src/repro_torch/kernels/csrc/flash_attention.cu",
-             "src/repro/kernels/flash_attention/kernel.py:96")):
+             "src/repro/kernels/flash_attention/kernel.py:96"),
+            ("ssd_scan", ssd,
+             "src/repro_torch/kernels/csrc/ssd_scan.cu",
+             "src/repro/kernels/ssd_scan/kernel.py:75")):
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces,
-                        "launches": serving["launches"][name],
+                        "launches": launches[name],
                         "max_abs_err": rec["max_abs_err"],
                         "ms": rec["kernel_ms"],
                         "plain_ms": rec["plain_ms"],

@@ -1,4 +1,4 @@
-"""Config registry of the port: llama2-7b only, for now.
+"""Config registry of the port: llama2-7b and mamba2-130m, for now.
 
 ``get_config(name)`` returns the full-size ``ArchConfig``;
 ``get_smoke_config(name)`` returns the reduced config the CPU tests use.
@@ -8,10 +8,10 @@ from __future__ import annotations
 
 from typing import Dict
 
-from repro_torch.configs import llama2_7b
+from repro_torch.configs import llama2_7b, mamba2_130m
 from repro_torch.configs.base import ArchConfig
 
-_MODULES = [llama2_7b]
+_MODULES = [llama2_7b, mamba2_130m]
 
 CONFIGS: Dict[str, ArchConfig] = {m.CONFIG.name: m.CONFIG for m in _MODULES}
 SMOKE_CONFIGS: Dict[str, ArchConfig] = {

@@ -140,7 +140,10 @@ def embed_init(vocab, d_model, *, generator, device, dtype):
 
 
 def embed_apply(p, ids, compute_dtype):
-    return p["table"].to(compute_dtype)[ids]
+    """Rows ``ids`` of the table in the compute dtype.  The reference
+    casts the whole table, then gathers; gathering first and casting the
+    rows gives the same values without a cast of the table per call."""
+    return p["table"][ids].to(compute_dtype)
 
 
 def unembed_apply(table, x, *, vocab_logical: int, fp32: bool = True):

@@ -1,4 +1,5 @@
-"""Model zoo, dense family: the port of ``repro.models.model_zoo``.
+"""Model zoo, dense and SSM families: the port of
+``repro.models.model_zoo``.
 
 ``Model`` is a frozen bundle of (ArchConfig, PadPlan, RunSettings), as in
 the reference.  Parameters are a dict tree with the reference's keys and
@@ -7,17 +8,20 @@ layers in Python where the reference has ``lax.scan``.
 
 Storage dtypes (``param_dtype``): matmul weights and the embedding table
 in the compute dtype, because every reader casts them to it first;
-norm scales in fp32, and the unembedding table in fp32 when
-``logits_fp32``, because their readers compute in fp32.  A tied embedding
-table is therefore fp32 and cast at the lookup.  At llama2-7b that is
-about 13 GB of bf16 weights plus a 0.5 GB fp32 unembedding table.
+norm scales, the Mamba2 mixer's ``A_log``, ``D``, ``dt_bias``,
+``norm_scale``, ``conv_w`` and ``conv_b``, and the unembedding table when
+``logits_fp32``, in fp32, because their readers compute in fp32.  A tied
+embedding table is therefore fp32 and its rows are cast at the lookup.
+At llama2-7b that is about 13 GB of bf16 weights plus a 0.5 GB fp32
+unembedding table.
 
 Entry points
 ------------
 * ``init_params(model, seed, device)`` — random parameters.
 * ``forward(model, params, batch)``   — full-seq logits.
-* ``init_cache / prefill / decode_step`` — contiguous decode cache
-  ``{k,v: (L,B,Smax,Hkv,hd), len: (B,)}``, updated in place.
+* ``init_cache / prefill / decode_step`` — decode cache, updated in
+  place: dense ``{k,v: (L,B,Smax,Hkv,hd), len: (B,)}``; SSM
+  ``{conv: (L,B,W-1,C), ssd: (L,B,H,N,P) fp32, len: (B,)}``.
 """
 from __future__ import annotations
 
@@ -27,8 +31,9 @@ from typing import Any, Dict, Tuple
 
 import torch
 
-from repro_torch.configs.base import ArchConfig, DENSE
+from repro_torch.configs.base import ArchConfig, DENSE, SSM
 from repro_torch.distributed.padding import PadPlan, make_pad_plan
+from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention_impl import attend, decode_attention
 from repro_torch.models.common import (DEFAULT_SETTINGS, RunSettings,
                                        resolve_device)
@@ -38,7 +43,11 @@ from repro_torch.models.layers import (apply_rope, dense_apply, dense_init,
                                        unembed_apply)
 
 #: families this slice ports; the others raise
-PORTED_FAMILIES = (DENSE,)
+PORTED_FAMILIES = (DENSE, SSM)
+#: Mamba2 mixer leaves that the reference reads in fp32 (ssm.py:149-166,
+#: 218-228, 261-263), stored in fp32 so the port reads the same values
+SSM_FP32_LEAVES = ("A_log", "D", "dt_bias", "norm_scale", "conv_w",
+                   "conv_b")
 
 
 @dataclass(frozen=True)
@@ -77,6 +86,8 @@ def param_dtype(model: Model, path: Tuple[str, ...]) -> torch.dtype:
             and model.cfg.tie_embeddings:
         return torch.float32
     if path[-1] in ("scale", "bias"):
+        return torch.float32
+    if "mixer" in path and path[-1] in SSM_FP32_LEAVES:
         return torch.float32
     return model.compute_dtype
 
@@ -157,7 +168,7 @@ def _block_apply(p, x, model: Model, positions):
 # ---------------------------------------------------------------------------
 def init_params(model: Model, seed: int = 0, device=None) -> Dict[str, Any]:
     """Random parameters with the reference's shapes and scales
-    (model_zoo.py:266-282), drawn from a ``torch.Generator`` on
+    (model_zoo.py:266-293), drawn from a ``torch.Generator`` on
     ``device`` (not the reference's random stream).  ``device=None``
     means the CUDA card."""
     device = resolve_device(device)
@@ -196,10 +207,16 @@ def init_params(model: Model, seed: int = 0, device=None) -> Dict[str, Any]:
                             bias=cfg.mlp_bias, **kw),
         }
 
+    def ssm_layer():
+        return {"ln": norm_init(d, cfg.norm, device=device),
+                "mixer": ssm_mod.mamba2_init(d, cfg.ssm, dtype=cd,
+                                             n_heads_phys=plan.ssm_heads,
+                                             **kw)}
+
     params: Dict[str, Any] = {
         "embed": embed_init(plan.vocab, d, dtype=param_dtype(
             model, ("embed", "table")), **kw),
-        "layers": stacked(block),
+        "layers": stacked(ssm_layer if cfg.family == SSM else block),
         "final_norm": norm_init(d, cfg.norm, device=device),
     }
     if not cfg.tie_embeddings:
@@ -244,18 +261,58 @@ def _run_blocks(model: Model, params, tokens, on_kv=None):
 def forward(model: Model, params, batch) -> Tuple[torch.Tensor, Dict]:
     """Full-sequence logits.  batch: {"tokens": (B,S)}.
 
-    Returns (logits (B,S,V_phys), aux dict — empty for dense models)."""
-    x = _run_blocks(model, params, batch["tokens"])
+    Returns (logits (B,S,V_phys), aux dict — empty for these families)."""
+    if model.cfg.family == SSM:
+        x = _run_ssm_blocks(model, params, batch["tokens"])
+    else:
+        x = _run_blocks(model, params, batch["tokens"])
     return _lm_head(model, params, x), {}
+
+
+def _ssm_head_mask(model: Model, device):
+    plan = model.plan
+    if plan.ssm_heads == plan.ssm_heads_logical:
+        return None
+    return torch.as_tensor(plan.ssm_head_mask(), dtype=torch.float32,
+                           device=device)
+
+
+def _run_ssm_blocks(model: Model, params, tokens, on_states=None):
+    """Embed and run every Mamba2 block (pre-norm, residual), handing each
+    layer's (conv_state, ssd_state) to on_states."""
+    cfg = model.cfg
+    x = _embed_tokens(model, params, tokens)
+    hm = _ssm_head_mask(model, tokens.device)
+    for i in range(cfg.num_layers):
+        lp = layer(params["layers"], i)
+        h = norm_apply(lp["ln"], x, cfg.norm)
+        y, states = ssm_mod.mamba2_apply(
+            lp["mixer"], h, cfg.ssm, compute_dtype=model.compute_dtype,
+            head_mask=hm)
+        x = x + y
+        if on_states is not None:
+            on_states(i, states)
+    return x
 
 
 def init_cache(model: Model, batch: int, max_len: int, device=None):
     device = resolve_device(device)
     cfg, plan = model.cfg, model.plan
+    lens = torch.zeros((batch,), dtype=torch.int32, device=device)
+    if cfg.family == SSM:
+        s = cfg.ssm
+        conv_dim = plan.ssm_heads * s.head_dim + 2 * s.n_groups * s.d_state
+        return {"conv": torch.zeros(
+                    (cfg.num_layers, batch, s.conv_width - 1, conv_dim),
+                    dtype=model.compute_dtype, device=device),
+                "ssd": torch.zeros(
+                    (cfg.num_layers, batch, plan.ssm_heads, s.d_state,
+                     s.head_dim), dtype=torch.float32, device=device),
+                "len": lens}
     kv = (cfg.num_layers, batch, max_len, plan.n_kv, cfg.head_dim)
     return {"k": torch.zeros(kv, dtype=model.compute_dtype, device=device),
             "v": torch.zeros(kv, dtype=model.compute_dtype, device=device),
-            "len": torch.zeros((batch,), dtype=torch.int32, device=device)}
+            "len": lens}
 
 
 def prefill(model: Model, params, batch, cache, prompt_lens=None):
@@ -268,6 +325,15 @@ def prefill(model: Model, params, batch, cache, prompt_lens=None):
     if prompt_lens is None:
         prompt_lens = torch.full((b,), s, dtype=torch.int32,
                                  device=tokens.device)
+
+    if model.cfg.family == SSM:
+        def write_states(i, states):
+            cache["conv"][i] = states[0]
+            cache["ssd"][i] = states[1]
+
+        x = _run_ssm_blocks(model, params, tokens, on_states=write_states)
+        cache["len"] = prompt_lens
+        return _lm_head(model, params, x), cache
 
     def write(i, kv):
         cache["k"][i, :, :s] = kv[0]
@@ -299,9 +365,11 @@ def _attn_decode(p, x_t, model: Model, k_cache, v_cache, cache_len):
 def decode_step(model: Model, params, cache, tokens):
     """One autoregressive step.  tokens: (B,) int (the current token).
 
-    Returns (logits (B,V_phys), cache with the new token's K/V written in
-    place and ``len`` advanced)."""
+    Returns (logits (B,V_phys), cache with the new token's K/V (dense)
+    or states (SSM) written in place and ``len`` advanced)."""
     cfg = model.cfg
+    if cfg.family == SSM:
+        return _ssm_decode_step(model, params, cache, tokens)
     cache_len = cache["len"]
     x = _embed_tokens(model, params, tokens[:, None])
     for i in range(cfg.num_layers):
@@ -313,3 +381,23 @@ def decode_step(model: Model, params, cache, tokens):
         x = x + _ffn_apply(lp, h, model)
     cache["len"] = cache_len + 1
     return _lm_head(model, params, x)[:, 0], cache
+
+
+def _ssm_decode_step(model: Model, params, cache, tokens):
+    """One Mamba2 step over every row of the cache, states written in
+    place."""
+    cfg = model.cfg
+    x = _embed_tokens(model, params, tokens[:, None])[:, 0]
+    hm = _ssm_head_mask(model, tokens.device)
+    for i in range(cfg.num_layers):
+        lp = layer(params["layers"], i)
+        h = norm_apply(lp["ln"], x, cfg.norm)
+        y, (cs, ss) = ssm_mod.mamba2_decode(
+            lp["mixer"], h, cfg.ssm, compute_dtype=model.compute_dtype,
+            conv_state=cache["conv"][i], ssd_state=cache["ssd"][i],
+            head_mask=hm)
+        cache["conv"][i] = cs
+        cache["ssd"][i] = ss
+        x = x + y
+    cache["len"] = cache["len"] + 1
+    return _lm_head(model, params, x[:, None])[:, 0], cache

@@ -1,5 +1,6 @@
-"""Serving engine: continuous batching over a paged KV cache.  The port
-of ``repro.serving.engine``.
+"""Serving engine: continuous batching over a paged KV cache, or over
+per-request slots of a contiguous cache.  The port of
+``repro.serving.engine``.
 
 The reference engine is the ground-truth system the simulator is
 validated against: it plans each iteration with the simulator's own
@@ -9,9 +10,16 @@ traces are exact, and its iteration walls calibrate the simulator's
 (``repro_torch.core``); tests/test_torch_engine.py holds it to the
 reference engine's greedy tokens and iteration records, one by one.
 
-Only the paged path (attention families) is ported.  The reference's
-slot-cache path for SSM, hybrid and encoder-decoder models comes with
-those families and raises ``NotImplementedError`` until then.
+Attention families run the paged path.  SSM models run the slot path:
+one contiguous cache of ``max_batch`` rows (``model_zoo.init_cache``), a
+row ("slot") held by each running request, taken on admission and given
+back on preemption and on finish.  A prefill runs ``model_zoo.prefill``
+on the prompt padded to its power-of-two bucket with no mask, as the
+reference does, so the states written to the slot have absorbed the
+padding's zero tokens; only the first token is read at the last real
+position.  A decode step runs every slot, empty ones included.  The
+slot path of hybrid and encoder-decoder models is not ported and raises
+``NotImplementedError``.
 
 ``device=None`` means the CUDA card; without one the engine raises.
 Each iteration wall ends with a device synchronisation.
@@ -26,6 +34,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from repro_torch.configs.base import SSM
 from repro_torch.core.costmodel.operators import BatchMix
 from repro_torch.core.mem.block_manager import BlockManager, MemoryConfig
 from repro_torch.core.request import Request, State
@@ -34,6 +43,10 @@ from repro_torch.models import model_zoo as zoo
 from repro_torch.models.common import resolve_device
 from repro_torch.serving import paged_model
 from repro_torch.serving.sampling import sample_token
+
+
+#: families served on the slot path
+SLOT_FAMILIES = (SSM,)
 
 
 @dataclass
@@ -68,7 +81,8 @@ class ServingEngine:
 
     def __init__(self, model: zoo.Model, params, ec: EngineConfig,
                  pool=None, discipline=None, device=None):
-        if not paged_model.supports_paged(model):
+        self.paged = paged_model.supports_paged(model)
+        if not self.paged and model.cfg.family not in SLOT_FAMILIES:
             raise NotImplementedError(
                 f"{model.cfg.name}: the slot-cache path for family "
                 f"{model.cfg.family!r} is not ported yet")
@@ -93,11 +107,17 @@ class ServingEngine:
             max_batched_tokens=ec.max_batched_tokens)
 
         self.max_ctx = ec.max_pages_per_seq * ec.block_size
-        # physical page `num_blocks` is the trash page for padded slots
-        self.pages = paged_model.init_pages(
-            model, ec.num_blocks + 1, ec.block_size, ec.max_batch,
-            ec.max_pages_per_seq, self.device)
-        self.trash_page = ec.num_blocks
+        if self.paged:
+            # physical page `num_blocks` is the trash page for padded slots
+            self.pages = paged_model.init_pages(
+                model, ec.num_blocks + 1, ec.block_size, ec.max_batch,
+                ec.max_pages_per_seq, self.device)
+            self.trash_page = ec.num_blocks
+        else:
+            self.cache = zoo.init_cache(model, ec.max_batch, self.max_ctx,
+                                        self.device)
+            self.slot_of: Dict[int, int] = {}
+            self.free_slots = list(range(ec.max_batch))[::-1]
 
         self.tokens_by_req: Dict[int, List[int]] = {}
         self.prompt_tokens: Dict[int, np.ndarray] = {}
@@ -155,10 +175,14 @@ class ServingEngine:
                 self.running.append(req)
             if self.discipline is not None:
                 self.discipline.on_service_start(req, self.clock)
+            if not self.paged:
+                self.slot_of[req.id] = self.free_slots.pop()
         for req in plan.preempted:
             req.state = State.PREEMPTED
             if req in self.running:
                 self.running.remove(req)
+            if not self.paged and req.id in self.slot_of:
+                self.free_slots.append(self.slot_of.pop(req.id))
             self.waiting.appendleft(req)
 
         for req in plan.decode:
@@ -217,6 +241,8 @@ class ServingEngine:
             self.mem.free(req)
             if self.pool is not None:
                 self.pool.store(req.session_id, req.context_len)
+            if not self.paged:
+                self.free_slots.append(self.slot_of.pop(req.id))
             self.finished.append(req)
 
     # -- prefill -----------------------------------------------------------
@@ -239,19 +265,43 @@ class ServingEngine:
             padded = np.zeros((1, spad), np.int64)
             padded[0, :plen] = seq
             toks = torch.from_numpy(padded).to(self.device)
-            last_logits, k, v = paged_model.prefill_collect(
-                self.model, self.params, toks, plen)
-            table = np.full((self.ec.max_pages_per_seq,), self.trash_page,
-                            np.int64)
-            blocks = self.mem.block_table(req)
-            table[:len(blocks)] = blocks
-            paged_model.scatter_prefill(
-                self.model, self.pages, k, v,
-                torch.from_numpy(table).to(self.device), plen)
+            if self.paged:
+                last_logits, k, v = paged_model.prefill_collect(
+                    self.model, self.params, toks, plen)
+                table = np.full((self.ec.max_pages_per_seq,),
+                                self.trash_page, np.int64)
+                blocks = self.mem.block_table(req)
+                table[:len(blocks)] = blocks
+                paged_model.scatter_prefill(
+                    self.model, self.pages, k, v,
+                    torch.from_numpy(table).to(self.device), plen)
+            else:
+                cache1 = zoo.init_cache(self.model, 1, self.max_ctx,
+                                        self.device)
+                logits, cache1 = zoo.prefill(self.model, self.params,
+                                             {"tokens": toks}, cache1)
+                last_logits = logits[0, plen - 1]
+                self._write_slot(self.slot_of[req.id], cache1)
             self.tokens_by_req[req.id].append(self._sample(last_logits))
+            self._slot_write_len(req, plen)
+
+    def _write_slot(self, slot: int, cache1) -> None:
+        """Copy a single-request cache into row ``slot`` of every cache
+        array whose dimension 1 is the batch; ``len`` is written apart."""
+        for key, dst in self.cache.items():
+            if key != "len" and dst.dim() >= 2 \
+                    and dst.shape[1] == self.ec.max_batch:
+                dst[:, slot] = cache1[key][:, 0]
+
+    def _slot_write_len(self, req: Request, length: int) -> None:
+        if not self.paged:
+            self.cache["len"][self.slot_of[req.id]] = length
 
     # -- decode ------------------------------------------------------------
     def _run_decode(self, plan) -> None:
+        if not self.paged:
+            self._run_decode_slots(plan.decode)
+            return
         reqs = plan.decode
         bsz = self.ec.max_batch
         tables = np.full((bsz, self.ec.max_pages_per_seq), self.trash_page,
@@ -270,6 +320,22 @@ class ServingEngine:
             torch.from_numpy(toks).to(self.device), self.ec.attn_path)
         for i, r in enumerate(reqs):
             self.tokens_by_req[r.id].append(self._sample(logits[i]))
+
+    def _run_decode_slots(self, reqs) -> None:
+        """One decode step over every slot; empty slots decode token 0."""
+        toks = np.zeros((self.ec.max_batch,), np.int64)
+        lens = self.cache["len"].cpu().numpy().copy()
+        for r in reqs:
+            slot = self.slot_of[r.id]
+            toks[slot] = self._current_token(r)
+            lens[slot] = r.context_len - 1
+        self.cache["len"] = torch.from_numpy(lens).to(self.device)
+        logits, self.cache = zoo.decode_step(
+            self.model, self.params, self.cache,
+            torch.from_numpy(toks).to(self.device))
+        for r in reqs:
+            self.tokens_by_req[r.id].append(
+                self._sample(logits[self.slot_of[r.id]]))
 
     def _current_token(self, req: Request) -> int:
         gen = self.tokens_by_req[req.id]

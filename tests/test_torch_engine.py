@@ -13,6 +13,11 @@ Run once on the plain path (``gather``, naive prefill attention) and
 once on the kernel path (``pallas`` decode and prefill): the reference
 runs its Pallas kernels in interpret mode, the port its kernels' plain
 versions, as it does for any CPU tensor.
+
+The slot path (mamba2-130m smoke model, fp32) is held to the same
+standard: greedy tokens and iteration records exactly, with preemption
+forced and prompts whose buckets reach both SSD branches, and the slot
+caches (``conv``, ``ssd``) after the run to 1e-5.
 """
 import dataclasses
 
@@ -112,3 +117,66 @@ def test_sampling_respects_padded_vocab():
                       for _ in range(20)])
     assert draws[0] == draws[1]
     assert set(draws[0]) <= {0, 1, 2, 3} and len(set(draws[0])) > 1
+
+
+#: prompts of 5 and 12 tokens bucket to 8 and 16, not multiples of the
+#: smoke chunk (32): the recurrent scan.  20, 33, 40 and 70 bucket to 32,
+#: 64 and 128: the chunked scan.
+SSM_PROMPTS = [5, 20, 40, 70, 12, 33]
+SSM_OUTPUTS = [8, 6, 10, 12, 5, 9]
+SSM_ENGINE = dict(num_blocks=11, block_size=8, max_batch=3,
+                  max_pages_per_seq=16)
+
+
+def test_slot_engine_matches_reference():
+    jcfg = dataclasses.replace(jax_smoke("mamba2-130m"), dtype="float32")
+    tcfg = dataclasses.replace(get_smoke_config("mamba2-130m"),
+                               dtype="float32")
+    jm = jzoo.build(jcfg)
+    params = jzoo.init_params(jm, jax.random.key(0))
+    tm = tzoo.build(tcfg)
+    tparams = params_from_jax(tm, jax.tree.map(np.asarray, params),
+                              device="cpu")
+
+    def requests(cls):
+        return [cls(id=i, arrival_time=0.01 * i, prompt_len=p, output_len=o)
+                for i, (p, o) in enumerate(zip(SSM_PROMPTS, SSM_OUTPUTS))]
+
+    jreqs = requests(JaxRequest)
+    je = jeng.ServingEngine(jm, params, jeng.EngineConfig(**SSM_ENGINE))
+    for r in jreqs:
+        je.add_request(r)
+    je.run()
+    treqs = requests(Request)
+    te = teng.ServingEngine(tm, tparams, teng.EngineConfig(**SSM_ENGINE),
+                            device="cpu")
+    for r in treqs:
+        te.add_request(r)
+    te.run()
+
+    assert not te.paged
+    assert len(te.finished) == len(treqs) == len(je.finished)
+    assert sum(r.preempt_count for r in jreqs) > 0, "no preemption forced"
+    assert [r.preempt_count for r in treqs] == \
+        [r.preempt_count for r in jreqs]
+    assert te.tokens_by_req == je.tokens_by_req
+    assert len(te.records) == len(je.records)
+    for t, j in zip(te.records, je.records):
+        assert t.kind == j.kind
+        assert t.batch_ids == j.batch_ids
+        assert dataclasses.asdict(t.mix) == dataclasses.asdict(j.mix)
+    for key in ("conv", "ssd"):
+        np.testing.assert_allclose(te.cache[key].numpy(),
+                                   np.asarray(je.cache[key]),
+                                   rtol=1e-5, atol=1e-5)
+    assert te.cache["len"].tolist() == np.asarray(je.cache["len"]).tolist()
+    assert sorted(te.free_slots) == list(range(SSM_ENGINE["max_batch"]))
+
+
+def test_slot_path_refuses_unported_families():
+    from repro_torch.configs.base import HYBRID
+    model = tzoo.Model(cfg=dataclasses.replace(
+        get_smoke_config("mamba2-130m"), family=HYBRID),
+        plan=tzoo.build(get_smoke_config("mamba2-130m")).plan)
+    with pytest.raises(NotImplementedError, match="slot-cache"):
+        teng.ServingEngine(model, {}, teng.EngineConfig(), device="cpu")

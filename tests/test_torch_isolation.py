@@ -55,3 +55,12 @@ def test_entry_points_refuse_cpu_fallback(monkeypatch):
     params = zoo.init_params(model, seed=0, device="cpu")
     with pytest.raises(RuntimeError, match="CUDA"):
         ServingEngine(model, params, EngineConfig())
+
+
+def test_serve_cli_refuses_cpu_fallback(monkeypatch):
+    """``launch/serve.py`` runs on the card unless ``--device cpu``."""
+    from repro_torch.launch import serve
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="CUDA"):
+        serve.main(["--arch", "mamba2-130m", "--smoke", "--requests", "1"])

@@ -12,7 +12,18 @@ over its largest |value| stays within 1e-2 in bf16 and 1e-4 in fp32, as
 in chip_smoke.py.  ``test_relative_limit_catches_an_off_by_one`` plants
 an off-by-one in a copy of each kernel's source and shows that the limit
 catches it on long rows; ``-s`` prints both readings.
+
+The SSD scan kernel is held to its plain version (run on the CPU, in
+fp32, on the same values) per row of P, on y and on the final state,
+within 1e-4: its products are fp32 FMAs.
+``test_ssd_limits_catch_a_planted_fault`` plants a fault in a copy of
+its source and shows that this limit, and chip_smoke.py's limits for a
+mamba2-130m layer through the kernel against ``impl="recurrent"``,
+catch it.
 """
+import importlib.util
+import pathlib
+
 import numpy as np
 import pytest
 
@@ -21,6 +32,7 @@ torch = pytest.importorskip("torch")
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as paged  # noqa: E402
+from repro_torch.kernels.ssd_scan import ops as ssd  # noqa: E402
 
 REL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 
@@ -209,3 +221,175 @@ def test_cpu_tensors_take_the_plain_version():
                                flash.flash_attention_ref(q, q[:, :, :2],
                                                          q[:, :, :2]))
     assert flash.launches == before
+
+
+# ---------------------------------------------------------------------------
+# SSD scan
+# ---------------------------------------------------------------------------
+def _ssd_inputs(b, s, h, p, g, n, device, *, bc_dtype=torch.float32,
+                strided=False, with_state=False, model_decay=False, seed=0):
+    """tests/test_kernels.py's distribution: dt·A about -1 a step, so the
+    state forgets a chunk within a few dozen steps.  ``model_decay``
+    draws dt·A as a mamba2 layer does (dt = softplus(N(0,1) + dt_bias),
+    dt_bias as ``mamba2_init`` draws it, A = -linspace(1, 16)): a step
+    decays by 1e-3 to 1 and slow heads carry the state across chunks."""
+    rng = np.random.RandomState(seed)
+    f32 = np.float32
+    xbar = torch.from_numpy(rng.randn(b, s, h, p).astype(f32))
+    if model_decay:
+        dt_bias = np.log(np.expm1(np.exp(rng.uniform(np.log(1e-3),
+                                                     np.log(1e-1), h))))
+        dt = np.log1p(np.exp(rng.randn(b, s, h) + dt_bias))
+        dA = dt * -np.linspace(1.0, 16.0, h)
+    else:
+        dt = np.log1p(np.exp(rng.randn(b, s, h)))
+        dA = -dt * np.exp(rng.uniform(size=(1, 1, h)))
+    dA_log = torch.from_numpy(dA.astype(f32))
+    if strided:
+        xbc = torch.from_numpy(rng.randn(b, s, h * p + 2 * g * n).astype(f32))
+        xbc = xbc.to(device=device, dtype=bc_dtype)
+        Bm = xbc[..., h * p:h * p + g * n].reshape(b, s, g, n)
+        Cm = xbc[..., h * p + g * n:].reshape(b, s, g, n)
+    else:
+        Bm, Cm = (torch.from_numpy(rng.randn(b, s, g, n).astype(f32))
+                  .to(device=device, dtype=bc_dtype) for _ in range(2))
+    state0 = torch.from_numpy(rng.randn(b, h, n, p).astype(f32)) \
+        .to(device) if with_state else None
+    return xbar.to(device), dA_log.to(device), Bm, Cm, state0
+
+
+def _ssd_rel_errs(args, chunk):
+    """(row error of y, of the final state): the kernel against its plain
+    version on CPU copies of the same values, in fp32."""
+    xbar, dA_log, Bm, Cm, state0 = args
+    y, fs = ssd.ssd_scan(xbar, dA_log, Bm, Cm, chunk=chunk, state0=state0)
+    torch.cuda.synchronize()
+    yw, fw = ssd.ssd_scan(xbar.cpu(), dA_log.cpu(), Bm.float().cpu(),
+                          Cm.float().cpu(), chunk=chunk,
+                          state0=None if state0 is None else state0.cpu())
+    assert torch.isfinite(y).all() and torch.isfinite(fs).all()
+    return (float(_row_rel_err(y.cpu(), yw).max()),
+            float(_row_rel_err(fs.cpu(), fw).max()))
+
+
+#: (b, s, h, p, g, n, chunk, options): tests/test_kernels.py SSD_CASES
+#: (the third ragged), then chip_smoke.py's serving-path shapes with a
+#: model's decay
+SSD = [
+    (2, 128, 4, 32, 1, 64, 32, {}),
+    (1, 96, 4, 16, 2, 32, 32, {}),
+    (2, 100, 2, 16, 1, 16, 32, {}),
+    (1, 64, 8, 64, 1, 128, 64, {}),
+    (1, 1024, 24, 64, 1, 128, 256,
+     {"bc_dtype": torch.bfloat16, "strided": True,
+      "model_decay": True}),                            # mamba2-130m
+    (1, 512, 24, 64, 2, 128, 256,
+     {"bc_dtype": torch.bfloat16, "strided": True, "model_decay": True}),
+    (2, 512, 8, 64, 1, 128, 256, {"with_state": True, "model_decay": True}),
+]
+
+
+@pytest.mark.parametrize("case", SSD, ids=lambda c: "-".join(
+    map(str, c[:7])) + "".join(f"-{k}" for k in c[7]))
+def test_ssd_kernel_vs_plain(cuda, case):
+    *shape, chunk, opts = case
+    args = _ssd_inputs(*shape, cuda, **opts)
+    before = ssd.launches
+    rel_y, rel_s = _ssd_rel_errs(args, chunk)
+    assert ssd.launches == before + 1
+    assert rel_y <= REL_TOL[torch.float32]
+    assert rel_s <= REL_TOL[torch.float32]
+
+
+SSD_FAULTS = {
+    "ssd-drops-the-diagonal": (
+        "const bool keep = j <= i && i < valid;",
+        "const bool keep = j < i && i < valid;"),
+    "ssd-drops-the-carried-state": (
+        "*s = *s * decay + su[r][q];", "*s = su[r][q];"),
+}
+
+
+def _chip_smoke():
+    """chip_smoke.py, imported for its comparison of the two SSD routes
+    and its limits (running it needs the card)."""
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", pathlib.Path(__file__).resolve().parents[1]
+        / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _mamba2_route_errs(cs):
+    """chip_smoke.py's comparison of the kernel route with
+    ``impl="recurrent"`` through mamba2-130m at full width, on the
+    prompts and weights (seed 0) of its serving phase."""
+    args = cs.serve_cli.parse_args(["--arch", "mamba2-130m", "--seed",
+                                    str(cs.SEED)])
+    engine = cs.serve_cli.build_engine(args)
+    for r in cs.mamba_requests():
+        engine.add_request(r)
+    err, _, _ = cs.ssm_route_errors(engine.model, engine.params,
+                                    cs.route_prompts(engine), engine.max_ctx)
+    return err
+
+
+@pytest.mark.parametrize("fault", sorted(SSD_FAULTS))
+def test_ssd_limits_catch_a_planted_fault(cuda, fault, tmp_path,
+                                          monkeypatch):
+    """The sound kernel reads within the 1e-4 kernel limit at the
+    mamba2-130m prefill shape, and within chip_smoke.py's limits for the
+    model's layers (kernel route against ``impl="recurrent"``); a copy of
+    its source with the fault planted reads past the kernel limit, the
+    block-output limit and the first-token logit limit (and, when it
+    drops the carried state, the final-state limit)."""
+    cs = _chip_smoke()
+    case = SSD[4]
+    with torch.no_grad():
+        sound = max(_ssd_rel_errs(_ssd_inputs(*case[:6], cuda, **case[7]),
+                                  case[6]))
+        sound_layers = _mamba2_route_errs(cs)
+        old, new = SSD_FAULTS[fault]
+        src = (build.CSRC / "ssd_scan.cu").read_text()
+        assert src.count(old) == 1
+        (tmp_path / "ssd_scan.cu").write_text(src.replace(old, new))
+        monkeypatch.setattr(build, "CSRC", tmp_path)
+        monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "lib")
+        monkeypatch.setattr(build, "_loaded", {})
+        planted = max(_ssd_rel_errs(_ssd_inputs(*case[:6], cuda,
+                                                **case[7]), case[6]))
+        planted_layers = _mamba2_route_errs(cs)
+    print(f"\n{fault}: kernel row error sound {sound:.3e}, planted "
+          f"{planted:.3e}, limit {REL_TOL[torch.float32]:.0e}")
+    for key in sorted(sound_layers):
+        print(f"{fault}: layers {key} sound {sound_layers[key]:.3e}, "
+              f"planted {planted_layers[key]:.3e}")
+    print(f"{fault}: limits block_rel_l2 {cs.SSM_BLOCK_REL}, state_rel_l2 "
+          f"{cs.SSM_STATE_REL}, logits_rel {cs.SSM_LOGIT_REL}")
+    assert sound <= REL_TOL[torch.float32] < planted
+    assert sound_layers["block_rel_l2"] <= cs.SSM_BLOCK_REL \
+        < planted_layers["block_rel_l2"]
+    assert sound_layers["state_rel_l2"] <= cs.SSM_STATE_REL
+    assert sound_layers["logits_rel"] <= cs.SSM_LOGIT_REL \
+        < planted_layers["logits_rel"]
+    if fault == "ssd-drops-the-carried-state":
+        assert cs.SSM_STATE_REL < planted_layers["state_rel_l2"]
+
+
+def test_ssd_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    x = torch.zeros(1, 64, 2, 128, device=cuda)         # head_dim 128
+    da = torch.zeros(1, 64, 2, device=cuda)
+    bc = torch.zeros(1, 64, 1, 16, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        ssd.ssd_scan(x, da, bc, bc, chunk=32)
+    with pytest.raises(TypeError):
+        ssd.ssd_scan(x[..., :64].contiguous().half(), da, bc, bc, chunk=32)
+
+
+def test_ssd_cpu_tensors_take_the_plain_version():
+    args = _ssd_inputs(1, 64, 2, 16, 1, 16, "cpu")
+    before = ssd.launches
+    y, fs = ssd.ssd_scan(*args[:4], chunk=32)
+    torch.testing.assert_close(y, ssd.ssd_chunked_ref(*args[:4], 32)[0])
+    assert ssd.launches == before

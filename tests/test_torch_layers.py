@@ -95,3 +95,21 @@ def test_embed_and_unembed_padded_vocab():
     want = jl.unembed_apply(jt, jx, vocab_logical=vocab_logical)
     _close(got, want)
     assert torch.all(got[..., vocab_logical:] == -1e30)
+
+
+def test_embed_gathers_rows_then_casts():
+    """An fp32 table read in bf16 (the tied table of mamba2-130m): the
+    port gathers the rows and casts them, the reference casts the table
+    and gathers; the values are bit-for-bit the same."""
+    rng = np.random.RandomState(4)
+    table = rng.randn(50, 16).astype(np.float32)
+    ids = rng.randint(0, 50, size=(3, 7))
+    got = tl.embed_apply({"table": torch.from_numpy(table)},
+                         torch.from_numpy(ids), torch.bfloat16)
+    want = jl.embed_apply({"table": jnp.asarray(table)}, jnp.asarray(ids),
+                          jnp.bfloat16)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, torch.from_numpy(table).to(torch.bfloat16)[
+        torch.from_numpy(ids)])
+    np.testing.assert_array_equal(got.float().numpy(),
+                                  np.asarray(want.astype(jnp.float32)))
