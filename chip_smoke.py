@@ -8,18 +8,21 @@ Run from the root of a checkout, on a machine with one NVIDIA H100:
 Phases, each printed as it ends; any failure raises and exits non-zero:
 
 1. the card: ``nvidia-smi`` name and power limit; TF32 off;
-2. the build of every CUDA kernel from ``src/repro_torch/kernels/csrc``;
+2. the build of every CUDA kernel from ``src/repro_torch/kernels/csrc``,
+   and the flash kernel's registers, spills and shared memory;
 3. each kernel against its plain PyTorch version on the card, at the
-   serving path's shapes, with the tolerance stated, timed beside the
-   plain version, the bound and (flash) ``scaled_dot_product_attention``;
+   serving path's shapes (flash: every prefill bucket, 64-2048), with the
+   tolerance stated, timed beside the plain version, the bound and
+   (flash) ``scaled_dot_product_attention``, flash also in TFLOP/s and
+   as a share of its bound;
 4. serving: llama2-7b at full width and depth (random weights from
    ``init_params(seed=0)``) behind ``ServingEngine``, 16 requests of
    64-1024 prompt tokens and 32 output tokens, on the kernel path; the
-   kernels' launch counts over that run; first-token logits of the
-   kernel path against the plain path; one decode step of a full batch
-   on prefilled pages, kernel path against plain path; a profile of a
-   decode step and of a 1024-token prefill; the same requests on the
-   plain path;
+   kernels' launch counts over that run (flash also by query length);
+   first-token logits of the kernel path against the plain path; one
+   decode step of a full batch on prefilled pages, kernel path against
+   plain path; a profile of a decode step and of a 1024-token prefill;
+   the same requests on the plain path;
 5. serving: mamba2-130m at full width and depth (random weights from
    ``init_params(seed=0)``) through ``launch/serve.py``'s engine on the
    slot path, 16 requests of 20-990 prompt tokens (buckets on both SSD
@@ -37,6 +40,7 @@ before printing a result.
 from __future__ import annotations
 
 import json
+import re
 import subprocess
 import sys
 import time
@@ -112,6 +116,7 @@ MAX_BATCH = 8
 N_REQUESTS = 16
 OUTPUT_LEN = 32
 PROMPT_RANGE = (64, 1024)
+FLASH_BUCKETS = (64, 128, 256, 512, 1024, 2048)
 SEED = 0
 
 
@@ -232,6 +237,7 @@ def flash_case(name, *, sq, skv, h, hkv, causal, dtype, d=128, softcap=0.0,
     flops = 4 * h * d * pairs
     nbytes = (2 * sq * h * d + 2 * skv * hkv * d) * esize(dtype)
     bound_ms, bound_by = bound(nbytes, flops, dtype)
+    kernel_ms = time_ms(lambda: flash_ops.flash_attention(q, k, v, **kw), 20)
 
     library_ms = None
     if not softcap:
@@ -247,12 +253,14 @@ def flash_case(name, *, sq, skv, h, hkv, causal, dtype, d=128, softcap=0.0,
            "hkv": hkv, "head_dim": d, "causal": causal, "softcap": softcap,
            "max_abs_err": err, "max_rel_err": rel,
            "tol_rel": REL_TOL[dtype], "finite": finite,
-           "kernel_ms": time_ms(
-               lambda: flash_ops.flash_attention(q, k, v, **kw), 20),
+           "kernel_ms": kernel_ms,
            "plain_ms": time_ms(
                lambda: flash_ops.flash_attention_ref(q, k, v, **kw), 5),
            "bound_ms": bound_ms, "bound_by": bound_by,
-           "library_ms": library_ms}
+           "library_ms": library_ms,
+           # the least flops (attended pairs only) over the kernel's time
+           "tflops_s": flops / kernel_ms / 1e9,
+           "bound_share": bound_ms / kernel_ms}
     phase("flash_attention", **rec)
     if not ok:
         raise AssertionError(f"flash_attention {name}: row error {rel} "
@@ -270,21 +278,22 @@ def check_kernels():
         paged_case("fp32 gqa 8/4 d64", batch=4, hq=8, hkv=4, d=64, dtype=f32,
                    seed=2),
     ]
-    flash = [flash_case(f"causal S={s}", sq=s, skv=s, h=32, hkv=32,
-                        causal=True, dtype=bf16)
-             for s in (128, 512, 1024, 2048)]
-    flash += [
-        flash_case("non-causal ragged kv", sq=200, skv=333, h=32, hkv=8,
-                   causal=False, dtype=bf16, seed=1),
-        flash_case("softcap 30", sq=512, skv=512, h=32, hkv=32, causal=True,
-                   dtype=bf16, softcap=30.0, seed=2),
-        flash_case("fp32 causal ragged d64", sq=300, skv=300, h=8, hkv=4,
-                   d=64, causal=True, dtype=f32, seed=3),
-        flash_case("fp32 causal ragged d128", sq=300, skv=300, h=8, hkv=2,
-                   causal=True, dtype=f32, seed=4),
-    ]
+    # every prefill bucket of the serving path (64 ... max_ctx 2048)
+    flash = {s: flash_case(f"causal S={s}", sq=s, skv=s, h=32, hkv=32,
+                           causal=True, dtype=bf16)
+             for s in FLASH_BUCKETS}
+    flash_case("non-causal ragged kv", sq=200, skv=333, h=32, hkv=8,
+               causal=False, dtype=bf16, seed=1)
+    flash_case("softcap 30", sq=512, skv=512, h=32, hkv=32, causal=True,
+               dtype=bf16, softcap=30.0, seed=2)
+    flash_case("causal ragged d64", sq=300, skv=300, h=8, hkv=4, d=64,
+               causal=True, dtype=bf16, seed=3)
+    flash_case("causal ragged d128", sq=1000, skv=1000, h=32, hkv=8,
+               causal=True, dtype=bf16, seed=4)
+    flash_case("top-left Sq<Skv d64", sq=130, skv=300, h=8, hkv=8, d=64,
+               causal=True, dtype=bf16, seed=5)
     # the rows of the kernels line: the serving path's shapes
-    return paged[0], flash[2]
+    return paged[0], flash[PROMPT_RANGE[1]]
 
 
 # ---------------------------------------------------------------------------
@@ -366,11 +375,14 @@ def check_serving():
     torch.cuda.reset_peak_memory_stats()
     paged_ops.launches = 0
     flash_ops.launches = 0
+    flash_ops.launches_by_sq = {}
     kernel_stats, kernel_tokens, prompts = serve(kernel_model, params,
                                                  "pallas")
     launches = {"paged_attention": paged_ops.launches,
                 "flash_attention": flash_ops.launches}
     kernel_stats["launches"] = launches
+    kernel_stats["flash_launches_by_sq"] = {
+        str(sq): n for sq, n in sorted(flash_ops.launches_by_sq.items())}
     kernel_stats["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
     phase("serve_kernel_path", **kernel_stats)
     for name, n in launches.items():
@@ -846,6 +858,36 @@ def profile_mamba2(model, params, max_ctx):
     profile("mamba2_prefill_1024", prefill, 3)
 
 
+def flash_resources():
+    """Per head_dim instance of the flash kernel: registers, stack and
+    spills as ``ptxas -v`` reported them at the build, and the dynamic
+    shared memory a block takes."""
+    report = build.ptxas_report("flash_attention")
+    lib = build.load("flash_attention")
+    out = []
+    for chunk in report.split("Compiling entry function")[1:]:
+        name = re.search(r"'(\S+)'", chunk).group(1)
+        if "flash_kernel" not in name:
+            continue
+        d = int(re.search(r"flash_kernelILi(\d+)E", name).group(1))
+        stack, stores, loads = map(int, re.search(
+            r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) "
+            r"bytes spill loads", chunk).groups())
+        static = re.search(r"(\d+) bytes smem", chunk)
+        out.append({"head_dim": d,
+                    "registers": int(re.search(r"Used (\d+) registers",
+                                               chunk).group(1)),
+                    "stack_bytes": stack, "spill_store_bytes": stores,
+                    "spill_load_bytes": loads,
+                    "static_smem_bytes": int(static.group(1)) if static
+                    else 0,
+                    "dynamic_smem_bytes":
+                        lib.flash_attention_smem_bytes(d)})
+    if not out:
+        raise AssertionError("no flash kernel in the ptxas report")
+    return out
+
+
 def _leaves(tree):
     for v in tree.values():
         if isinstance(v, dict):
@@ -873,6 +915,7 @@ def main():
     libs = build.build()
     phase("build", seconds=time.perf_counter() - t0,
           libraries=sorted(p.name for p in libs.values()))
+    phase("flash_attention_resources", kernels=flash_resources())
 
     with torch.no_grad():
         paged, flash = check_kernels()

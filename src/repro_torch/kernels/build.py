@@ -2,7 +2,9 @@
 
 Each ``csrc/<name>.cu`` compiles on its own with ``nvcc`` for ``sm_90a``
 into a shared library with a plain C interface (no PyTorch headers, so a
-build takes seconds).  Libraries go to ``build/repro_torch_kernels/`` at
+build takes seconds).  ``ptxas -v``'s report of each kernel (registers,
+spills, static shared memory) is kept beside the library
+(``ptxas_report``).  Libraries go to ``build/repro_torch_kernels/`` at
 the root of the checkout, named by a hash of the source, so an edited
 source builds anew and an unchanged one loads from disk.  A failed build
 raises with nvcc's stderr.  Nothing here runs at import.
@@ -20,7 +22,8 @@ from typing import Dict, List, Optional
 CSRC = Path(__file__).resolve().parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "repro_torch_kernels"
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
-              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo"]
+              "-O3", "-shared", "-Xcompiler", "-fPIC", "-lineinfo",
+              "-Xptxas", "-v"]
 
 _loaded: Dict[str, ctypes.CDLL] = {}
 
@@ -69,10 +72,16 @@ def build(names: Optional[List[str]] = None) -> Dict[str, Path]:
             errors.append(f"nvcc failed for {n}.cu (exit {proc.returncode}):"
                           f"\n{err}")
             continue
+        out.with_suffix(".ptxas.txt").write_text(err)
         os.replace(tmp, out)
     if errors:
         raise RuntimeError("\n".join(errors))
     return paths
+
+
+def ptxas_report(name: str) -> str:
+    """What ``ptxas -v`` said when ``csrc/<name>.cu`` was built."""
+    return _lib_path(name).with_suffix(".ptxas.txt").read_text()
 
 
 def load(name: str) -> ctypes.CDLL:

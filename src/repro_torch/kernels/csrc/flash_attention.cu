@@ -1,328 +1,560 @@
 // Flash attention forward for Hopper (sm_90a), plain C interface.
 //
-// Replaces: src/repro/kernels/flash_attention/kernel.py,
+// Replaces: src/repro/kernels/flash_attention/kernel.py:96,
 //   flash_attention_fwd / _flash_fwd_kernel (the Pallas TPU kernel),
 //   reached through ops.flash_attention.
 //
 // What it computes: full-sequence attention with an fp32 online softmax.
 // q (B,Sq,H,D), k/v (B,Skv,Hkv,D) in the model's layout, out (B,Sq,H,D);
 // q head h reads kv head h / (H/Hkv).  Scores are scaled by D^-1/2 and
-// optionally soft-capped (tanh(s/c)*c).  Causal masking is top-left
-// aligned, qpos >= kpos, as in the Pallas kernel; positions kpos >= Skv
-// are always masked, so ragged lengths need no padding by the caller.
-// bf16 or fp32, D in {64,128}.
+// optionally soft-capped (tanh(s/c)*c) before masking.  Causal masking is
+// top-left aligned, qpos >= kpos, as in the Pallas kernel; positions
+// kpos >= Skv are always masked, so ragged lengths need no padding by the
+// caller.  bf16 only, D in {64,128}.
 //
-// What bounds it on this card: at the prefill lengths of the serving
-// path (hundreds to thousands of tokens) the arithmetic, 4·D flops per
-// attended (q,k) pair, about Sq·Skv/2 pairs when causal, over 989 TFLOP/s
-// of bf16 tensor cores; the bytes (q, k, v, out once each) are far less.
+// What bounds it on this card: at the serving path's prefill shapes
+// (B 1, Sq = Skv = 64 ... 2048, H 32, D 128, causal) the least time is
+// the bytes (q, k, v and out once each, over 3.35 TB/s) below about 1200
+// tokens and the arithmetic above (4·D flops per attended (q,k) pair,
+// about Sq·Skv/2 pairs, over 989 TFLOP/s of bf16 tensor cores).  Met
+// in practice: the tensor cores' rate, and below 512 tokens the host's
+// cost of a call (PERF.md).
 //
-// What the design does about it: one block of 4 warps per (64-row q tile,
-// head, batch).  K/V tiles of 64 rows are staged in shared memory and
-// each is used by all 64 q rows.  Each warp owns 16 q rows, so between
-// the block-wide tile loads a warp only synchronises with itself.  KV
-// tiles wholly above the diagonal are never visited.  The running output
-// is kept in shared memory in fp32 so it can be rescaled row by row.
-// Both element types run one kernel body -- the tile loop, the masking
-// and the online softmax are shared -- and differ only in the two
-// products: tensor cores (WMMA 16x16x16, fp32 accumulation) for bf16,
-// FMAs for fp32, so the fp32 comparisons check the served kernel's
-// logic.  Loads are synchronous 16-byte copies; TMA, wgmma and a
-// pipelined ring of tiles are later changes.
+// What the design does about it (FlashAttention-3's shape, without its
+// overlap tricks):
+// - One block of three warpgroups per (128-row q tile, head, batch), the
+//   q tiles launched longest first (the causal rows that see most keys)
+//   so that the short ones fill the last wave.
+// - Warpgroup 0 is the producer: one thread issues TMA loads of Q once and
+//   of K and V into a 2-stage ring of 128-row tiles.  Each stage has a
+//   "full" mbarrier (TMA completes its bytes) and an "empty" one (every
+//   consumer warp arrives once the PV product that read the stage has
+//   retired); the parity flips on each wrap.  The producer gives up
+//   registers (setmaxnreg 40), the consumers take them (232).
+// - TMA reads 4-D maps over (D, H, S, B) in boxes of 64 columns x 128 rows
+//   with the 128-byte swizzle, so a D-128 tile is two boxes; rows past S
+//   arrive as zeros.  The maps are encoded on the host at every call
+//   through cuTensorMapEncodeTiled, found with cudaGetDriverEntryPoint,
+//   so the library needs no -lcuda.  A barrier wait of over a second
+//   traps: a lost arrival fails the launch instead of holding the card.
+// - Warpgroups 1 and 2 own 64 q rows each.  S = Q·K^T is wgmma m64n128k16
+//   with both operands in shared memory, accumulated in registers.  The
+//   online softmax runs in registers (each thread holds two rows of its
+//   warp's 16, reduced over the 4-thread quad) with exp2 and log2(e)
+//   folded into the scale; the mask is applied only on tiles that cross
+//   the diagonal or the Skv edge, and tiles wholly above the diagonal
+//   are never loaded.  P is packed to bf16 in registers, where the
+//   accumulator layout already is wgmma's A-operand layout, and
+//   O += P·V is wgmma m64n{D}k16 with V (row-major, so MN-major for B)
+//   read transposed from shared memory.  O stays in registers for the
+//   whole sweep; the rescale by exp2(m_old - m_new) is a register
+//   multiply.
+//
+// Left for later: overlapping one tile's softmax with the next tile's
+// QK^T inside a warpgroup, ping-pong scheduling of the two consumer
+// warpgroups, a persistent tile scheduler, a TMA store of O, and fp8.
+#include <cuda.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
-#include <mma.h>
+#include <math.h>
 #include <stdint.h>
 
 namespace {
 
-using namespace nvcuda;
+constexpr int kBM = 128;          // q rows per block, 64 per consumer warpgroup
+constexpr int kBN = 128;          // kv rows per tile
+constexpr int kStages = 2;        // depth of the K/V ring
+constexpr int kThreads = 384;     // producer warpgroup + two consumers
+constexpr int kBoxCols = 64;      // bf16 columns of a TMA box: 128 bytes
+constexpr int kBoxBytes = kBN * kBoxCols * 2;
+constexpr int kConsumerWarps = 8;
+constexpr float kLog2e = 1.4426950408889634f;
 
-constexpr int kBM = 64;      // q rows per block
-constexpr int kBN = 64;      // kv rows per tile
-constexpr int kThreads = 128;
-constexpr float kNegInf = -1e30f;
+// Dynamic shared memory, byte offsets from a 1024-byte aligned base (the
+// 128-byte swizzle repeats every 1024 bytes).
+template <int D>
+struct Smem {
+  static constexpr int TILE = kBN * D * 2;   // one 128-row tile, bf16
+  static constexpr int Q = 0;
+  static constexpr int K = Q + TILE;
+  static constexpr int V = K + kStages * TILE;
+  static constexpr int BAR = V + kStages * TILE;   // q, full[], empty[]
+  static constexpr int BYTES = BAR + 8 * (1 + 2 * kStages) + 1024;
+};
 
-__device__ __forceinline__ float warp_max(float v) {
+__device__ __forceinline__ uint32_t smem_addr(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, int count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;\n" ::"r"(bar),
+               "r"(count) : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, int bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n"
+               ::"r"(bar), "r"(bytes) : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ bool mbar_try_wait(uint32_t bar, int parity) {
+  uint32_t done;
+  asm volatile(
+      "{\n.reg .pred p;\n"
+      "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+      "selp.u32 %0, 1, 0, p;\n}\n"
+      : "=r"(done) : "r"(bar), "r"(parity) : "memory");
+  return done != 0;
+}
+
+__device__ __forceinline__ uint64_t now_ns() {
+  uint64_t t;
+  asm volatile("mov.u64 %0, %%globaltimer;\n" : "=l"(t));
+  return t;
+}
+
+// Spin until the barrier's phase of the given parity has completed.  A
+// wait of over a second means a lost arrival: trap, so that the launch
+// fails instead of holding the card.
+__device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const uint64_t t0 = now_ns();
+  while (!mbar_try_wait(bar, parity))
+    if (now_ns() - t0 > 1000000000ull) __trap();
+}
+
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         uint32_t bar, int c0, int c1, int c2,
+                                         int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx"
+      "::bytes [%0], [%1, {%3, %4, %5, %6}], [%2];\n"
+      ::"r"(dst), "l"(reinterpret_cast<uint64_t>(map)), "r"(bar), "r"(c0),
+      "r"(c1), "r"(c2), "r"(c3) : "memory");
+}
+
+// wgmma shared-memory descriptor of a 128-byte swizzled operand: start
+// address, leading and stride byte offsets (16-byte units), layout 1.
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr, uint32_t lbo,
+                                               uint32_t sbo) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(lbo >> 4) << 16) |
+         (static_cast<uint64_t>(sbo >> 4) << 32) | (1ull << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_wait0() {
+  asm volatile("wgmma.wait_group.sync.aligned 0;\n" ::: "memory");
+}
+
+// Keeps the compiler from moving reads or writes of wgmma accumulators
+// across the asynchronous product.
+template <int N>
+__device__ __forceinline__ void keep(float (&r)[N]) {
 #pragma unroll
-  for (int o = 16; o > 0; o >>= 1)
-    v = fmaxf(v, __shfl_xor_sync(0xffffffffu, v, o));
-  return v;
+  for (int i = 0; i < N; ++i) asm volatile("" : "+f"(r[i])::"memory");
 }
 
-__device__ __forceinline__ float warp_sum(float v) {
-#pragma unroll
-  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
-  return v;
+__device__ __forceinline__ float exp2_approx(float x) {
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
 }
 
-__device__ __forceinline__ void put(float* p, float v) { *p = v; }
-__device__ __forceinline__ void put(__nv_bfloat16* p, float v) {
-  *p = __float2bfloat16(v);
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&v);
 }
 
-__device__ __forceinline__ int kv_tiles(int q0, int skv, bool causal) {
+// D (64 x 128, fp32) (+)= A (64 x 16, smem) * B (128 x 16, smem)^T, both
+// K-major with the 128-byte swizzle; scale_d 0 overwrites D.
+__device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db), "r"(scale_d)
+      : "memory");
+}
+
+// D (64 x 128, fp32) += A (64 x 16, bf16 registers) * B (16 x 128, smem),
+// B MN-major (transposed) with the 128-byte swizzle.
+__device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)
+      : "memory");
+}
+
+// D (64 x 64, fp32) += A (64 x 16, bf16 registers) * B (16 x 64, smem),
+// B MN-major (transposed) with the 128-byte swizzle.
+__device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
+                                            const uint32_t (&a)[4],
+                                            uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)
+      : "memory");
+}
+
+
+// O += P·V for one 16-row slice of the tile's keys.
+template <int D>
+__device__ __forceinline__ void pv(float (&o)[D / 2], const uint32_t (&p)[4],
+                                   uint64_t dv) {
+  if constexpr (D == 128)
+    wgmma_rs_n128(o, p, dv);
+  else
+    wgmma_rs_n64(o, p, dv);
+}
+
+__device__ __forceinline__ int kv_tiles(int q0, int skv, int causal) {
   int n = (skv + kBN - 1) / kBN;
   if (causal) n = min(n, (q0 + kBM - 1) / kBN + 1);
   return n;
 }
 
-// Scaled, capped and masked score.
-__device__ __forceinline__ float score(float s, float scale, float softcap,
-                                       int qpos, int kpos, int skv,
-                                       bool causal) {
-  s *= scale;
-  if (softcap > 0.f) s = tanhf(s / softcap) * softcap;
-  const bool ok = kpos < skv && (!causal || qpos >= kpos);
-  return ok ? s : kNegInf;
-}
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_kernel(const __grid_constant__ CUtensorMap tq,
+             const __grid_constant__ CUtensorMap tk,
+             const __grid_constant__ CUtensorMap tv,
+             __nv_bfloat16* __restrict__ out, int sq, int skv, int h, int hkv,
+             int causal, float scale, float softcap) {
+  using L = Smem<D>;
+  constexpr int kBoxes = D / kBoxCols;
+  extern __shared__ __align__(1024) unsigned char smem[];
+  const uint32_t base = (smem_addr(smem) + 1023u) & ~1023u;
+  const uint32_t q_full = base + L::BAR;
+  const uint32_t full = q_full + 8;                // + 8 * stage
+  const uint32_t empty = full + 8 * kStages;       // + 8 * stage
 
-// Shared-memory layout (byte offsets).  Row pitches are padded by 16
-// bytes against bank conflicts and keep every WMMA tile 32-byte aligned.
-template <typename T, int D>
-struct Smem {
-  static constexpr int PAD = 16 / sizeof(T);
-  static constexpr int LDQ = D + PAD;      // T row pitch of Q, K, V
-  static constexpr int LDS = kBN + 4;      // fp32 row pitch of scores
-  static constexpr int LDP = kBN + PAD;    // T row pitch of P
-  static constexpr int LDO = D + 4;        // fp32 row pitch of O
-  static constexpr int Q = 0;
-  static constexpr int K = Q + kBM * LDQ * sizeof(T);
-  static constexpr int V = K + kBN * LDQ * sizeof(T);
-  static constexpr int S = V + kBN * LDQ * sizeof(T);
-  static constexpr int P = S + kBM * LDS * 4;
-  static constexpr int O = P + kBM * LDP * sizeof(T);
-  static constexpr int M = O + kBM * LDO * 4;
-  static constexpr int L = M + kBM * 4;
-  static constexpr int A = L + kBM * 4;
-  static constexpr int BYTES = A + kBM * 4;
-};
-
-// Copy rows [row0, row0+64) of one head into a (64, D) tile with pitch
-// ld, zero-filling rows at or past n_rows.
-template <typename T, int D>
-__device__ __forceinline__ void load_tile(T* dst, int ld, const T* src,
-                                          int row0, int n_rows,
-                                          int row_stride) {
-  constexpr int kElems = 16 / sizeof(T);   // elements per 16-byte chunk
-  constexpr int kChunks = D / kElems;
-  for (int idx = threadIdx.x; idx < 64 * kChunks; idx += kThreads) {
-    const int r = idx / kChunks;
-    const int c = idx % kChunks;
-    uint4 val = make_uint4(0, 0, 0, 0);
-    if (row0 + r < n_rows)
-      val = *reinterpret_cast<const uint4*>(
-          src + (size_t)(row0 + r) * row_stride + c * kElems);
-    *reinterpret_cast<uint4*>(dst + r * ld + c * kElems) = val;
-  }
-}
-
-// S = Q K^T for the warp's 16 rows starting at r0.
-template <typename L, int D>
-__device__ __forceinline__ void qk(const __nv_bfloat16* Qs,
-                                   const __nv_bfloat16* Ks, float* Ss,
-                                   int r0, int lane) {
-  wmma::fragment<wmma::accumulator, 16, 16, 16, float> sacc[kBN / 16];
-#pragma unroll
-  for (int j = 0; j < kBN / 16; ++j) wmma::fill_fragment(sacc[j], 0.f);
-#pragma unroll
-  for (int kk = 0; kk < D / 16; ++kk) {
-    wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                   wmma::row_major> a;
-    wmma::load_matrix_sync(a, Qs + r0 * L::LDQ + kk * 16, L::LDQ);
-#pragma unroll
-    for (int j = 0; j < kBN / 16; ++j) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::col_major> bk;
-      wmma::load_matrix_sync(bk, Ks + j * 16 * L::LDQ + kk * 16, L::LDQ);
-      wmma::mma_sync(sacc[j], a, bk, sacc[j]);
-    }
-  }
-#pragma unroll
-  for (int j = 0; j < kBN / 16; ++j)
-    wmma::store_matrix_sync(Ss + r0 * L::LDS + j * 16, sacc[j], L::LDS,
-                            wmma::mem_row_major);
-}
-
-template <typename L, int D>
-__device__ __forceinline__ void qk(const float* Qs, const float* Ks,
-                                   float* Ss, int r0, int lane) {
-  for (int idx = lane; idx < 16 * kBN; idx += 32) {
-    const int r = r0 + idx / kBN;
-    const int c = idx % kBN;
-    float acc = 0.f;
-    for (int d = 0; d < D; ++d) acc += Qs[r * L::LDQ + d] * Ks[c * L::LDQ + d];
-    Ss[r * L::LDS + c] = acc;
-  }
-}
-
-// O += P V for the warp's 16 rows starting at r0.
-template <typename L, int D>
-__device__ __forceinline__ void pv(const __nv_bfloat16* Ps,
-                                   const __nv_bfloat16* Vs, float* Os,
-                                   int r0, int lane) {
-  wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16,
-                 wmma::row_major> pa[kBN / 16];
-#pragma unroll
-  for (int kk = 0; kk < kBN / 16; ++kk)
-    wmma::load_matrix_sync(pa[kk], Ps + r0 * L::LDP + kk * 16, L::LDP);
-#pragma unroll
-  for (int n = 0; n < D / 16; ++n) {
-    wmma::fragment<wmma::accumulator, 16, 16, 16, float> o;
-    wmma::load_matrix_sync(o, Os + r0 * L::LDO + n * 16, L::LDO,
-                           wmma::mem_row_major);
-#pragma unroll
-    for (int kk = 0; kk < kBN / 16; ++kk) {
-      wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16,
-                     wmma::row_major> bv;
-      wmma::load_matrix_sync(bv, Vs + kk * 16 * L::LDQ + n * 16, L::LDQ);
-      wmma::mma_sync(o, pa[kk], bv, o);
-    }
-    wmma::store_matrix_sync(Os + r0 * L::LDO + n * 16, o, L::LDO,
-                            wmma::mem_row_major);
-  }
-}
-
-template <typename L, int D>
-__device__ __forceinline__ void pv(const float* Ps, const float* Vs,
-                                   float* Os, int r0, int lane) {
-  for (int idx = lane; idx < 16 * D; idx += 32) {
-    const int r = r0 + idx / D;
-    const int c = idx % D;
-    float acc = Os[r * L::LDO + c];
-    for (int j = 0; j < kBN; ++j)
-      acc += Ps[r * L::LDP + j] * Vs[j * L::LDQ + c];
-    Os[r * L::LDO + c] = acc;
-  }
-}
-
-template <typename T, int D>
-__global__ void __launch_bounds__(kThreads)
-flash_kernel(const T* __restrict__ q, const T* __restrict__ k,
-             const T* __restrict__ v, T* __restrict__ out, int sq, int skv,
-             int h, int hkv, int causal, float scale, float softcap) {
-  using L = Smem<T, D>;
-  extern __shared__ __align__(128) unsigned char smem[];
-  T* Qs = reinterpret_cast<T*>(smem + L::Q);
-  T* Ks = reinterpret_cast<T*>(smem + L::K);
-  T* Vs = reinterpret_cast<T*>(smem + L::V);
-  float* Ss = reinterpret_cast<float*>(smem + L::S);
-  T* Ps = reinterpret_cast<T*>(smem + L::P);
-  float* Os = reinterpret_cast<float*>(smem + L::O);
-  float* row_m = reinterpret_cast<float*>(smem + L::M);
-  float* row_l = reinterpret_cast<float*>(smem + L::L);
-  float* row_a = reinterpret_cast<float*>(smem + L::A);
-
-  const int q0 = blockIdx.x * kBM;
-  const int head = blockIdx.y;
-  const int b = blockIdx.z;
+  const int head = blockIdx.x;
+  const int b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kBM;   // longest rows first
   const int kvh = head / (h / hkv);
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int r0 = warp * 16;                // this warp's rows of the tile
-
-  load_tile<T, D>(Qs, L::LDQ, q + ((size_t)b * sq * h + head) * D, q0, sq,
-                  h * D);
-  for (int idx = threadIdx.x; idx < kBM * D; idx += kThreads)
-    Os[(idx / D) * L::LDO + idx % D] = 0.f;
-  for (int r = threadIdx.x; r < kBM; r += kThreads) {
-    row_m[r] = kNegInf;
-    row_l[r] = 0.f;
-  }
-
-  const T* kb = k + ((size_t)b * skv * hkv + kvh) * D;
-  const T* vb = v + ((size_t)b * skv * hkv + kvh) * D;
   const int n_tiles = kv_tiles(q0, skv, causal);
-  for (int t = 0; t < n_tiles; ++t) {
-    const int kv0 = t * kBN;
-    __syncthreads();                       // previous tile fully consumed
-    load_tile<T, D>(Ks, L::LDQ, kb, kv0, skv, hkv * D);
-    load_tile<T, D>(Vs, L::LDQ, vb, kv0, skv, hkv * D);
-    __syncthreads();
+  const int wg = threadIdx.x / 128;
 
-    qk<L, D>(Qs, Ks, Ss, r0, lane);
-    __syncwarp();
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+  }
+  __syncthreads();
 
-    // Online softmax over the tile, one row at a time, 2 columns a lane.
-    for (int rr = 0; rr < 16; ++rr) {
-      const int r = r0 + rr;
-      const int qpos = q0 + r;
-      const float x0 = score(Ss[r * L::LDS + lane], scale, softcap, qpos,
-                             kv0 + lane, skv, causal);
-      const float x1 = score(Ss[r * L::LDS + lane + 32], scale, softcap,
-                             qpos, kv0 + lane + 32, skv, causal);
-      const float m_old = row_m[r];
-      const float m_new = fmaxf(m_old, warp_max(fmaxf(x0, x1)));
-      const float p0 = expf(x0 - m_new);
-      const float p1 = expf(x1 - m_new);
-      const float sum = warp_sum(p0 + p1);
-      put(Ps + r * L::LDP + lane, p0);
-      put(Ps + r * L::LDP + lane + 32, p1);
-      __syncwarp();
-      if (lane == 0) {
-        const float alpha = expf(m_old - m_new);
-        row_a[r] = alpha;
-        row_l[r] = row_l[r] * alpha + sum;
-        row_m[r] = m_new;
+  if (wg == 0) {
+    // Producer: one thread keeps the ring filled.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      mbar_expect_tx(q_full, L::TILE);
+      for (int x = 0; x < kBoxes; ++x)
+        tma_load(base + L::Q + x * kBoxBytes, &tq, q_full, x * kBoxCols,
+                 head, q0, b);
+      for (int t = 0; t < n_tiles; ++t) {
+        const int stage = t % kStages;
+        if (t >= kStages) mbar_wait(empty + 8 * stage, (t / kStages - 1) & 1);
+        const uint32_t bar = full + 8 * stage;
+        mbar_expect_tx(bar, 2 * L::TILE);
+        for (int x = 0; x < kBoxes; ++x) {
+          const uint32_t off = stage * L::TILE + x * kBoxBytes;
+          tma_load(base + L::K + off, &tk, bar, x * kBoxCols, kvh, t * kBN, b);
+          tma_load(base + L::V + off, &tv, bar, x * kBoxCols, kvh, t * kBN, b);
+        }
       }
     }
-    __syncwarp();
-    for (int idx = lane; idx < 16 * D; idx += 32) {
-      const int r = r0 + idx / D;
-      Os[r * L::LDO + idx % D] *= row_a[r];
-    }
-    __syncwarp();
-
-    pv<L, D>(Ps, Vs, Os, r0, lane);
+    return;
   }
-  __syncwarp();
-  for (int idx = lane; idx < 16 * D; idx += 32) {
-    const int r = r0 + idx / D;
-    const int c = idx % D;
-    if (q0 + r < sq)
-      put(out + (((size_t)b * sq + q0 + r) * h + head) * D + c,
-          Os[r * L::LDO + c] / fmaxf(row_l[r], 1e-30f));
+
+  // Consumers: warpgroup wg owns rows [r_wg, r_wg + 64) of the q tile; a
+  // thread holds rows row0 and row0 + 8, and in each 8-column block of a
+  // product the columns cq and cq + 1.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int wt = threadIdx.x % 128;
+  const int warp = wt / 32;
+  const int lane = wt % 32;
+  const int r_wg = (wg - 1) * 64;
+  const int row0 = r_wg + warp * 16 + lane / 4;
+  const int cq = 2 * (lane % 4);
+  const float sl = (softcap > 0.f ? 1.f : scale) * kLog2e;
+
+  float o[D / 2];
+#pragma unroll
+  for (int i = 0; i < D / 2; ++i) o[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+  const uint32_t q_tile = base + L::Q + r_wg * 128;   // 128 bytes a row
+
+  mbar_wait(q_full, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int stage = t % kStages;
+    const int kv0 = t * kBN;
+    const uint32_t k_tile = base + L::K + stage * L::TILE;
+    const uint32_t v_tile = base + L::V + stage * L::TILE;
+    mbar_wait(full + 8 * stage, (t / kStages) & 1);
+
+    // S = Q K^T: K-major operands; a 16-column step moves 32 bytes
+    // inside a box, and every fourth step moves to the next box.
+    float s[kBN / 2];
+#pragma unroll
+    for (int i = 0; i < kBN / 2; ++i) s[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
+      wgmma_ss_n128(s, sw128_desc(q_tile + off, 16, 1024),
+                    sw128_desc(k_tile + off, 16, 1024), kk > 0);
+    }
+    wgmma_commit();
+    wgmma_wait0();
+    keep(s);
+
+    // Online softmax in registers: s[4j + e] is row row0 + 8 (e / 2),
+    // key kv0 + 8 j + cq + e % 2.
+    if (softcap > 0.f) {
+#pragma unroll
+      for (int i = 0; i < kBN / 2; ++i)
+        s[i] = tanhf(s[i] * scale / softcap) * softcap;
+    }
+    const bool edge = (causal && kv0 + kBN - 1 > q0 + r_wg) || kv0 + kBN > skv;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[4 * j + e] * sl;
+        if (edge) {
+          const int qpos = q0 + row0 + 8 * (e / 2);
+          const int kpos = kv0 + 8 * j + cq + e % 2;
+          const bool ok = kpos < skv && (!causal || qpos >= kpos);
+          if (!ok) x = -INFINITY;
+        }
+        s[4 * j + e] = x;
+        mx[e / 2] = fmaxf(mx[e / 2], x);
+      }
+    }
+    float mu[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      mu[i] = m_new == -INFINITY ? 0.f : m_new;   // a row with no key yet
+      const float alpha = exp2_approx(m[i] - mu[i]);
+      m[i] = m_new;
+      l[i] *= alpha;
+#pragma unroll
+      for (int j = 0; j < D / 8; ++j) {
+        o[4 * j + 2 * i] *= alpha;
+        o[4 * j + 2 * i + 1] *= alpha;
+      }
+    }
+    // P in bf16 as the A operand: registers 8kk .. 8kk+7 of S are the
+    // fragment of keys 16kk .. 16kk+15, in order.
+    uint32_t p[kBN / 16][4];
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const float p0 = exp2_approx(s[8 * kk + 2 * r] - mu[r % 2]);
+        const float p1 = exp2_approx(s[8 * kk + 2 * r + 1] - mu[r % 2]);
+        l[r % 2] += p0 + p1;
+        p[kk][r] = pack_bf16(p0, p1);
+      }
+    }
+
+    // O += P V: V is MN-major; a 16-key step moves 16 rows (2048 bytes),
+    // the second 64 columns lie one box (the leading offset) further.
+    keep(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kBN / 16; ++kk)
+      pv<D>(o, p[kk], sw128_desc(v_tile + kk * 16 * 128, kBoxBytes, 1024));
+    wgmma_commit();
+    wgmma_wait0();
+    keep(o);
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * stage);   // the stage is free
+  }
+
+  // Epilogue: O / l in bf16, rows past Sq not stored.
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qpos = q0 + row0 + 8 * i;
+    if (qpos >= sq) continue;
+    const float inv = 1.f / l[i];
+    __nv_bfloat16* dst = out + (((size_t)blockIdx.y * sq + qpos) * h + head)
+                         * D + cq;
+#pragma unroll
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) = __floats2bfloat162_rn(
+          o[4 * j + 2 * i] * inv, o[4 * j + 2 * i + 1] * inv);
   }
 }
 
-template <typename T, int D>
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult found;
+    if (cudaGetDriverEntryPoint("cuTensorMapEncodeTiled", &p,
+                                cudaEnableDefault, &found) == cudaSuccess &&
+        found == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// A 4-D map over (d, heads, s, batch) of a (batch, s, heads, d) bf16
+// tensor, read in boxes of 64 columns x 128 rows of one head with the
+// 128-byte swizzle; rows past s read as zeros.
+bool tensor_map(CUtensorMap* map, const void* ptr, int batch, int s,
+                int heads, int d) {
+  EncodeTiled encode = encode_tiled();
+  if (encode == nullptr) return false;
+  const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads, (cuuint64_t)s,
+                              (cuuint64_t)batch};
+  const cuuint64_t strides[3] = {(cuuint64_t)d * 2, (cuuint64_t)heads * d * 2,
+                                 (cuuint64_t)s * heads * d * 2};
+  const cuuint32_t box[4] = {kBoxCols, 1, kBN, 1};
+  const cuuint32_t elem[4] = {1, 1, 1, 1};
+  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
+                const_cast<void*>(ptr), dims, strides, box, elem,
+                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+                CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+                CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+template <int D>
 int launch(const void* q, const void* k, const void* v, void* out, int batch,
            int sq, int skv, int h, int hkv, int causal, float scale,
            float softcap, cudaStream_t stream) {
-  constexpr int smem = Smem<T, D>::BYTES;
+  CUtensorMap tq, tk, tv;
+  if (!tensor_map(&tq, q, batch, sq, h, D) ||
+      !tensor_map(&tk, k, batch, skv, hkv, D) ||
+      !tensor_map(&tv, v, batch, skv, hkv, D))
+    return -2;
+  constexpr int smem = Smem<D>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<T, D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid((sq + kBM - 1) / kBM, h, batch);
-  flash_kernel<T, D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<T*>(out), sq, skv, h, hkv,
-      causal, scale, softcap);
+  const dim3 grid(h, batch, (sq + kBM - 1) / kBM);
+  flash_kernel<D><<<grid, kThreads, smem, stream>>>(
+      tq, tk, tv, static_cast<__nv_bfloat16*>(out), sq, skv, h, hkv, causal,
+      scale, softcap);
   return static_cast<int>(cudaGetLastError());
 }
 
 }  // namespace
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after the
-// launch, or -1 for a configuration the kernel does not take.
+// Dynamic shared memory of one block at this head_dim, in bytes (0 for a
+// head_dim the kernel does not take).
+extern "C" int flash_attention_smem_bytes(int head_dim) {
+  return head_dim == 64 ? Smem<64>::BYTES
+                        : head_dim == 128 ? Smem<128>::BYTES : 0;
+}
+
+// dtype: 1 = bfloat16, the only type taken.  Returns cudaGetLastError()
+// after the launch, -1 for a configuration the kernel does not take, or -2
+// when a TMA map cannot be encoded.
 extern "C" int flash_attention_launch(int dtype, const void* q, const void* k,
                                       const void* v, void* out, int batch,
                                       int sq, int skv, int h, int hkv,
                                       int head_dim, int causal, float scale,
                                       float softcap, void* stream) {
-  if (hkv <= 0 || h % hkv != 0 || sq <= 0 || skv <= 0) return -1;
+  if (dtype != 1 || batch <= 0 || hkv <= 0 || h % hkv != 0 || sq <= 0 ||
+      skv <= 0 || batch > 65535 || (sq + kBM - 1) / kBM > 65535)
+    return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 1 && head_dim == 64)
-    return launch<__nv_bfloat16, 64>(q, k, v, out, batch, sq, skv, h, hkv,
-                                     causal, scale, softcap, s);
-  if (dtype == 1 && head_dim == 128)
-    return launch<__nv_bfloat16, 128>(q, k, v, out, batch, sq, skv, h, hkv,
-                                      causal, scale, softcap, s);
-  if (dtype == 0 && head_dim == 64)
-    return launch<float, 64>(q, k, v, out, batch, sq, skv, h, hkv, causal,
-                             scale, softcap, s);
-  if (dtype == 0 && head_dim == 128)
-    return launch<float, 128>(q, k, v, out, batch, sq, skv, h, hkv, causal,
-                              scale, softcap, s);
+  if (head_dim == 64)
+    return launch<64>(q, k, v, out, batch, sq, skv, h, hkv, causal, scale,
+                      softcap, s);
+  if (head_dim == 128)
+    return launch<128>(q, k, v, out, batch, sq, skv, h, hkv, causal, scale,
+                       softcap, s);
   return -1;
 }

@@ -13,9 +13,13 @@ masks ragged lengths itself, so none of the TPU wrapper's padding of the
 sequence to the block and of head_dim to 128 (with its rescaling of q,
 ops.py:53-60) is carried over.
 
-``flash_attention`` runs ``flash_attention_ref`` for CPU tensors and the
-kernel for CUDA tensors; on a CUDA tensor it launches or raises.
-``launches`` counts kernel launches.
+The kernel is written for Hopper (TMA loads into a ring of K/V tiles,
+``wgmma`` products, the softmax in registers) and takes bf16 alone, as
+the models compute; the fp32 plain version serves the CPU and the
+comparisons.  ``flash_attention`` runs ``flash_attention_ref`` for CPU
+tensors and the kernel for CUDA tensors; on a CUDA tensor it launches or
+raises (``TypeError`` for any dtype but bf16).  ``launches`` counts
+kernel launches, ``launches_by_sq`` the same launches by query length.
 """
 from __future__ import annotations
 
@@ -26,11 +30,13 @@ import torch
 from repro_torch.kernels import build
 
 NEG_INF = -1e30
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPES = {torch.bfloat16: 1}   # dtype -> the C interface's dtype code
 HEAD_DIMS = (64, 128)
 
 #: kernel launches since the last reset (plain-version calls not counted)
 launches = 0
+#: the same launches by query length Sq; reset together with ``launches``
+launches_by_sq: dict = {}
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True,
@@ -74,8 +80,8 @@ def _check(q, k, v):
         raise ValueError(f"shapes q {tuple(q.shape)} and k/v "
                          f"{tuple(k.shape)} do not fit")
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention kernel takes bf16 or fp32 q/k/v "
-                        f"of one dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
+        raise TypeError(f"flash_attention kernel takes bf16 q/k/v, got "
+                        f"{q.dtype}/{k.dtype}/{v.dtype}")
     if d not in HEAD_DIMS:
         raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
     for t in (q, k, v):
@@ -108,4 +114,5 @@ def flash_attention(q, k, v, *, causal: bool = True, softcap: float = 0.0):
         raise RuntimeError(f"flash_attention kernel launch failed "
                            f"(error {err})")
     launches += 1
+    launches_by_sq[sq] = launches_by_sq.get(sq, 0) + 1
     return out

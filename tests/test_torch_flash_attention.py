@@ -3,8 +3,8 @@
 On the CPU the wrapper runs the kernel's plain version; it is held to
 the JAX wrapper ``repro.kernels.flash_attention.ops.flash_attention``
 (the Pallas kernel in interpret mode, as tests/test_kernels.py runs it)
-on the reference's FLASH_CASES and its softcap case.  Tolerances: 2e-5
-in fp32, 3e-2 in bf16.  The CUDA kernel is held to the plain version on
+on the reference's FLASH_CASES, its softcap case, and shapes at the CUDA
+kernel's tile edges.  Tolerances: 2e-5 in fp32, 3e-2 in bf16.  The CUDA kernel is held to the plain version on
 the card in tests/test_torch_kernels_cuda.py.
 """
 import numpy as np
@@ -24,6 +24,14 @@ FLASH_CASES = [
     (2, 64, 192, 4, 1, 32, False, "float32"),    # cross-attn ragged
     (1, 100, 100, 2, 2, 16, True, "float32"),    # ragged both dims
     (1, 128, 128, 8, 8, 128, True, "float32"),   # MHA, head_dim 128
+]
+#: where the CUDA kernel's 128-row tiles have edges: Sq not a multiple of
+#: 128 (GQA, head_dim 128), and top-left causal with Sq < Skv whose q rows
+#: cross a tile.  These pin the plain version that the card's checks hold
+#: the kernel to.
+TILE_EDGE_CASES = [
+    (1, 300, 300, 4, 2, 128, True, "float32"),
+    (1, 130, 260, 4, 4, 64, True, "float32"),
 ]
 
 
@@ -52,7 +60,7 @@ def _torch(q, k, v, dtype, device="cpu", **kw):
         **kw)
 
 
-@pytest.mark.parametrize("case", FLASH_CASES)
+@pytest.mark.parametrize("case", FLASH_CASES + TILE_EDGE_CASES)
 def test_plain_vs_jax(case):
     b, sq, skv, h, hkv, d, causal, dtype = case
     q, k, v = _inputs(b, sq, skv, h, hkv, d)

@@ -9,9 +9,12 @@ imports no JAX, so it runs where the card is:
 output is held against its plain version run in fp32 on the same
 values, row by row (one q head of one token): the row's largest error
 over its largest |value| stays within 1e-2 in bf16 and 1e-4 in fp32, as
-in chip_smoke.py.  ``test_relative_limit_catches_an_off_by_one`` plants
-an off-by-one in a copy of each kernel's source and shows that the limit
-catches it on long rows; ``-s`` prints both readings.
+in chip_smoke.py.  The flash kernel takes bf16 alone, so every masking
+and softcap case runs in bf16.
+``test_relative_limit_catches_an_off_by_one`` plants an off-by-one in a
+copy of each kernel's source (a mask, or the stage of the flash kernel's
+K/V ring) and shows that the limit catches it on long rows; ``-s``
+prints both readings.
 
 The SSD scan kernel is held to its plain version (run on the CPU, in
 fp32, on the same values) per row of P, on y and on the final state,
@@ -39,9 +42,10 @@ REL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 
 def _row_rel_err(got, want):
     """Per output row (the last axis): largest |error| over largest
-    |value| of ``want``."""
+    |value| of ``want``; a row that is not finite reads as infinite."""
     err = (got.float() - want.float()).abs().amax(-1)
-    return err / want.float().abs().amax(-1).clamp_min(1e-30)
+    return torch.nan_to_num(err / want.float().abs().amax(-1)
+                            .clamp_min(1e-30), nan=float("inf"))
 
 
 def _paged_plain(args, **kw):
@@ -116,8 +120,10 @@ FLASH = [
     (2, 64, 192, 4, 1, 64, False, 0.0, torch.bfloat16),    # non-causal
     (1, 100, 260, 4, 4, 64, True, 0.0, torch.bfloat16),    # top-left
     (1, 256, 256, 4, 4, 128, True, 30.0, torch.bfloat16),  # softcap
-    (2, 128, 128, 4, 2, 64, True, 0.0, torch.float32),
-    (1, 70, 150, 4, 2, 128, False, 20.0, torch.float32),
+    (2, 128, 128, 4, 2, 64, True, 0.0, torch.bfloat16),
+    (1, 70, 150, 4, 2, 128, False, 20.0, torch.bfloat16),  # ragged softcap
+    (1, 1000, 1000, 32, 32, 128, True, 0.0, torch.bfloat16),  # Sq % 128
+    (1, 130, 300, 4, 4, 64, True, 0.0, torch.bfloat16),   # top-left, 2 tiles
 ]
 
 
@@ -151,6 +157,12 @@ FAULTS = {
     "flash-reads-one-more-position": (
         "flash_attention", "(!causal || qpos >= kpos)",
         "(!causal || qpos + 1 >= kpos)"),
+    # the K/V ring: P·V reads V from the other stage of the ring
+    "flash-ring-stage-off-by-one": (
+        "flash_attention",
+        "const uint32_t v_tile = base + L::V + stage * L::TILE;",
+        "const uint32_t v_tile = base + L::V + ((stage + 1) % kStages) * "
+        "L::TILE;"),
 }
 
 
@@ -201,9 +213,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     cl = torch.ones(2, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         paged.paged_attention(q, kp, kp, bt, cl)
-    x = torch.zeros(1, 64, 2, 64, device=cuda, dtype=torch.float16)
-    with pytest.raises(TypeError):
-        flash.flash_attention(x, x, x)
+    for dtype in (torch.float16, torch.float32):
+        x = torch.zeros(1, 64, 2, 64, device=cuda, dtype=dtype)
+        with pytest.raises(TypeError):
+            flash.flash_attention(x, x, x)
 
 
 def test_cpu_tensors_take_the_plain_version():
