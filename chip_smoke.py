@@ -13,8 +13,10 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
 3. each kernel against its plain PyTorch version on the card, at the
    serving path's shapes (flash: every prefill bucket, 64-2048), with the
    tolerance stated, timed beside the plain version, the bound and
-   (flash) ``scaled_dot_product_attention``, flash also in TFLOP/s and
-   as a share of its bound;
+   (flash) ``scaled_dot_product_attention``, flash and the SSD scan also
+   in TFLOP/s and as a share of their bound; the SSD scan also against
+   an fp64 recurrence on the card beside its plain version, and each of
+   its three kernels' time and grid inside whole scans (``torch.profiler``);
 4. serving: llama2-7b at full width and depth (random weights from
    ``init_params(seed=0)``) behind ``ServingEngine``, 16 requests of
    64-1024 prompt tokens and 32 output tokens, on the kernel path; the
@@ -31,7 +33,8 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    chunk (256); every layer's ``mamba2_apply`` through the kernel
    against ``impl="recurrent"`` on the hidden states the prefill feeds
    it, and first-token logits of the two routes; a profile of a decode
-   step at batch 8 and of a 1024-token prefill;
+   step at batch 8 and of a 1024-token prefill (with the SSD scan's
+   share of the prefill's device time);
 6. the ``kernels`` JSON line, then the result line.
 
 Without a CUDA device, or without the rest of the checkout, it fails
@@ -109,6 +112,19 @@ SSM_STATE_REL = 1e-4
 #: the two readings.
 SSM_LOGIT_REL = 1.8e-2
 
+#: two runs of the SSD plain version on the same inputs agree when they
+#: differ by a summation order's rounding at most: the kernel, which sums
+#: every product in another order, reads within 1.6e-6 of a row of it
+#: (PERF.md)
+PLAIN_SPREAD_REL = 1e-5
+
+#: about 10 ms of the card's clock: longer than the host takes to enqueue
+#: 20 calls of a kernel's wrapper
+QUEUE_AHEAD_CYCLES = 20_000_000
+#: the kernels of one SSD scan (kernels/csrc/ssd_scan.cu)
+SSD_KERNELS = ("chunk_state_kernel", "state_passing_kernel",
+               "chunk_scan_kernel")
+
 PAGE = 16
 NUM_BLOCKS = 1024
 MAX_PAGES = 128
@@ -124,12 +140,17 @@ def phase(name, **fields):
     print(json.dumps({"phase": name, **fields}), flush=True)
 
 
-def time_ms(fn, reps):
-    """Mean device time of ``fn`` over ``reps`` calls, after a warm-up."""
+def time_ms(fn, reps, queue_ahead=False):
+    """Mean device time of ``fn`` over ``reps`` calls, after a warm-up.
+    With ``queue_ahead`` the card first spins (``QUEUE_AHEAD_CYCLES``)
+    while the host enqueues every call, so the reading is the device's
+    time even where a call costs the host more time than the card."""
     fn()
     torch.cuda.synchronize()
     start = torch.cuda.Event(enable_timing=True)
     end = torch.cuda.Event(enable_timing=True)
+    if queue_ahead:
+        torch.cuda._sleep(QUEUE_AHEAD_CYCLES)
     start.record()
     for _ in range(reps):
         fn()
@@ -482,11 +503,13 @@ def decode_logits(model, params, pages, lens, toks):
     return out["pallas"].float(), out["gather"].float()
 
 
-def profile(label, fn, reps):
+def profile(label, fn, reps, shares=None):
     """Where one call's time goes: host wall per call (no profiler), then
     under ``torch.profiler`` the device-busy time per call (sum of the
-    device time of every kernel and copy), the idle share and the kernels
-    that take the most device time."""
+    device time of every kernel and copy), the idle share, the kernels
+    that take the most device time and, for each entry of ``shares``
+    (label -> kernel names), the share of the busy time that the kernels
+    whose names contain one of those names take."""
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -504,7 +527,12 @@ def profile(label, fn, reps):
            if e.device_type == torch.autograd.DeviceType.CUDA]
     busy_ms = sum(e.self_device_time_total for e in dev) / 1e3 / reps
     top = sorted(dev, key=lambda e: -e.self_device_time_total)[:8]
+    busy_share = {
+        key: sum(e.self_device_time_total for e in dev
+                 if any(k in e.key for k in names)) / 1e3 / reps / busy_ms
+        for key, names in (shares or {}).items()} if dev else "not measured"
     phase(f"profile_{label}", wall_ms=wall_ms,
+          busy_share=busy_share,
           device_busy_ms=busy_ms if dev else "not measured",
           idle_share=1 - busy_ms / wall_ms if dev else "not measured",
           top_kernels=[{"name": e.key[:80],
@@ -571,42 +599,133 @@ def ssd_inputs(b, s, h, p, g, n, *, bc_dtype=torch.float32, strided=False,
     return xbar, dA_log, Bm, Cm, state0
 
 
-def ssd_flops(b, s, h, p, g, n, chunk):
+def ssd_flops(b, s, h, p, g, n, chunk, with_state):
     """(least, as counted by the Pallas kernel) flops of one scan: the
-    least counts the lower triangle of each chunk's L x L products only
-    and C.B^T once per group; the Pallas count is
+    least counts the lower triangle of each chunk's L x L products only,
+    C.B^T once per group, 2 L N P per (chunk, head) for the chunk's own
+    state and 2 L N P per (chunk, head) for the state's share of y only
+    where the state before the chunk can be non-zero (a chunk after the
+    first, or ``with_state``); the Pallas count is
     2 L^2 N + 2 L^2 P + 4 L N P per (chunk, head)."""
     full, ragged = divmod(s, chunk)
     lens = [chunk] * full + ([ragged] if ragged else [])
     least = pallas = 0
-    for L in lens:
+    for c, L in enumerate(lens):
         tri = L * (L + 1) // 2
-        least += b * (2 * tri * n * g + h * (2 * tri * p + 4 * L * n * p))
+        carried = 2 * L * n * p if c > 0 or with_state else 0
+        least += b * (2 * tri * n * g
+                      + h * (2 * tri * p + 2 * L * n * p + carried))
         pallas += b * h * (2 * L * L * n + 2 * L * L * p + 4 * L * n * p)
     return least, pallas
 
 
+def ssd_fp64(xbar, dA_log, Bm, Cm, state0):
+    """The SSD recurrence token by token in fp64 (S <- S exp(dA) + B (x) x,
+    y = C . S), on the inputs' device: no chunks, no segment sums, and
+    rounding far below the fp32 limits, so it shares neither code nor
+    error with the plain version."""
+    b, s, h, p = xbar.shape
+    hpg = h // Bm.shape[2]
+    x, a = xbar.double(), torch.exp(dA_log.double())
+    Bh = Bm.double().repeat_interleave(hpg, dim=2)           # (B,S,H,N)
+    Ch = Cm.double().repeat_interleave(hpg, dim=2)
+    state = torch.zeros(b, h, Bm.shape[3], p, dtype=torch.float64,
+                        device=xbar.device) \
+        if state0 is None else state0.double().clone()
+    y = torch.empty(b, s, h, p, dtype=torch.float64, device=xbar.device)
+    for t in range(s):
+        state.mul_(a[:, t, :, None, None]).add_(
+            Bh[:, t, :, :, None] * x[:, t, :, None, :])
+        y[:, t] = torch.einsum("bhn,bhnp->bhp", Ch[:, t], state)
+    return y, state
+
+
+def ssd_errors(y, fs, xbar, dA_log, Bm, Cm, chunk, state0):
+    """The SSD kernel's y and final state against its references, per row
+    of P: the plain version (fp32, on CPU copies of the same values, the
+    ragged case through the wrapper's padding), and ``ssd_fp64`` on the
+    card, which does not use the CPU.  The plain version runs twice, and
+    a third time if those two differ by more than ``PLAIN_SPREAD_REL``:
+    on the H100 host these checks were run on, the CPU now and then
+    computed ``torch.exp`` wrong on one OpenMP thread's share of the
+    first plain run after a process's first scan (PERF.md), and the fp64
+    reading shows which run is off.  Every run's error is recorded.  ``rel_y``/``rel_s`` are the
+    largest errors against fp64 and against the two plain runs that
+    agree; ``ok`` needs such a pair and both within the limit."""
+    ins = (xbar.cpu(), dA_log.cpu(), Bm.float().cpu(), Cm.float().cpu())
+    s0 = None if state0 is None else state0.cpu()
+
+    def plain_run():
+        return ssd_ops.ssd_scan(*ins, chunk=chunk, state0=s0)
+
+    def rel(a, b):
+        return [float(row_rel_err(u.cpu(), v.cpu()).max())
+                for u, v in zip(a, b)]
+
+    plain = [plain_run(), plain_run()]
+    if max(rel(plain[1], plain[0])) > PLAIN_SPREAD_REL:
+        plain.append(plain_run())
+    pair = next(((u, v) for k, u in enumerate(plain) for v in plain[k + 1:]
+                 if max(rel(v, u)) <= PLAIN_SPREAD_REL), None)
+    exact = ssd_fp64(xbar, dA_log, Bm, Cm, state0)
+    got = (y, fs)
+    e = {"plain_runs": len(plain),
+         "plain_spread": max(rel(plain[1], plain[0])),
+         "plain_pair_agrees": pair is not None,
+         "vs_plain": [rel(got, r) for r in plain],
+         "plain_vs_fp64": [rel(r, exact) for r in plain],
+         "vs_fp64": rel(got, exact),
+         "max_abs_err": max(float((u.cpu() - v).abs().max())
+                            for u, v in zip(got, plain[0])),
+         "finite": bool(all(torch.isfinite(u).all() for u in got))}
+    refs = [e["vs_fp64"]] + ([rel(got, r) for r in pair] if pair else [])
+    e["rel_y"] = max(r[0] for r in refs)
+    e["rel_s"] = max(r[1] for r in refs)
+    e["ok"] = (e["finite"] and pair is not None
+               and max(e["rel_y"], e["rel_s"]) <= REL_TOL[torch.float32])
+    return e
+
+
+def ssd_kernel_profile(scan, reps):
+    """Each kernel of the SSD scan inside ``reps`` whole scans, under
+    ``torch.profiler``: device ms per scan, launches per scan and launch
+    grid, by kernel name (read from the trace, which lands in the build
+    directory)."""
+    scan()
+    torch.cuda.synchronize()
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            scan()
+        torch.cuda.synchronize()
+    build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    trace = build.BUILD_DIR / "ssd_scan_trace.json"
+    prof.export_chrome_trace(str(trace))
+    events = [e for e in json.loads(trace.read_text())["traceEvents"]
+              if e.get("cat") == "kernel"]
+    out = {}
+    for name in SSD_KERNELS:
+        ev = [e for e in events if name in e.get("name", "")]
+        if not ev:
+            out[name] = "not measured"
+            continue
+        grid = tuple(ev[0].get("args", {}).get("grid", ()))
+        out[name] = {"ms": sum(e["dur"] for e in ev) / 1e3 / reps,
+                     "launches_per_scan": len(ev) / reps, "grid": grid,
+                     "blocks": int(np.prod(grid)) if grid else None}
+    return out
+
+
 def ssd_case(name, b, s, h, p, g, n, chunk, **kw):
-    """The SSD kernel against its plain version (fp32, on the same
-    values, the ragged case through the wrapper's padding), per row of
+    """The SSD kernel against its references (``ssd_errors``), per row of
     P: y and the final state."""
     xbar, dA_log, Bm, Cm, state0 = ssd_inputs(b, s, h, p, g, n, **kw)
     y, fs = ssd_ops.ssd_scan(xbar, dA_log, Bm, Cm, chunk=chunk,
                              state0=state0)
     torch.cuda.synchronize()
+    errs = ssd_errors(y, fs, xbar, dA_log, Bm, Cm, chunk, state0)
 
-    yw, fw = ssd_ops.ssd_scan(xbar.cpu(), dA_log.cpu(), Bm.float().cpu(),
-                              Cm.float().cpu(), chunk=chunk,
-                              state0=None if state0 is None
-                              else state0.cpu())
-    yw, fw = yw.cuda(), fw.cuda()
-    rel_y = float(row_rel_err(y, yw).max())
-    rel_s = float(row_rel_err(fs, fw).max())
-    err = max(float((y - yw).abs().max()), float((fs - fw).abs().max()))
-    finite = bool(torch.isfinite(y).all() and torch.isfinite(fs).all())
-    ok = finite and max(rel_y, rel_s) <= REL_TOL[torch.float32]
-
-    least, pallas = ssd_flops(b, s, h, p, g, n, chunk)
+    least, pallas = ssd_flops(b, s, h, p, g, n, chunk, state0 is not None)
     nbytes = (2 * xbar.numel() + dA_log.numel() + fs.numel()
               * (2 if state0 is not None else 1)) * 4 \
         + 2 * b * s * g * n * esize(Bm.dtype)
@@ -620,30 +739,46 @@ def ssd_case(name, b, s, h, p, g, n, chunk, **kw):
     if not pad and s >= chunk:
         plain_ms = time_ms(lambda: ssd_ops.ssd_chunked_ref(
             xc, dc, bc, cc, chunk, state0), 5)
+    def scan():
+        ssd_ops.ssd_scan(xbar, dA_log, Bm, Cm, chunk=chunk, state0=state0)
+
+    # the card's time (the wrapper's host time hidden behind a queue
+    # filled ahead), the time a call takes back to back, and each kernel
+    # of the scan inside whole scans
+    kernel_ms = time_ms(scan, 20, queue_ahead=True)
+    call_ms = time_ms(scan, 20)
     rec = {"case": name, "b": b, "s": s, "h": h, "p": p, "g": g, "n": n,
            "chunk": chunk, "bc_dtype": str(Bm.dtype),
            "model_decay": kw.get("model_decay", False),
            "bc_strided": not Bm.is_contiguous(),
-           "state0": state0 is not None, "max_abs_err": err,
-           "max_rel_err_y": rel_y, "max_rel_err_state": rel_s,
-           "tol_rel": REL_TOL[torch.float32], "finite": finite,
-           "kernel_ms": time_ms(lambda: ssd_ops.ssd_scan(
-               xbar, dA_log, Bm, Cm, chunk=chunk, state0=state0), 20),
+           "state0": state0 is not None,
+           "max_abs_err": errs.pop("max_abs_err"),
+           "max_rel_err_y": errs["rel_y"], "max_rel_err_state": errs["rel_s"],
+           "tol_rel": REL_TOL[torch.float32],
+           "plain_spread_tol": PLAIN_SPREAD_REL, "errors": errs,
+           "kernel_ms": kernel_ms, "call_ms": call_ms,
+           "phases": ssd_kernel_profile(scan, 20),
            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "tflops_least": least / kernel_ms / 1e9,
+           "bound_share": bound_ms / kernel_ms,
            "flops_least": least, "flops_pallas_count": pallas,
            "bytes": nbytes, "library_ms": None}
     phase("ssd_scan", **rec)
-    if not ok:
-        raise AssertionError(f"ssd_scan {name}: row errors y {rel_y}, "
-                             f"state {rel_s} (tol {REL_TOL[torch.float32]})"
-                             f", finite={finite}")
+    if not errs["ok"]:
+        raise AssertionError(f"ssd_scan {name}: row errors y {errs['rel_y']}"
+                             f", state {errs['rel_s']} (tol "
+                             f"{REL_TOL[torch.float32]}), two plain runs "
+                             f"within {PLAIN_SPREAD_REL}: "
+                             f"{errs['plain_pair_agrees']}, finite="
+                             f"{errs['finite']}")
     return rec
 
 
 def check_ssd_kernel():
     """tests/test_kernels.py's SSD_CASES (b, s, h, p, g, n, chunk; the
-    third ragged), then the serving path's shapes; returns the record of
-    the mamba2-130m prefill shape."""
+    third ragged), then the serving path's shapes, a ragged last chunk
+    that is not a multiple of the kernels' 64-row tile, and many chunks
+    with a batch; returns the record of the mamba2-130m prefill shape."""
     bf16 = torch.bfloat16
     for i, c in enumerate([(2, 128, 4, 32, 1, 64, 32),
                            (1, 96, 4, 16, 2, 32, 32),
@@ -657,6 +792,11 @@ def check_ssd_kernel():
              strided=True, model_decay=True, seed=2)
     ssd_case("initial state", 2, 512, 8, 64, 1, 128, 256, with_state=True,
              model_decay=True, seed=3)
+    ssd_case("ragged last chunk S=1000", 1, 1000, 24, 64, 1, 128, 256,
+             bc_dtype=bf16, strided=True, model_decay=True, seed=4)
+    ssd_case("B=2 S=4096 initial state", 2, 4096, 24, 64, 1, 128, 256,
+             bc_dtype=bf16, strided=True, with_state=True, model_decay=True,
+             seed=5)
     return full
 
 
@@ -855,7 +995,8 @@ def profile_mamba2(model, params, max_ctx):
         zoo.prefill(model, params, {"tokens": prompt}, cache1)
 
     profile("mamba2_decode_step", decode, 5)
-    profile("mamba2_prefill_1024", prefill, 3)
+    profile("mamba2_prefill_1024", prefill, 3,
+            shares={"ssd_scan": SSD_KERNELS})
 
 
 def flash_resources():

@@ -1,4 +1,4 @@
-"""Chunked Mamba2 SSD scan: the CUDA kernel's wrapper and its plain version.
+"""Chunked Mamba2 SSD scan: the CUDA kernels' wrapper and its plain version.
 
 Port of ``repro.kernels.ssd_scan`` (Pallas kernel ``ssd_scan_fwd``).
 Contract, as the reference's: xbar ``(B,S,H,P)`` dt-scaled inputs,
@@ -14,13 +14,24 @@ contract (``models.ssm``).
   wrapper does and pads a ragged S with identity steps (``dA_log = 0``,
   ``x = 0``: the state passes through, the padded rows of y are cut
   off).  CPU tensors run ``ssd_chunked_ref``; CUDA tensors launch the
-  kernel (``kernels/csrc/ssd_scan.cu``) or raise.  The kernel masks the
-  ragged last chunk itself, so nothing is padded on the card.
+  kernels (``kernels/csrc/ssd_scan.cu``) or raise.  The kernels mask the
+  ragged last chunk themselves, so nothing is padded on the card.
 
-The kernel reads B/C where they lie, through their strides (in the model
+On the card a scan is three kernels on the current stream, ordered by
+the stream alone, so every chunk of every head runs in parallel and only
+the (N,P) recurrence across chunks is sequential: chunk state (seg, each chunk's own state, and C·Bᵀ once per group), state
+passing (the state before every chunk, and the final state), chunk scan
+(y, 64 rows of a chunk per block).  Their products are fp32 FMAs, so
+the scan is bound by the card's fp32 rate (67 TFLOP/s outside the
+tensor cores), not by its memory.  The wrapper allocates y, the final
+state and the fp32 scratch the kernels pass between them, with
+``torch.empty``; the kernels allocate nothing.
+
+The kernels read B/C where they lie, through their strides (in the model
 they are column slices of the conv output, ``models.ssm._split_xbc``),
 in fp32 or bf16; x, dA_log and the initial state must be contiguous fp32.
-``launches`` counts kernel launches.
+``launches`` counts scans: one per wrapper call on the card, whatever
+number of CUDA kernels a scan takes.
 """
 from __future__ import annotations
 
@@ -32,13 +43,14 @@ import torch.nn.functional as F
 from repro_torch.kernels import build
 
 BC_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-#: the kernel's limits: one thread block holds the (N, P) state and
-#: tiles of the chunk in shared memory (see ssd_scan.cu)
+#: the kernels' limits (see ssd_scan.cu): a block's output tile spans P,
+#: a chunk's seg fits in shared memory
 MAX_STATE = 128
 MAX_HEAD_DIM = 64
 MAX_CHUNK = 1024
 
-#: kernel launches since the last reset (plain-version calls not counted)
+#: scans launched on the card since the last reset (plain-version calls
+#: not counted)
 launches = 0
 
 
@@ -95,15 +107,20 @@ def ssd_chunked_ref(xbar, dA_log, Bm, Cm, chunk: int, state0=None):
     return y, state
 
 
-def _launcher():
+def _lib():
     lib = build.load("ssd_scan")
-    fn = lib.ssd_scan_launch
-    if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 7
-                       + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 3
-                       + [ctypes.c_void_p])
-        fn.restype = ctypes.c_int
-    return fn
+    if lib.ssd_scan_launch.argtypes is None:
+        lib.ssd_scan_launch.argtypes = (
+            [ctypes.c_int] + [ctypes.c_void_p] * 11
+            + [ctypes.c_int] * 7 + [ctypes.c_longlong] * 3
+            + [ctypes.c_void_p])
+        lib.ssd_scan_launch.restype = ctypes.c_int
+    return lib
+
+
+def _chunk(s: int, chunk: int) -> int:
+    """The chunk the reference's wrapper takes for a sequence of s."""
+    return min(chunk, s) if s % chunk == 0 or s < chunk else chunk
 
 
 def _check(xbar, dA_log, Bm, Cm, state0):
@@ -146,8 +163,8 @@ def ssd_scan(xbar, dA_log, Bm, Cm, *, chunk: int = 256, state0=None):
     """xbar (B,S,H,P); dA_log (B,S,H); Bm/Cm (B,S,G,N) ->
     (y (B,S,H,P) f32, final_state (B,H,N,P) f32)."""
     global launches
-    b, s, h, p = xbar.shape
-    chunk = min(chunk, s) if s % chunk == 0 or s < chunk else chunk
+    s = xbar.shape[1]
+    chunk = _chunk(s, chunk)
     if xbar.device.type == "cpu":
         pad = (-s) % chunk
         if pad:
@@ -160,18 +177,34 @@ def ssd_scan(xbar, dA_log, Bm, Cm, *, chunk: int = 256, state0=None):
     if xbar.device.type != "cuda":
         raise ValueError(f"ssd_scan runs on cuda or cpu, not {xbar.device}")
     _check(xbar, dA_log, Bm, Cm, state0)
+    b, _, h, p = xbar.shape
+    g, n = Bm.shape[2], Bm.shape[3]
     if chunk > MAX_CHUNK:
         raise ValueError(f"chunk {chunk} > {MAX_CHUNK}")
-    g, n = Bm.shape[2], Bm.shape[3]
+    nc = -(-s // chunk)
+    dev = xbar.device
     y = torch.empty_like(xbar)
-    fs = torch.empty((b, h, n, p), dtype=torch.float32, device=xbar.device)
-    err = _launcher()(
+    fs = torch.empty((b, h, n, p), dtype=torch.float32, device=dev)
+    # one fp32 workspace: seg (B,H,nc,L), each chunk's own state and the
+    # state before each chunk (B,H,nc,N,P) each, C·Bᵀ (B,G,nc,L,L); each
+    # part starts on a 16-byte boundary.  Freed on return: the caching
+    # allocator hands it out again only to work queued after the scan on
+    # this stream.
+    sizes = [b * h * nc * chunk, b * h * nc * n * p, b * h * nc * n * p,
+             b * g * nc * chunk * chunk]
+    sizes = [-(-k // 4) * 4 for k in sizes]
+    work = torch.empty(sum(sizes), dtype=torch.float32, device=dev)
+    ptrs, at = [], work.data_ptr()
+    for k in sizes:
+        ptrs.append(at)
+        at += 4 * k
+    err = _lib().ssd_scan_launch(
         BC_DTYPES[Bm.dtype], xbar.data_ptr(), dA_log.data_ptr(),
         Bm.data_ptr(), Cm.data_ptr(),
         0 if state0 is None else state0.data_ptr(), y.data_ptr(),
-        fs.data_ptr(), b, s, h, p, g, n, chunk,
+        fs.data_ptr(), *ptrs, b, s, h, p, g, n, chunk,
         Bm.stride(0), Bm.stride(1), Bm.stride(2),
-        torch.cuda.current_stream(xbar.device).cuda_stream)
+        torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed (error {err})")
     launches += 1

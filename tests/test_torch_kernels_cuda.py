@@ -16,14 +16,17 @@ copy of each kernel's source (a mask, or the stage of the flash kernel's
 K/V ring) and shows that the limit catches it on long rows; ``-s``
 prints both readings.
 
-The SSD scan kernel is held to its plain version (run on the CPU, in
-fp32, on the same values) per row of P, on y and on the final state,
-within 1e-4: its products are fp32 FMAs.
+The SSD scan (three kernels: chunk state, state passing, chunk scan) is
+held to its plain version (run on the CPU, in fp32, on the same values;
+two of its runs must agree within rounding) and to an fp64 recurrence
+on the card, per row of P, on y and on the final state, within 1e-4:
+its products are fp32 FMAs.
 ``test_ssd_limits_catch_a_planted_fault`` plants a fault in a copy of
 its source and shows that this limit, and chip_smoke.py's limits for a
 mamba2-130m layer through the kernel against ``impl="recurrent"``,
 catch it.
 """
+import functools
 import importlib.util
 import pathlib
 
@@ -272,17 +275,19 @@ def _ssd_inputs(b, s, h, p, g, n, device, *, bc_dtype=torch.float32,
 
 
 def _ssd_rel_errs(args, chunk):
-    """(row error of y, of the final state): the kernel against its plain
-    version on CPU copies of the same values, in fp32."""
+    """(row error of y, of the final state): the kernel against its
+    references (chip_smoke.py's ``ssd_errors``: the plain version, fp32
+    on CPU copies of the same values, two of whose runs must agree, and
+    an fp64 recurrence on the card)."""
     xbar, dA_log, Bm, Cm, state0 = args
     y, fs = ssd.ssd_scan(xbar, dA_log, Bm, Cm, chunk=chunk, state0=state0)
     torch.cuda.synchronize()
-    yw, fw = ssd.ssd_scan(xbar.cpu(), dA_log.cpu(), Bm.float().cpu(),
-                          Cm.float().cpu(), chunk=chunk,
-                          state0=None if state0 is None else state0.cpu())
-    assert torch.isfinite(y).all() and torch.isfinite(fs).all()
-    return (float(_row_rel_err(y.cpu(), yw).max()),
-            float(_row_rel_err(fs.cpu(), fw).max()))
+    errs = _chip_smoke().ssd_errors(y, fs, *args[:4], chunk, state0)
+    assert errs["finite"]
+    assert errs["plain_pair_agrees"], errs
+    if errs["plain_runs"] > 2:
+        print(f"\nssd plain runs disagreed: {errs}")
+    return errs["rel_y"], errs["rel_s"]
 
 
 #: (b, s, h, p, g, n, chunk, options): tests/test_kernels.py SSD_CASES
@@ -299,6 +304,18 @@ SSD = [
     (1, 512, 24, 64, 2, 128, 256,
      {"bc_dtype": torch.bfloat16, "strided": True, "model_decay": True}),
     (2, 512, 8, 64, 1, 128, 256, {"with_state": True, "model_decay": True}),
+    # a ragged last chunk (232 rows) that is not a multiple of the
+    # kernels' 64-row tile
+    (1, 1000, 24, 64, 1, 128, 256,
+     {"bc_dtype": torch.bfloat16, "strided": True, "model_decay": True}),
+    # many chunks (16) with a batch, from an initial state
+    (2, 4096, 24, 64, 1, 128, 256,
+     {"bc_dtype": torch.bfloat16, "strided": True, "with_state": True,
+      "model_decay": True}),
+    # N or P not a multiple of 4: the kernels' scalar loads, fp32 and bf16
+    (2, 90, 4, 8, 2, 10, 64, {}),
+    (1, 150, 2, 20, 1, 70, 100,
+     {"bc_dtype": torch.bfloat16, "strided": True, "with_state": True}),
 ]
 
 
@@ -314,18 +331,25 @@ def test_ssd_kernel_vs_plain(cuda, case):
     assert rel_s <= REL_TOL[torch.float32]
 
 
+#: planted faults in ssd_scan.cu: the chunk scan's decay mask drops the
+#: diagonal; state passing drops the state carried into each chunk; state
+#: passing hands chunk c the state after it instead of the one before
 SSD_FAULTS = {
     "ssd-drops-the-diagonal": (
         "const bool keep = j <= i && i < valid;",
         "const bool keep = j < i && i < valid;"),
     "ssd-drops-the-carried-state": (
-        "*s = *s * decay + su[r][q];", "*s = su[r][q];"),
+        "s = s * decay + v;", "s = v;"),
+    "ssd-hands-a-chunk-the-state-after-it": (
+        "st[o] = s;\n    s = s * decay + v;",
+        "s = s * decay + v;\n    st[o] = s;"),
 }
 
 
+@functools.cache
 def _chip_smoke():
-    """chip_smoke.py, imported for its comparison of the two SSD routes
-    and its limits (running it needs the card)."""
+    """chip_smoke.py, imported for its SSD plain version, its comparison
+    of the two SSD routes and its limits (running it needs the card)."""
     spec = importlib.util.spec_from_file_location(
         "chip_smoke", pathlib.Path(__file__).resolve().parents[1]
         / "chip_smoke.py")
