@@ -9,7 +9,7 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
 
 1. the card: ``nvidia-smi`` name and power limit; TF32 off;
 2. the build of every CUDA kernel from ``src/repro_torch/kernels/csrc``,
-   and the flash kernel's registers, spills and shared memory;
+   and the flash and paged kernels' registers, spills and shared memory;
 3. each kernel against its plain PyTorch version on the card, at the
    serving path's shapes (flash: every prefill bucket, 64-2048), with the
    tolerance stated, timed beside the plain version, the bound and
@@ -17,13 +17,17 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    in TFLOP/s and as a share of their bound; the SSD scan also against
    an fp64 recurrence on the card beside its plain version, and each of
    its three kernels' time and grid inside whole scans (``torch.profiler``);
+   the paged kernel with the queue filled ahead and back to back, with
+   its grid, its working blocks and the time of one contiguous read of
+   as many bytes;
 4. serving: llama2-7b at full width and depth (random weights from
    ``init_params(seed=0)``) behind ``ServingEngine``, 16 requests of
    64-1024 prompt tokens and 32 output tokens, on the kernel path; the
    kernels' launch counts over that run (flash also by query length);
    first-token logits of the kernel path against the plain path; one
    decode step of a full batch on prefilled pages, kernel path against
-   plain path; a profile of a decode step and of a 1024-token prefill;
+   plain path; a profile of a decode step (with the paged kernel's share
+   of its device time) and of a 1024-token prefill;
    the same requests on the plain path;
 5. serving: mamba2-130m at full width and depth (random weights from
    ``init_params(seed=0)``) through ``launch/serve.py``'s engine on the
@@ -124,6 +128,9 @@ QUEUE_AHEAD_CYCLES = 20_000_000
 #: the kernels of one SSD scan (kernels/csrc/ssd_scan.cu)
 SSD_KERNELS = ("chunk_state_kernel", "state_passing_kernel",
                "chunk_scan_kernel")
+#: the paged kernel (kernels/csrc/paged_attention.cu; the merge of the
+#: splits is inside it)
+PAGED_KERNELS = ("paged_attn_kernel",)
 
 PAGE = 16
 NUM_BLOCKS = 1024
@@ -220,15 +227,35 @@ def paged_case(name, *, batch, hq, hkv, dtype, d=128, seed=0):
         + tables.nbytes + lens.nbytes
     flops = 4 * int(lens.sum()) * hq * d
     bound_ms, bound_by = bound(nbytes, flops, dtype)
+    grid, split = paged_ops.grid(q, kp, t)
+    # blocks whose split starts below the length (at least one a row)
+    active = hkv * sum(max(1, -(-min(int(x), MAX_PAGES * PAGE) // split))
+                       for x in lens)
+
+    def call():
+        paged_ops.paged_attention(q, kp, vp, t, ln)
+
+    # the card's time (the wrapper's host time hidden behind a queue
+    # filled ahead), and the time a call takes back to back
+    kernel_ms = time_ms(call, 50, queue_ahead=True)
+    # yardstick of the rate the card reaches reading this many bytes in
+    # one contiguous sweep (a sum of that many bf16 values)
+    sweep = torch.randn(nbytes // 2, generator=g, device=dev).to(
+        torch.bfloat16)
+    read_ms = time_ms(lambda: sweep.sum(), 50, queue_ahead=True)
+    del sweep
     rec = {"case": name, "dtype": str(dtype), "batch": batch, "hq": hq,
            "hkv": hkv, "head_dim": d, "page": PAGE,
            "lens": [int(x) for x in lens], "max_abs_err": err,
            "max_rel_err": rel, "tol_rel": REL_TOL[dtype], "finite": finite,
-           "kernel_ms": time_ms(
-               lambda: paged_ops.paged_attention(q, kp, vp, t, ln), 50),
+           "kernel_ms": kernel_ms, "call_ms": time_ms(call, 50),
+           "kernel": kernel_profile(call, 20, PAGED_KERNELS, "paged"),
+           "grid": grid, "active_blocks": active, "split_len": split,
            "plain_ms": time_ms(
                lambda: paged_ops.paged_attention_ref(q, kp, vp, t, ln), 10),
-           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None}
+           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+           "bound_share": bound_ms / kernel_ms, "bytes": nbytes,
+           "read_ms": read_ms}
     phase("paged_attention", **rec)
     if not ok:
         raise AssertionError(f"paged_attention {name}: row error {rel} "
@@ -556,7 +583,8 @@ def profile_serving(model, params, pages, lens, toks, free_row):
         _, k, v = paged_model.prefill_collect(model, params, prompt, s)
         paged_model.scatter_prefill(model, pages, k, v, free_row, s)
 
-    profile("decode_step", decode, 5)
+    profile("decode_step", decode, 5,
+            shares={"paged_attention": PAGED_KERNELS})
     profile("prefill_1024", prefill, 3)
 
 
@@ -686,32 +714,32 @@ def ssd_errors(y, fs, xbar, dA_log, Bm, Cm, chunk, state0):
     return e
 
 
-def ssd_kernel_profile(scan, reps):
-    """Each kernel of the SSD scan inside ``reps`` whole scans, under
-    ``torch.profiler``: device ms per scan, launches per scan and launch
+def kernel_profile(fn, reps, names, label):
+    """Each named kernel inside ``reps`` calls of ``fn``, under
+    ``torch.profiler``: device ms per call, launches per call and launch
     grid, by kernel name (read from the trace, which lands in the build
-    directory)."""
-    scan()
+    directory as ``<label>_trace.json``)."""
+    fn()
     torch.cuda.synchronize()
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
         for _ in range(reps):
-            scan()
+            fn()
         torch.cuda.synchronize()
     build.BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    trace = build.BUILD_DIR / "ssd_scan_trace.json"
+    trace = build.BUILD_DIR / f"{label}_trace.json"
     prof.export_chrome_trace(str(trace))
     events = [e for e in json.loads(trace.read_text())["traceEvents"]
               if e.get("cat") == "kernel"]
     out = {}
-    for name in SSD_KERNELS:
+    for name in names:
         ev = [e for e in events if name in e.get("name", "")]
         if not ev:
             out[name] = "not measured"
             continue
         grid = tuple(ev[0].get("args", {}).get("grid", ()))
         out[name] = {"ms": sum(e["dur"] for e in ev) / 1e3 / reps,
-                     "launches_per_scan": len(ev) / reps, "grid": grid,
+                     "launches_per_call": len(ev) / reps, "grid": grid,
                      "blocks": int(np.prod(grid)) if grid else None}
     return out
 
@@ -757,7 +785,7 @@ def ssd_case(name, b, s, h, p, g, n, chunk, **kw):
            "tol_rel": REL_TOL[torch.float32],
            "plain_spread_tol": PLAIN_SPREAD_REL, "errors": errs,
            "kernel_ms": kernel_ms, "call_ms": call_ms,
-           "phases": ssd_kernel_profile(scan, 20),
+           "phases": kernel_profile(scan, 20, SSD_KERNELS, "ssd_scan"),
            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
            "tflops_least": least / kernel_ms / 1e9,
            "bound_share": bound_ms / kernel_ms,
@@ -999,33 +1027,57 @@ def profile_mamba2(model, params, max_ctx):
             shares={"ssd_scan": SSD_KERNELS})
 
 
-def flash_resources():
-    """Per head_dim instance of the flash kernel: registers, stack and
-    spills as ``ptxas -v`` reported them at the build, and the dynamic
-    shared memory a block takes."""
-    report = build.ptxas_report("flash_attention")
-    lib = build.load("flash_attention")
+def ptxas_entries(lib):
+    """Each kernel of ``csrc/<lib>.cu``: registers, stack, spills and
+    static shared memory as ``ptxas -v`` reported them at the build."""
     out = []
-    for chunk in report.split("Compiling entry function")[1:]:
-        name = re.search(r"'(\S+)'", chunk).group(1)
-        if "flash_kernel" not in name:
-            continue
-        d = int(re.search(r"flash_kernelILi(\d+)E", name).group(1))
+    for chunk in build.ptxas_report(lib).split("Compiling entry function")[1:]:
         stack, stores, loads = map(int, re.search(
             r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) "
             r"bytes spill loads", chunk).groups())
         static = re.search(r"(\d+) bytes smem", chunk)
-        out.append({"head_dim": d,
+        out.append({"entry": re.search(r"'(\S+)'", chunk).group(1),
                     "registers": int(re.search(r"Used (\d+) registers",
                                                chunk).group(1)),
                     "stack_bytes": stack, "spill_store_bytes": stores,
                     "spill_load_bytes": loads,
                     "static_smem_bytes": int(static.group(1)) if static
-                    else 0,
-                    "dynamic_smem_bytes":
-                        lib.flash_attention_smem_bytes(d)})
+                    else 0})
+    if not out:
+        raise AssertionError(f"no kernel in the ptxas report of {lib}")
+    return out
+
+
+def flash_resources():
+    """Per head_dim instance of the flash kernel: ``ptxas_entries`` and
+    the dynamic shared memory a block takes."""
+    lib = build.load("flash_attention")
+    out = []
+    for e in ptxas_entries("flash_attention"):
+        name = e.pop("entry")
+        if "flash_kernel" not in name:
+            continue
+        d = int(re.search(r"flash_kernelILi(\d+)E", name).group(1))
+        out.append({"head_dim": d, **e,
+                    "dynamic_smem_bytes": lib.flash_attention_smem_bytes(d)})
     if not out:
         raise AssertionError("no flash kernel in the ptxas report")
+    return out
+
+
+def paged_resources():
+    """Per (dtype, head_dim, group) instance of the paged kernel:
+    ``ptxas_entries`` (its shared memory is all static)."""
+    out = []
+    for e in ptxas_entries("paged_attention"):
+        m = re.search(r"paged_attn_kernelI(\w+?)Li(\d+)ELi(\d+)E",
+                      e.pop("entry"))
+        if m:
+            out.append({"dtype": "bfloat16" if "bfloat16" in m.group(1)
+                        else "float32", "head_dim": int(m.group(2)),
+                        "group": int(m.group(3)), **e})
+    if not out:
+        raise AssertionError("no paged kernel in the ptxas report")
     return out
 
 
@@ -1057,6 +1109,7 @@ def main():
     phase("build", seconds=time.perf_counter() - t0,
           libraries=sorted(p.name for p in libs.values()))
     phase("flash_attention_resources", kernels=flash_resources())
+    phase("paged_attention_resources", kernels=paged_resources())
 
     with torch.no_grad():
         paged, flash = check_kernels()

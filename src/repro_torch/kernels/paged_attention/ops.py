@@ -11,9 +11,17 @@ Unlike the Pallas kernel, both versions take ``softcap``, so the kernel
 path computes what the reference's default ``gather`` path computes
 (paged_model.py:124-125); the reference's Pallas route drops it.
 
+The kernel splits each sequence over blocks (``grid``: splits of
+``split_len`` positions, from the shapes alone, so the wrapper reads no
+device value).  Each call takes an fp32 workspace from ``torch.empty``
+for the splits' partial softmax states, and a set of zeroed counters per
+device and stream, made once and kept: the kernel leaves them zeroed, so
+the last block of each (sequence, kv head) can merge the splits.
+
 ``paged_attention`` runs ``paged_attention_ref`` for CPU tensors and the
 kernel for CUDA tensors; on a CUDA tensor it launches or raises.
-``launches`` counts kernel launches.
+``launches`` counts kernel launches (one a call: the merge is inside the
+kernel).
 """
 from __future__ import annotations
 
@@ -30,6 +38,9 @@ GROUPS = (1, 2, 4, 8)
 
 #: kernel launches since the last reset (plain-version calls not counted)
 launches = 0
+#: (device index, stream) -> zeroed int32 counters, one per (sequence, kv
+#: head); the kernel leaves them zeroed
+_tickets = {}
 
 
 def paged_attention_ref(q, k_pages, v_pages, block_tables, context_lens, *,
@@ -56,15 +67,35 @@ def paged_attention_ref(q, k_pages, v_pages, block_tables, context_lens, *,
     return o.to(q.dtype)
 
 
-def _launcher():
+def _lib():
     lib = build.load("paged_attention")
     fn = lib.paged_attention_launch
     if fn.argtypes is None:
-        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 6
+        fn.argtypes = ([ctypes.c_int] + [ctypes.c_void_p] * 8
                        + [ctypes.c_int] * 6 + [ctypes.c_float] * 2
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-    return fn
+        lib.paged_attention_split_len.argtypes = [ctypes.c_int] * 2
+        lib.paged_attention_split_len.restype = ctypes.c_int
+    return lib
+
+
+def grid(q, k_pages, block_tables):
+    """The kernel's launch grid (splits, Hkv, B) and its positions per
+    split, from the shapes alone: a block whose split starts at or past
+    its sequence's length returns at once."""
+    b, _, d = q.shape
+    _, page, hkv, _ = k_pages.shape
+    split = _lib().paged_attention_split_len(DTYPES[q.dtype], d)
+    return (-(-block_tables.shape[1] * page // split), hkv, b), split
+
+
+def _ticket_counters(device, stream, n):
+    key = (device.index, stream)
+    t = _tickets.get(key)
+    if t is None or t.numel() < n:
+        t = _tickets[key] = torch.zeros(n, dtype=torch.int32, device=device)
+    return t
 
 
 def _check(q, k_pages, v_pages, block_tables, context_lens):
@@ -113,13 +144,17 @@ def paged_attention(q, k_pages, v_pages, block_tables, context_lens, *,
     _check(q, k_pages, v_pages, block_tables, context_lens)
     b, hq, d = q.shape
     _, page, hkv, _ = k_pages.shape
+    (splits, _, _), _ = grid(q, k_pages, block_tables)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
     out = torch.empty_like(q)
-    err = _launcher()(
+    ws = torch.empty(b * hq * splits * (d + 2) if splits > 1 else 1,
+                     dtype=torch.float32, device=q.device)
+    tickets = _ticket_counters(q.device, stream, b * hkv)
+    err = _lib().paged_attention_launch(
         DTYPES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
         v_pages.data_ptr(), block_tables.data_ptr(), context_lens.data_ptr(),
-        out.data_ptr(), b, hq, hkv, d, page, block_tables.shape[1],
-        d ** -0.5, float(softcap),
-        torch.cuda.current_stream(q.device).cuda_stream)
+        out.data_ptr(), ws.data_ptr(), tickets.data_ptr(), b, hq, hkv, d,
+        page, block_tables.shape[1], d ** -0.5, float(softcap), stream)
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed "
                            f"(error {err})")

@@ -11,9 +11,10 @@ values, row by row (one q head of one token): the row's largest error
 over its largest |value| stays within 1e-2 in bf16 and 1e-4 in fp32, as
 in chip_smoke.py.  The flash kernel takes bf16 alone, so every masking
 and softcap case runs in bf16.
-``test_relative_limit_catches_an_off_by_one`` plants an off-by-one in a
-copy of each kernel's source (a mask, or the stage of the flash kernel's
-K/V ring) and shows that the limit catches it on long rows; ``-s``
+``test_relative_limit_catches_an_off_by_one`` plants a fault in a copy
+of each kernel's source (a mask or length off by one, the stage of the
+flash kernel's K/V ring, the end of a paged split, the paged merge's
+rescale) and shows that the limit catches it on long rows; ``-s``
 prints both readings.
 
 The SSD scan (three kernels: chunk state, state passing, chunk scan) is
@@ -69,37 +70,75 @@ def cuda():
     return torch.device("cuda")
 
 
-def _paged_inputs(b, hq, hkv, d, npages, page, mp, dtype, device, seed=0):
+def _paged_inputs(b, hq, hkv, d, npages, page, mp, dtype, device, seed=0,
+                  lens=None, shared_pages=False):
+    """Distinct pages per row (a permutation), the last row a padded row
+    of length 1 on the trash page (the last page); or, with
+    ``shared_pages``, tables drawn with replacement, so rows share pages
+    as prefix-shared sequences do.  ``lens`` replaces the drawn lengths."""
     rng = np.random.RandomState(seed)
     q = torch.from_numpy(rng.randn(b, hq, d).astype(np.float32))
     kp = torch.from_numpy(rng.randn(npages, page, hkv, d).astype(np.float32))
     vp = torch.from_numpy(rng.randn(npages, page, hkv, d).astype(np.float32))
-    # distinct pages per row (a permutation), the last row a padded row of
-    # length 1 on the trash page (the last page)
     perm = rng.permutation(npages - 1)
     bt = np.full((b, mp), npages - 1, np.int32)
     cl = rng.randint(1, mp * page + 1, size=(b,)).astype(np.int32)
-    for i in range(b - 1):
-        bt[i] = perm[i * mp:(i + 1) * mp]
+    if shared_pages:
+        bt = rng.randint(0, npages, size=(b, mp)).astype(np.int32)
+    else:
+        for i in range(b - 1):
+            bt[i] = perm[i * mp:(i + 1) * mp]
     cl[-1] = 1
+    if lens is not None:
+        cl = np.asarray(lens, np.int32)
     return ([t.to(device=device, dtype=dtype) for t in (q, kp, vp)]
             + [torch.from_numpy(a).to(device) for a in (bt, cl)])
 
 
-#: (b, hq, hkv, d, npages, page, mp, dtype)
+#: (b, hq, hkv, d, npages, page, mp, dtype, options)
 PAGED = [
-    (8, 32, 32, 128, 129, 16, 16, torch.bfloat16),   # llama2-7b
-    (8, 32, 8, 128, 129, 16, 16, torch.bfloat16),    # GQA 4
-    (4, 16, 2, 64, 65, 16, 16, torch.bfloat16),      # GQA 8, d 64
-    (3, 8, 4, 64, 33, 8, 8, torch.float32),
-    (3, 4, 4, 128, 33, 32, 8, torch.float32),
+    (8, 32, 32, 128, 129, 16, 16, torch.bfloat16, {}),   # llama2-7b
+    (8, 32, 8, 128, 129, 16, 16, torch.bfloat16, {}),    # GQA 4
+    (4, 16, 2, 64, 65, 16, 16, torch.bfloat16, {}),      # GQA 8, d 64
+    (3, 8, 4, 64, 33, 8, 8, torch.float32, {}),
+    (3, 4, 4, 128, 33, 32, 8, torch.float32, {}),
+    # lengths at a split boundary and one either side (split-boundary:
+    # set from the kernel's split length), the last row padded
+    (7, 32, 32, 128, 129, 16, 16, torch.bfloat16,
+     {"lens": "split-boundary"}),
+    (7, 8, 4, 64, 193, 16, 32, torch.float32, {"lens": "split-boundary"}),
+    # a full table, and lengths past it (clamped to max_pages * page)
+    (4, 8, 2, 128, 65, 16, 16, torch.bfloat16,
+     {"lens": [256, 257, 100000, 1]}),
+    (4, 8, 8, 64, 65, 16, 16, torch.float32, {"lens": [255, 256, 300, 1]}),
+    # one long sequence among short ones
+    (8, 32, 8, 128, 1025, 16, 128, torch.bfloat16,
+     {"lens": [2048, 3, 17, 40, 64, 5, 100, 1]}),
+    # rows that share physical pages
+    (6, 16, 4, 128, 40, 16, 32, torch.bfloat16, {"shared_pages": True}),
+    (5, 8, 4, 64, 24, 8, 40, torch.float32, {"shared_pages": True}),
+    # GQA 8 at d 128
+    (4, 64, 8, 128, 129, 16, 32, torch.bfloat16, {}),
+    (3, 16, 2, 128, 65, 16, 32, torch.float32, {}),
 ]
 
 
-@pytest.mark.parametrize("case", PAGED, ids=lambda c: "-".join(map(str, c)))
+def _paged_case_inputs(case, device):
+    *shape, dtype, opts = case
+    opts = dict(opts)
+    if opts.get("lens") == "split-boundary":
+        args = _paged_inputs(*shape, dtype, device)
+        _, split = paged.grid(args[0], args[1], args[3])
+        opts["lens"] = [split - 1, split, split + 1, 2 * split - 1,
+                        2 * split, 2 * split + 1, 1]
+    return _paged_inputs(*shape, dtype, device, **opts)
+
+
+@pytest.mark.parametrize("case", PAGED, ids=lambda c: "-".join(
+    map(str, c[:8])) + "".join(f"-{k}" for k in c[8]))
 def test_paged_kernel_vs_plain(cuda, case):
-    *shape, dtype = case
-    args = _paged_inputs(*shape, dtype, cuda)
+    dtype = case[7]
+    args = _paged_case_inputs(case, cuda)
     before = paged.launches
     got = paged.paged_attention(*args)
     torch.cuda.synchronize()
@@ -107,6 +146,19 @@ def test_paged_kernel_vs_plain(cuda, case):
     want = _paged_plain(args)
     assert torch.isfinite(got).all()
     assert _row_rel_err(got, want).max() <= REL_TOL[dtype]
+
+
+def test_paged_kernel_repeats_and_leaves_its_counters_zeroed(cuda):
+    """Two calls give the same bits (the splits merge in a fixed order,
+    whichever block comes last), and the merge tickets end at zero."""
+    args = _paged_case_inputs(PAGED[9], cuda)
+    first = paged.paged_attention(*args)
+    second = paged.paged_attention(*args)
+    torch.cuda.synchronize()
+    assert paged.grid(args[0], args[1], args[3])[0][0] > 1
+    assert torch.equal(first, second)
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    assert not paged._tickets[(cuda.index or 0, stream)].any()
 
 
 def test_paged_kernel_softcap(cuda):
@@ -149,11 +201,19 @@ def test_flash_kernel_vs_plain(cuda, case):
 #: planted faults: source, the text replaced, its replacement
 FAULTS = {
     "paged-drops-last-position": (
-        "paged_attention", "p[t][g] = (pos0 + t < len) ? s : kNegInf;",
-        "p[t][g] = (pos0 + t < len - 1) ? s : kNegInf;"),
+        "paged_attention", "const int len = min(lens[b], max_pages * page);",
+        "const int len = min(lens[b] - 1, max_pages * page);"),
     "paged-reads-one-more-position": (
         "paged_attention", "const int len = min(lens[b], max_pages * page);",
         "const int len = min(lens[b] + 1, max_pages * page);"),
+    # every full split leaves out its last position
+    "paged-split-drops-its-last-position": (
+        "paged_attention", "const int s1 = min(len, s0 + S::SPLIT);",
+        "const int s1 = min(len, s0 + S::SPLIT - 1);"),
+    # the merge adds each split's partial state without its exp(m_s - m)
+    "paged-merge-skips-the-rescale": (
+        "paged_attention", "const float f = exp2f(ms - mx[k]);",
+        "const float f = 1.f;"),
     "flash-drops-the-diagonal": (
         "flash_attention", "(!causal || qpos >= kpos)",
         "(!causal || qpos > kpos)"),
