@@ -23,22 +23,35 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
 4. serving: llama2-7b at full width and depth (random weights from
    ``init_params(seed=0)``) behind ``ServingEngine``, 16 requests of
    64-1024 prompt tokens and 32 output tokens, on the kernel path; the
-   kernels' launch counts over that run (flash also by query length);
-   first-token logits of the kernel path against the plain path; one
-   decode step of a full batch on prefilled pages, kernel path against
-   plain path; a profile of a decode step (with the paged kernel's share
-   of its device time) and of a 1024-token prefill;
-   the same requests on the plain path;
+   main path is the engine as a user builds it, which on the card runs
+   its steps as CUDA graphs (the paged and flash kernels inside them);
+   the kernels' launch counts over that run (flash also by query
+   length; a replay adds what its graph launched at capture); then the
+   same requests served eagerly (``graphs=False``) and graphed, in
+   turns, three request sets each: greedy tokens, iteration records,
+   launch counts and the page store must be identical, and the
+   sampled logits of one more set are compared; mean prefill and decode
+   walls (apart from the steps that captured a graph), tokens/s, the
+   spread of the walls between sets, the graphs and their capture time,
+   and the runtime launches left outside the graphs per step (a
+   ``torch.profiler`` window per step); first-token logits of the kernel
+   path against the plain path; one decode step of a full batch on
+   prefilled pages, kernel path against plain path; a profile of a
+   decode step (with the paged kernel's share of its device time) and
+   of a 1024-token prefill, eager and graphed; the same requests on the
+   plain path;
 5. serving: mamba2-130m at full width and depth (random weights from
    ``init_params(seed=0)``) through ``launch/serve.py``'s engine on the
-   slot path, 16 requests of 20-990 prompt tokens (buckets on both SSD
-   branches) and 32 output tokens; the SSD kernel's launches over that
-   run, which must be 24 per prefill whose bucket is a multiple of the
-   chunk (256); every layer's ``mamba2_apply`` through the kernel
-   against ``impl="recurrent"`` on the hidden states the prefill feeds
-   it, and first-token logits of the two routes; a profile of a decode
-   step at batch 8 and of a 1024-token prefill (with the SSD scan's
-   share of the prefill's device time);
+   slot path (graphed on the card), 16 requests of 20-990 prompt tokens
+   (buckets on both SSD branches) and 32 output tokens; the SSD kernel's
+   launches over that run, which must be 24 per prefill whose bucket is
+   a multiple of the chunk (256); eager against graphed as for llama2-7b
+   (the slot cache must be identical); every layer's ``mamba2_apply``
+   through the kernel against ``impl="recurrent"`` on the hidden states
+   the prefill feeds it, and first-token logits of the two routes; a
+   profile of a decode step at batch 8 and of a 1024-token prefill (with
+   the SSD scan's share of the prefill's device time), eager and
+   graphed;
 6. the ``kernels`` JSON line, then the result line.
 
 Without a CUDA device, or without the rest of the checkout, it fails
@@ -46,6 +59,8 @@ before printing a result.
 """
 from __future__ import annotations
 
+import dataclasses
+import gc
 import json
 import re
 import subprocess
@@ -61,6 +76,7 @@ sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 from repro_torch.configs import get_config  # noqa: E402
 from repro_torch.core.request import Request  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import counts as launch_counts  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as paged_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
@@ -71,6 +87,7 @@ from repro_torch.models.common import RunSettings  # noqa: E402
 from repro_torch.models.layers import norm_apply  # noqa: E402
 from repro_torch.serving import paged_model  # noqa: E402
 from repro_torch.serving.engine import EngineConfig, ServingEngine  # noqa: E402
+from repro_torch.serving.graphs import StepGraphs  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense)
 PEAK_BYTES_S = 3.35e12
@@ -347,49 +364,258 @@ def check_kernels():
 # ---------------------------------------------------------------------------
 # Serving
 # ---------------------------------------------------------------------------
-def make_requests():
+#: request sets each engine serves in the eager-against-graphed phases
+#: (the graphed engine's first set is the main path's run); then one set
+#: whose sampled logits are compared, and one whose steps are profiled
+GRAPH_SETS = 3
+#: request ids of set k are k * SET_IDS + the id in set 0
+SET_IDS = 1000
+#: steps of each kind profiled for their launches outside the graphs
+LAUNCH_STEPS = 3
+#: runtime calls that enqueue work one by one (kernels, copies, fills)
+RUNTIME_LAUNCHES = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cudaMemset")
+
+
+def make_requests(offset=0):
     rng = np.random.RandomState(SEED)
     lens = rng.randint(PROMPT_RANGE[0], PROMPT_RANGE[1] + 1, size=N_REQUESTS)
-    return [Request(id=i, arrival_time=1e-3 * i, prompt_len=int(p),
+    return [Request(id=offset + i, arrival_time=1e-3 * i, prompt_len=int(p),
                     output_len=OUTPUT_LEN) for i, p in enumerate(lens)]
 
 
-def serve(model, params, attn_path):
+def llama_engine(model, params, attn_path, graphs=None):
     ec = EngineConfig(num_blocks=NUM_BLOCKS, block_size=PAGE,
                       max_batch=MAX_BATCH, max_pages_per_seq=MAX_PAGES,
                       attn_path=attn_path)
-    eng = ServingEngine(model, params, ec)
-    reqs = make_requests()
-    for r in reqs:
-        eng.add_request(r)
+    return ServingEngine(model, params, ec, graphs=graphs)
+
+
+def launches_now():
+    counts = launch_counts.snapshot()
+    out = {name: counts.get(name, 0)
+           for name in ("paged_attention", "flash_attention", "ssd_scan")}
+    out["flash_attention_by_sq"] = {
+        str(k[1]): n for k, n in sorted(
+            (k, n) for k, n in counts.items() if isinstance(k, tuple))}
+    return out
+
+
+def free_memory():
+    """Return the memory of the engines just deleted to the card: an
+    engine that ``instrument`` or a test wrapper has touched sits in a
+    reference cycle until the collector runs."""
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def instrument(eng):
+    """Log the key of every step ``eng`` runs (``("prefill", bucket)`` or
+    ``("decode",)``), and the index of each iteration record whose step
+    captured a graph."""
+    log = {"keys": [], "captured": set()}
+    run = eng._step
+
+    def step(key, fn):
+        n = len(eng.graphs) if eng.graphs is not None else 0
+        out = run(key, fn)
+        log["keys"].append(key)
+        if eng.graphs is not None and len(eng.graphs) > n:
+            log["captured"].add(len(eng.records))
+        return out
+
+    eng._step = step
+    return log
+
+
+def serve_set(eng, reqs, prompts, log, serve_fn=None):
+    """Serve ``reqs`` on ``eng`` with launch counts from zero; returns
+    what the eager-against-graphed comparison reads: greedy tokens and
+    iteration records (ids as in set 0), launches, walls, prefill
+    buckets."""
+    offset = min(r.id for r in reqs) // SET_IDS * SET_IDS
+    start, n_keys = len(eng.records), len(log["keys"])
+    launch_counts.reset()
     t0 = time.perf_counter()
-    eng.run()
+    if serve_fn is None:
+        for r in reqs:
+            eng.add_request(r, prompts.get(r.id - offset))
+        eng.run()
+    else:
+        serve_fn(eng, reqs)
     torch.cuda.synchronize()
-    elapsed = time.perf_counter() - t0
-    if len(eng.finished) != len(reqs) or \
-            any(r.tokens_generated != OUTPUT_LEN for r in reqs):
-        raise AssertionError(f"{attn_path}: {len(eng.finished)} of "
-                             f"{len(reqs)} requests finished")
-    pre = [r.wall for r in eng.records if r.kind == "prefill"]
-    dec = [r.wall for r in eng.records if r.kind == "decode"]
+    run_s = time.perf_counter() - t0
+    launches = launches_now()
+    if any(r.tokens_generated != OUTPUT_LEN for r in reqs):
+        raise AssertionError("not every request finished")
+    recs = eng.records[start:]
+    captured = {i - start for i in log["captured"] if i >= start}
+
+    def mean_ms(kind, warm=None):
+        w = [r.wall for i, r in enumerate(recs) if r.kind == kind
+             and (warm is None or (i not in captured) == warm)]
+        return 1e3 * float(np.mean(w)) if w else None
+
+    walls = sum(r.wall for r in recs)
     generated = sum(r.tokens_generated for r in reqs)
     prompt = sum(r.prompt_len for r in reqs)
-    walls = sum(r.wall for r in eng.records)
-    stats = {"attn_path": attn_path,
-             "attn_impl": model.settings.attn_impl,
-             "iterations": len(eng.records),
-             "prefill_iterations": len(pre), "decode_iterations": len(dec),
-             "mean_prefill_wall_ms": 1e3 * float(np.mean(pre)),
-             "mean_decode_wall_ms": 1e3 * float(np.mean(dec)),
+    stats = {"graphed": eng.graphs is not None,
+             "iterations": len(recs),
+             "prefill_iterations": sum(r.kind == "prefill" for r in recs),
+             "decode_iterations": sum(r.kind == "decode" for r in recs),
+             "mean_prefill_wall_ms": mean_ms("prefill"),
+             "mean_decode_wall_ms": mean_ms("decode"),
+             "capture_iterations": len(captured),
+             "mean_prefill_wall_ms_without_capture": mean_ms("prefill", True),
+             "mean_decode_wall_ms_without_capture": mean_ms("decode", True),
              "generated_tokens": generated, "prompt_tokens": prompt,
              "generated_tokens_per_s": generated / walls,
              "all_tokens_per_s": (generated + prompt) / walls,
-             "run_s": elapsed,
+             "run_s": run_s,
              "preemptions": sum(r.preempt_count for r in reqs)}
-    tokens, prompts = dict(eng.tokens_by_req), dict(eng.prompt_tokens)
-    del eng
-    torch.cuda.empty_cache()
-    return stats, tokens, prompts
+    return {"stats": stats, "launches": launches,
+            "buckets": [k[1] for k in log["keys"][n_keys:]
+                        if k[0] == "prefill"],
+            "tokens": {r.id - offset: list(eng.tokens_by_req[r.id])
+                       for r in reqs},
+            "records": [(r.kind, tuple(b - offset for b in r.batch_ids),
+                         dataclasses.asdict(r.mix)) for r in recs]}
+
+
+def runtime_launches(prof):
+    """(runtime calls that enqueue one kernel, copy or fill; graph
+    launches) in a ``torch.profiler`` window."""
+    ka = prof.key_averages()
+    return (sum(e.count for e in ka if e.key.startswith(RUNTIME_LAUNCHES)),
+            sum(e.count for e in ka if e.key == "cudaGraphLaunch"))
+
+
+def launches_per_step(eng, reqs, prompts):
+    """Serve ``reqs``, profiling the first LAUNCH_STEPS steps of each
+    kind: the mean runtime launches and graph launches of a step."""
+    for r in reqs:
+        eng.add_request(r, prompts.get(r.id % SET_IDS))
+    seen = {"prefill": [], "decode": []}
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    while eng.has_work:
+        if min(len(v) for v in seen.values()) >= LAUNCH_STEPS:
+            eng.run()
+            break
+        with torch.profiler.profile(activities=acts) as prof:
+            rec = eng.step()
+            torch.cuda.synchronize()
+        if rec is None:
+            break
+        if len(seen[rec.kind]) < LAUNCH_STEPS:
+            seen[rec.kind].append(runtime_launches(prof))
+    return {kind: {"steps": len(v),
+                   "runtime_launches_per_step":
+                       float(np.mean([a for a, _ in v])) if v else None,
+                   "graph_launches_per_step":
+                       float(np.mean([b for _, b in v])) if v else None}
+            for kind, v in seen.items()}
+
+
+def sampled_logits(eng, reqs, prompts):
+    """Serve ``reqs``, keeping a copy of every logits row sampled."""
+    rows = []
+    sample = eng._sample
+
+    def keep(logits):
+        rows.append(logits.float().clone())
+        return sample(logits)
+
+    eng._sample = keep
+    for r in reqs:
+        eng.add_request(r, prompts.get(r.id % SET_IDS))
+    eng.run()
+    del eng._sample
+    return rows, {r.id % SET_IDS: list(eng.tokens_by_req[r.id])
+                  for r in reqs}
+
+
+def spread(xs):
+    xs = [x for x in xs if x is not None]
+    return (max(xs) - min(xs)) / float(np.mean(xs)) if len(xs) > 1 else None
+
+
+def eager_vs_graphed(label, graphed, log, eager, make_reqs, prompts, main,
+                     state_keys, expect_launches=None):
+    """Serve request sets 1.. on the graphed engine (set 0 was the main
+    path's run, ``main``) and sets 0.. on the eager engine, in turns;
+    each set's greedy tokens, iteration records and launch counts must
+    be identical between the two, and so must the engines' persistent
+    state after the sets (``state_keys`` of their page store or slot
+    cache).  Then the logits of one more set, and the runtime launches
+    of a step.  ``expect_launches(run)`` (optional) raises if a run's
+    launch counts are not what its prefill buckets need."""
+    logs = {"eager": instrument(eager), "graphed": log}
+    runs = {"graphed": [main], "eager": []}
+    for k in range(GRAPH_SETS):
+        order = ("eager", "graphed") if k % 2 == 0 else ("graphed", "eager")
+        for mode in order:
+            if mode == "graphed" and k == 0:
+                continue
+            eng = graphed if mode == "graphed" else eager
+            runs[mode].append(serve_set(eng, make_reqs(k * SET_IDS), prompts,
+                                        logs[mode]))
+    for k, (e, g) in enumerate(zip(runs["eager"], runs["graphed"])):
+        for what in ("tokens", "records", "launches"):
+            if e[what] != g[what]:
+                raise AssertionError(f"{label}: set {k}: graphed {what} "
+                                     f"differ from eager")
+        if expect_launches is not None:
+            expect_launches(e)
+            expect_launches(g)
+    def state(eng, key):
+        # the trash page takes colliding writes in no fixed order
+        return eng.pages[key][:, :eng.trash_page] if eng.paged \
+            else eng.cache[key]
+
+    state_diff = max(float((state(graphed, key) - state(eager, key))
+                           .abs().max()) for key in state_keys)
+
+    n = GRAPH_SETS * SET_IDS
+    reqs = make_reqs(n)[:MAX_BATCH]
+    rows_e, tok_e = sampled_logits(eager, reqs, prompts)
+    rows_g, tok_g = sampled_logits(graphed, make_reqs(n)[:MAX_BATCH],
+                                   prompts)
+    if tok_e != tok_g or len(rows_e) != len(rows_g):
+        raise AssertionError(f"{label}: graphed tokens differ from eager")
+    logit_diff = max(float((a - b).abs().max())
+                     for a, b in zip(rows_e, rows_g))
+    steps = {mode: launches_per_step(
+        eng, make_reqs((GRAPH_SETS + 1) * SET_IDS)[:MAX_BATCH // 2], prompts)
+        for mode, eng in (("eager", eager), ("graphed", graphed))}
+
+    def per_run(mode, key):
+        return [r["stats"][key] for r in runs[mode]]
+
+    out = {"model": label, "sets": GRAPH_SETS,
+           "identical_tokens_records_launches": True,
+           "state_max_abs_diff": state_diff,
+           "sampled_logit_rows": len(rows_e),
+           "logits_max_abs_diff": logit_diff,
+           "graphs": len(graphed.graphs),
+           "graph_keys": [list(k) for k in graphed.graphs.graphs],
+           "capture_s": graphed.graphs.capture_seconds,
+           "launches_per_set": runs["eager"][0]["launches"],
+           "steps": steps}
+    for mode in ("eager", "graphed"):
+        for key in ("mean_prefill_wall_ms", "mean_decode_wall_ms",
+                    "mean_prefill_wall_ms_without_capture",
+                    "mean_decode_wall_ms_without_capture",
+                    "generated_tokens_per_s", "run_s",
+                    "capture_iterations"):
+            out[f"{mode}_{key}"] = per_run(mode, key)
+    # spread of the mean walls between sets: the eager sets, and the
+    # graphed sets after set 0 (which holds the captures)
+    for kind in ("prefill", "decode"):
+        key = f"mean_{kind}_wall_ms"
+        out[f"eager_{kind}_spread"] = spread(per_run("eager", key))
+        out[f"graphed_{kind}_spread"] = spread(per_run("graphed", key)[1:])
+    phase(f"{label}_eager_vs_graphed", **out)
+    return out
 
 
 def first_token_logits(model, params, prompts):
@@ -401,8 +627,8 @@ def first_token_logits(model, params, prompts):
         spad = min(ServingEngine._bucket(plen), MAX_PAGES * PAGE)
         toks = torch.zeros((1, spad), dtype=torch.long, device="cuda")
         toks[0, :plen] = torch.from_numpy(p.astype(np.int64))
-        logits, _, _ = paged_model.prefill_collect(model, params, toks, plen)
-        out.append(logits)
+        logits, _, _ = paged_model.prefill_forward(model, params, toks)
+        out.append(logits[0, plen - 1])
     return out
 
 
@@ -420,22 +646,33 @@ def check_serving():
           d_ff=cfg.d_ff, vocab=cfg.vocab_size, param_gb=n_bytes / 1e9,
           seconds=time.perf_counter() - t0)
 
+    # the main path: the engine as a user builds it, graphed on the card
     torch.cuda.reset_peak_memory_stats()
-    paged_ops.launches = 0
-    flash_ops.launches = 0
-    flash_ops.launches_by_sq = {}
-    kernel_stats, kernel_tokens, prompts = serve(kernel_model, params,
-                                                 "pallas")
-    launches = {"paged_attention": paged_ops.launches,
-                "flash_attention": flash_ops.launches}
-    kernel_stats["launches"] = launches
-    kernel_stats["flash_launches_by_sq"] = {
-        str(sq): n for sq, n in sorted(flash_ops.launches_by_sq.items())}
-    kernel_stats["peak_memory_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    graphed = llama_engine(kernel_model, params, "pallas")
+    log = instrument(graphed)
+    main = serve_set(graphed, make_requests(), {}, log)
+    launches = main["launches"]
+    kernel_stats = {"attn_path": "pallas",
+                    "attn_impl": kernel_model.settings.attn_impl,
+                    **main["stats"],
+                    "launches": {k: launches[k] for k in
+                                 ("paged_attention", "flash_attention")},
+                    "flash_launches_by_sq": launches["flash_attention_by_sq"],
+                    "graphs": len(graphed.graphs),
+                    "capture_s": graphed.graphs.capture_seconds,
+                    "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
     phase("serve_kernel_path", **kernel_stats)
-    for name, n in launches.items():
+    for name, n in kernel_stats["launches"].items():
         if n <= 0:
             raise AssertionError(f"{name} was never launched while serving")
+    prompts = dict(graphed.prompt_tokens)
+    kernel_tokens = main["tokens"]
+
+    eager = llama_engine(kernel_model, params, "pallas", graphs=False)
+    eager_vs_graphed("llama2-7b", graphed, log, eager, make_requests,
+                     prompts, main, ("k", "v"))
+    del graphed, eager
+    free_memory()
 
     ordered = [prompts[rid] for rid in sorted(prompts)]
     compare_logits("first_token_logits",
@@ -451,7 +688,14 @@ def check_serving():
     del pages
     torch.cuda.empty_cache()
 
-    plain_stats, plain_tokens, _ = serve(plain_model, params, "gather")
+    plain = llama_engine(plain_model, params, "gather")
+    plain_run = serve_set(plain, make_requests(), prompts, instrument(plain))
+    plain_stats = {"attn_path": "gather",
+                   "attn_impl": plain_model.settings.attn_impl,
+                   **plain_run["stats"], "graphs": len(plain.graphs)}
+    del plain
+    free_memory()
+    plain_tokens = plain_run["tokens"]
     same = sum(int(x == y) for rid in kernel_tokens
                for x, y in zip(kernel_tokens[rid], plain_tokens[rid]))
     first_same = sum(int(kernel_tokens[rid][0] == plain_tokens[rid][0])
@@ -498,7 +742,7 @@ def decode_state(model, params):
     for b, n in enumerate(need):
         tables[b, :n] = np.arange(start, start + n)
         start += n
-    pages["tables"] = torch.from_numpy(tables).cuda()
+    pages["tables"].copy_(torch.from_numpy(tables))
     for b, n in enumerate(lens):
         n = int(n)
         toks = torch.zeros((1, min(ServingEngine._bucket(n),
@@ -506,7 +750,7 @@ def decode_state(model, params):
                            dtype=torch.long, device="cuda")
         toks[0, :n] = torch.from_numpy(
             rng.randint(0, model.cfg.vocab_size, size=n))
-        _, k, v = paged_model.prefill_collect(model, params, toks, n)
+        _, k, v = paged_model.prefill_forward(model, params, toks)
         paged_model.scatter_prefill(model, pages, k, v, pages["tables"][b], n)
     free_row = torch.full((MAX_PAGES,), trash, dtype=torch.long,
                           device="cuda")
@@ -524,7 +768,7 @@ def decode_logits(model, params, pages, lens, toks):
     token's K/V into the same slot before it reads it)."""
     out = {}
     for path in ("pallas", "gather"):
-        pages["len"] = lens
+        pages["len"].copy_(lens)
         out[path], _ = paged_model.paged_decode_step(model, params, pages,
                                                      toks, path)
     return out["pallas"].float(), out["gather"].float()
@@ -534,9 +778,11 @@ def profile(label, fn, reps, shares=None):
     """Where one call's time goes: host wall per call (no profiler), then
     under ``torch.profiler`` the device-busy time per call (sum of the
     device time of every kernel and copy), the idle share, the kernels
-    that take the most device time and, for each entry of ``shares``
-    (label -> kernel names), the share of the busy time that the kernels
-    whose names contain one of those names take."""
+    that take the most device time, the runtime calls that enqueue one
+    kernel, copy or fill and the CUDA graph launches per call, and, for
+    each entry of ``shares`` (label -> kernel names), the share of the
+    busy time that the kernels whose names contain one of those names
+    take."""
     fn()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -558,8 +804,11 @@ def profile(label, fn, reps, shares=None):
         key: sum(e.self_device_time_total for e in dev
                  if any(k in e.key for k in names)) / 1e3 / reps / busy_ms
         for key, names in (shares or {}).items()} if dev else "not measured"
+    launches, graph_launches = runtime_launches(prof)
     phase(f"profile_{label}", wall_ms=wall_ms,
           busy_share=busy_share,
+          runtime_launches_per_call=launches / reps,
+          graph_launches_per_call=graph_launches / reps,
           device_busy_ms=busy_ms if dev else "not measured",
           idle_share=1 - busy_ms / wall_ms if dev else "not measured",
           top_kernels=[{"name": e.key[:80],
@@ -570,22 +819,43 @@ def profile(label, fn, reps, shares=None):
 
 def profile_serving(model, params, pages, lens, toks, free_row):
     """One prefill of a 1024-token prompt and one decode step of the
-    ``decode_state`` batch, on the kernel path."""
+    ``decode_state`` batch, on the kernel path: eager, then as the
+    engine's CUDA graphs run them (the step in a graph, the copy of the
+    lengths and the scatter of the prefill's K/V outside)."""
+    graphs = StepGraphs("cuda")
+
+    def decode_step():
+        return paged_model.paged_decode_step(model, params, pages, toks,
+                                             "pallas")[0]
+
     def decode():
-        pages["len"] = lens
-        paged_model.paged_decode_step(model, params, pages, toks, "pallas")
+        pages["len"].copy_(lens)
+        decode_step()
+
+    def decode_graphed():
+        pages["len"].copy_(lens)
+        graphs.run("decode", decode_step)
 
     s = PROMPT_RANGE[1]
     prompt = torch.from_numpy(np.random.RandomState(2).randint(
         0, model.cfg.vocab_size, size=(1, s))).cuda()
 
+    def prefill_step():
+        return paged_model.prefill_forward(model, params, prompt)
+
     def prefill():
-        _, k, v = paged_model.prefill_collect(model, params, prompt, s)
+        _, k, v = prefill_step()
         paged_model.scatter_prefill(model, pages, k, v, free_row, s)
 
-    profile("decode_step", decode, 5,
-            shares={"paged_attention": PAGED_KERNELS})
-    profile("prefill_1024", prefill, 3)
+    def prefill_graphed():
+        _, k, v = graphs.run("prefill", prefill_step)
+        paged_model.scatter_prefill(model, pages, k, v, free_row, s)
+
+    for suffix, dec, pre in (("", decode, prefill),
+                             ("_graphed", decode_graphed, prefill_graphed)):
+        profile(f"decode_step{suffix}", dec, 5,
+                shares={"paged_attention": PAGED_KERNELS})
+        profile(f"prefill_1024{suffix}", pre, 3)
 
 
 # ---------------------------------------------------------------------------
@@ -833,7 +1103,7 @@ MAMBA_PROMPTS_LONG = (300, 990)     # bucket 512 or 1024: the SSD kernel
 MAMBA_SHORT, MAMBA_LONG = 4, 12
 
 
-def mamba_requests():
+def mamba_requests(offset=0):
     rng = np.random.RandomState(SEED)
     lens = np.concatenate([
         rng.randint(MAMBA_PROMPTS_SHORT[0], MAMBA_PROMPTS_SHORT[1] + 1,
@@ -841,7 +1111,7 @@ def mamba_requests():
         rng.randint(MAMBA_PROMPTS_LONG[0], MAMBA_PROMPTS_LONG[1] + 1,
                     size=MAMBA_LONG)])
     rng.shuffle(lens)
-    return [Request(id=i, arrival_time=0.0, prompt_len=int(p),
+    return [Request(id=offset + i, arrival_time=0.0, prompt_len=int(p),
                     output_len=OUTPUT_LEN) for i, p in enumerate(lens)]
 
 
@@ -860,67 +1130,57 @@ def check_mamba2():
           chunk=cfg.ssm.chunk_size, vocab=model.plan.vocab,
           param_gb=n_bytes / 1e9, seconds=time.perf_counter() - t0)
 
-    # count the prefill calls whose bucket takes the chunked scan
-    spads = []
-    prefill = zoo.prefill
+    chunk = cfg.ssm.chunk_size
 
-    def counted(model_, params_, batch, cache, *a, **kw):
-        spads.append(int(batch["tokens"].shape[1]))
-        return prefill(model_, params_, batch, cache, *a, **kw)
+    def chunked(run):
+        """The run's prefill calls whose bucket takes the chunked scan."""
+        return sum(1 for s in run["buckets"] if s % chunk == 0 and s > 1)
 
-    zoo.prefill = counted
+    def expect_launches(run):
+        n = run["launches"]["ssd_scan"]
+        if n != cfg.num_layers * chunked(run):
+            raise AssertionError(f"ssd_scan launched {n} times, expected "
+                                 f"{cfg.num_layers} x {chunked(run)}")
+
+    # the main path: launch/serve.py's engine, graphed on the card
+    log = instrument(engine)
     reqs = mamba_requests()
     torch.cuda.reset_peak_memory_stats()
-    ssd_ops.launches = 0
-    t0 = time.perf_counter()
-    try:
-        summary = serve_cli.serve(engine, reqs)
-    finally:
-        zoo.prefill = prefill
-    torch.cuda.synchronize()
-    run_s = time.perf_counter() - t0
-    launches = ssd_ops.launches
-    chunk = cfg.ssm.chunk_size
-    chunked = sum(1 for s in spads if s % chunk == 0 and s > 1)
-    pre = [r.wall for r in engine.records if r.kind == "prefill"]
-    dec = [r.wall for r in engine.records if r.kind == "decode"]
-    generated = sum(r.tokens_generated for r in reqs)
-    prompt = sum(r.prompt_len for r in reqs)
-    walls = sum(r.wall for r in engine.records)
+    summary = {}
+    main = serve_set(engine, reqs, {}, log, serve_fn=lambda e, rs:
+                     summary.update(serve_cli.serve(e, rs)))
+    spads = main["buckets"]
     stats = {"model": cfg.name, "max_ctx": engine.max_ctx,
              "requests": len(reqs),
              "prompt_lens": [r.prompt_len for r in reqs],
              "finished": summary["n_finished"],
-             "iterations": summary["iterations"],
-             "prefill_iterations": len(pre), "decode_iterations": len(dec),
+             **main["stats"],
              "prefill_calls": len(spads),
              "prefill_buckets": sorted(set(spads)),
-             "chunked_prefill_calls": chunked,
-             "launches": {"ssd_scan": launches},
-             "expected_ssd_launches": cfg.num_layers * chunked,
-             "mean_prefill_wall_ms": 1e3 * float(np.mean(pre)),
-             "mean_decode_wall_ms": 1e3 * float(np.mean(dec)),
-             "generated_tokens": generated, "prompt_tokens": prompt,
-             "generated_tokens_per_s": generated / walls,
-             "all_tokens_per_s": (generated + prompt) / walls,
-             "run_s": run_s,
-             "preemptions": sum(r.preempt_count for r in reqs),
+             "chunked_prefill_calls": chunked(main),
+             "launches": {"ssd_scan": main["launches"]["ssd_scan"]},
+             "expected_ssd_launches": cfg.num_layers * chunked(main),
+             "graphs": len(engine.graphs),
+             "capture_s": engine.graphs.capture_seconds,
              "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
     phase("serve_mamba2_slot_path", **stats)
-    if summary["n_finished"] != len(reqs) or \
-            any(r.tokens_generated != OUTPUT_LEN for r in reqs):
+    if summary["n_finished"] != len(reqs):
         raise AssertionError("mamba2: not every request finished")
-    if chunked == 0 or chunked == len(spads):
+    if chunked(main) == 0 or chunked(main) == len(spads):
         raise AssertionError(f"mamba2: prefill buckets {sorted(set(spads))}"
                              f" do not reach both SSD branches")
-    if launches != cfg.num_layers * chunked:
-        raise AssertionError(f"ssd_scan launched {launches} times, expected "
-                             f"{cfg.num_layers} x {chunked}")
+    expect_launches(main)
 
+    eager = ServingEngine(model, params, engine.ec, graphs=False)
+    eager_vs_graphed("mamba2-130m", engine, log, eager, mamba_requests,
+                     dict(engine.prompt_tokens), main, ("conv", "ssd", "len"),
+                     expect_launches)
+    del eager
+    free_memory()
     compare_ssm_routes(model, params, route_prompts(engine), engine.max_ctx)
     profile_mamba2(model, params, engine.max_ctx)
     del engine
-    torch.cuda.empty_cache()
+    free_memory()
     return stats
 
 
@@ -1007,24 +1267,31 @@ def compare_ssm_routes(model, params, prompts, max_ctx):
 
 def profile_mamba2(model, params, max_ctx):
     """One decode step of all MAX_BATCH slots and one prefill of a
-    1024-token prompt, as the engine runs them."""
+    1024-token prompt, as the engine runs them: eager, then graphed."""
     rng = np.random.RandomState(3)
     cache = zoo.init_cache(model, MAX_BATCH, max_ctx, "cuda")
     toks = torch.from_numpy(rng.randint(0, model.cfg.vocab_size,
                                         size=MAX_BATCH)).cuda()
     prompt = torch.from_numpy(rng.randint(0, model.cfg.vocab_size,
                                           size=(1, 1024))).cuda()
+    graphs = StepGraphs("cuda")
 
     def decode():
-        zoo.decode_step(model, params, cache, toks)
+        return zoo.decode_step(model, params, cache, toks)[0]
 
     def prefill():
         cache1 = zoo.init_cache(model, 1, max_ctx, "cuda")
-        zoo.prefill(model, params, {"tokens": prompt}, cache1)
+        logits, cache1 = zoo.prefill(model, params, {"tokens": prompt},
+                                     cache1)
+        return logits, cache1["conv"], cache1["ssd"]
 
-    profile("mamba2_decode_step", decode, 5)
-    profile("mamba2_prefill_1024", prefill, 3,
-            shares={"ssd_scan": SSD_KERNELS})
+    for suffix, dec, pre in (
+            ("", decode, prefill),
+            ("_graphed", lambda: graphs.run("decode", decode),
+             lambda: graphs.run("prefill", prefill))):
+        profile(f"mamba2_decode_step{suffix}", dec, 5)
+        profile(f"mamba2_prefill_1024{suffix}", pre, 3,
+                shares={"ssd_scan": SSD_KERNELS})
 
 
 def ptxas_entries(lib):

@@ -18,8 +18,9 @@ The kernel is written for Hopper (TMA loads into a ring of K/V tiles,
 the models compute; the fp32 plain version serves the CPU and the
 comparisons.  ``flash_attention`` runs ``flash_attention_ref`` for CPU
 tensors and the kernel for CUDA tensors; on a CUDA tensor it launches or
-raises (``TypeError`` for any dtype but bf16).  ``launches`` counts
-kernel launches, ``launches_by_sq`` the same launches by query length.
+raises (``TypeError`` for any dtype but bf16).  Each launch counts as
+``flash_attention`` in ``kernels.counts``, and by query length under
+``("flash_attention", Sq)``.
 """
 from __future__ import annotations
 
@@ -27,16 +28,11 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, counts
 
 NEG_INF = -1e30
 DTYPES = {torch.bfloat16: 1}   # dtype -> the C interface's dtype code
 HEAD_DIMS = (64, 128)
-
-#: kernel launches since the last reset (plain-version calls not counted)
-launches = 0
-#: the same launches by query length Sq; reset together with ``launches``
-launches_by_sq: dict = {}
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True,
@@ -96,7 +92,6 @@ def _check(q, k, v):
 
 def flash_attention(q, k, v, *, causal: bool = True, softcap: float = 0.0):
     """Model layout in/out: q (B,Sq,H,D) -> (B,Sq,H,D)."""
-    global launches
     if q.device.type == "cpu":
         return flash_attention_ref(q, k, v, causal=causal, softcap=softcap)
     if q.device.type != "cuda":
@@ -113,6 +108,5 @@ def flash_attention(q, k, v, *, causal: bool = True, softcap: float = 0.0):
     if err != 0:
         raise RuntimeError(f"flash_attention kernel launch failed "
                            f"(error {err})")
-    launches += 1
-    launches_by_sq[sq] = launches_by_sq.get(sq, 0) + 1
+    counts.count("flash_attention", sq)
     return out

@@ -16,12 +16,14 @@ The kernel splits each sequence over blocks (``grid``: splits of
 device value).  Each call takes an fp32 workspace from ``torch.empty``
 for the splits' partial softmax states, and a set of zeroed counters per
 device and stream, made once and kept: the kernel leaves them zeroed, so
-the last block of each (sequence, kv head) can merge the splits.
+the last block of each (sequence, kv head) can merge the splits.  A
+CUDA graph takes the set of the stream it was captured on with it
+(``take_ticket_counters``), so no later stream shares the graph's.
 
 ``paged_attention`` runs ``paged_attention_ref`` for CPU tensors and the
 kernel for CUDA tensors; on a CUDA tensor it launches or raises.
-``launches`` counts kernel launches (one a call: the merge is inside the
-kernel).
+Each launch counts as ``paged_attention`` in ``kernels.counts`` (one a
+call: the merge is inside the kernel).
 """
 from __future__ import annotations
 
@@ -29,15 +31,13 @@ import ctypes
 
 import torch
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, counts
 
 NEG_INF = -1e30
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128)
 GROUPS = (1, 2, 4, 8)
 
-#: kernel launches since the last reset (plain-version calls not counted)
-launches = 0
 #: (device index, stream) -> zeroed int32 counters, one per (sequence, kv
 #: head); the kernel leaves them zeroed
 _tickets = {}
@@ -98,6 +98,14 @@ def _ticket_counters(device, stream, n):
     return t
 
 
+def take_ticket_counters(device, stream):
+    """Hand the counters of (device, stream) over to the caller, or None
+    if that stream has none: a CUDA graph captured on the stream keeps
+    the counters its launches were recorded with, and a later call on a
+    stream with the same handle makes counters of its own."""
+    return _tickets.pop((torch.device(device).index, stream), None)
+
+
 def _check(q, k_pages, v_pages, block_tables, context_lens):
     if q.dim() != 3 or k_pages.dim() != 4 or block_tables.dim() != 2 \
             or context_lens.dim() != 1:
@@ -134,7 +142,6 @@ def _check(q, k_pages, v_pages, block_tables, context_lens):
 def paged_attention(q, k_pages, v_pages, block_tables, context_lens, *,
                     softcap: float = 0.0):
     """q: (B,Hq,D); k/v_pages: (NP,P,Hkv,D) -> (B,Hq,D)."""
-    global launches
     if q.device.type == "cpu":
         return paged_attention_ref(q, k_pages, v_pages, block_tables,
                                    context_lens, softcap=softcap)
@@ -158,5 +165,5 @@ def paged_attention(q, k_pages, v_pages, block_tables, context_lens, *,
     if err != 0:
         raise RuntimeError(f"paged_attention kernel launch failed "
                            f"(error {err})")
-    launches += 1
+    counts.count("paged_attention")
     return out

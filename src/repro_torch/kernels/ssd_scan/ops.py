@@ -30,8 +30,8 @@ state and the fp32 scratch the kernels pass between them, with
 The kernels read B/C where they lie, through their strides (in the model
 they are column slices of the conv output, ``models.ssm._split_xbc``),
 in fp32 or bf16; x, dA_log and the initial state must be contiguous fp32.
-``launches`` counts scans: one per wrapper call on the card, whatever
-number of CUDA kernels a scan takes.
+Each scan counts as ``ssd_scan`` in ``kernels.counts``: one per wrapper
+call on the card, whatever number of CUDA kernels a scan takes.
 """
 from __future__ import annotations
 
@@ -40,7 +40,7 @@ import ctypes
 import torch
 import torch.nn.functional as F
 
-from repro_torch.kernels import build
+from repro_torch.kernels import build, counts
 
 BC_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 #: the kernels' limits (see ssd_scan.cu): a block's output tile spans P,
@@ -48,10 +48,6 @@ BC_DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 MAX_STATE = 128
 MAX_HEAD_DIM = 64
 MAX_CHUNK = 1024
-
-#: scans launched on the card since the last reset (plain-version calls
-#: not counted)
-launches = 0
 
 
 def ssd_chunked_ref(xbar, dA_log, Bm, Cm, chunk: int, state0=None):
@@ -162,7 +158,6 @@ def _check(xbar, dA_log, Bm, Cm, state0):
 def ssd_scan(xbar, dA_log, Bm, Cm, *, chunk: int = 256, state0=None):
     """xbar (B,S,H,P); dA_log (B,S,H); Bm/Cm (B,S,G,N) ->
     (y (B,S,H,P) f32, final_state (B,H,N,P) f32)."""
-    global launches
     s = xbar.shape[1]
     chunk = _chunk(s, chunk)
     if xbar.device.type == "cpu":
@@ -207,5 +202,5 @@ def ssd_scan(xbar, dA_log, Bm, Cm, *, chunk: int = 256, state0=None):
         torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"ssd_scan kernel launch failed (error {err})")
-    launches += 1
+    counts.count("ssd_scan")
     return y, fs

@@ -3,7 +3,9 @@
 ``--device``: the CUDA card unless ``--device cpu`` is asked for.
 
 Attention models (llama2-7b) run the paged path, SSM models
-(mamba2-130m) the slot path.  Examples:
+(mamba2-130m) the slot path.  On the card the engine runs its steps as
+CUDA graphs, as the reference runs them as ``jax.jit`` programs
+(``serving.graphs``); on the CPU it runs them eagerly.  Examples:
 
   PYTHONPATH=src python -m repro_torch.launch.serve --arch mamba2-130m \\
       --requests 16 --prompt-len 600 --output-len 32

@@ -26,6 +26,7 @@ Entry points
 from __future__ import annotations
 
 import dataclasses
+import functools
 from dataclasses import dataclass
 from typing import Any, Dict, Tuple
 
@@ -127,13 +128,21 @@ def _kv_proj(p, x, model: Model, positions):
     return k, v
 
 
+@functools.lru_cache(maxsize=None)
+def _head_mask(plan: PadPlan, kind: str, dtype, device):
+    """The plan's q-head (``kind="q"``) or SSD-head mask on ``device``,
+    made once: a host-to-device copy per call would stall the host, and
+    cannot be captured in a CUDA graph."""
+    mask = plan.q_head_mask() if kind == "q" else plan.ssm_head_mask()
+    return torch.as_tensor(mask, dtype=dtype, device=device)
+
+
 def _attn_out(p, ctx, model: Model):
     """ctx: (B,S,nq,hd) -> (B,S,d); padded q heads masked."""
     plan = model.plan
     b, s = ctx.shape[:2]
     if plan.has_q_padding:
-        mask = torch.as_tensor(plan.q_head_mask(), dtype=ctx.dtype,
-                               device=ctx.device)
+        mask = _head_mask(plan, "q", ctx.dtype, ctx.device)
         ctx = ctx * mask[None, None, :, None]
     ctx = ctx.reshape(b, s, plan.n_q * model.cfg.head_dim)
     return dense_apply(p["wo"], ctx, model.compute_dtype)
@@ -273,8 +282,7 @@ def _ssm_head_mask(model: Model, device):
     plan = model.plan
     if plan.ssm_heads == plan.ssm_heads_logical:
         return None
-    return torch.as_tensor(plan.ssm_head_mask(), dtype=torch.float32,
-                           device=device)
+    return _head_mask(plan, "ssm", torch.float32, torch.device(device))
 
 
 def _run_ssm_blocks(model: Model, params, tokens, on_states=None):
@@ -332,7 +340,7 @@ def prefill(model: Model, params, batch, cache, prompt_lens=None):
             cache["ssd"][i] = states[1]
 
         x = _run_ssm_blocks(model, params, tokens, on_states=write_states)
-        cache["len"] = prompt_lens
+        cache["len"].copy_(prompt_lens)
         return _lm_head(model, params, x), cache
 
     def write(i, kv):
@@ -340,7 +348,7 @@ def prefill(model: Model, params, batch, cache, prompt_lens=None):
         cache["v"][i, :, :s] = kv[1]
 
     x = _run_blocks(model, params, tokens, on_kv=write)
-    cache["len"] = prompt_lens
+    cache["len"].copy_(prompt_lens)
     return _lm_head(model, params, x), cache
 
 
@@ -379,7 +387,7 @@ def decode_step(model: Model, params, cache, tokens):
                              cache["v"][i], cache_len)
         h = norm_apply(lp["ln2"], x, cfg.norm)
         x = x + _ffn_apply(lp, h, model)
-    cache["len"] = cache_len + 1
+    cache_len.add_(1)
     return _lm_head(model, params, x)[:, 0], cache
 
 
@@ -399,5 +407,5 @@ def _ssm_decode_step(model: Model, params, cache, tokens):
         cache["conv"][i] = cs
         cache["ssd"][i] = ss
         x = x + y
-    cache["len"] = cache["len"] + 1
+    cache["len"].add_(1)
     return _lm_head(model, params, x[:, None])[:, 0], cache

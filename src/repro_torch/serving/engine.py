@@ -23,6 +23,25 @@ slot path of hybrid and encoder-decoder models is not ported and raises
 
 ``device=None`` means the CUDA card; without one the engine raises.
 Each iteration wall ends with a device synchronisation.
+
+On the card the engine runs its steps as CUDA graphs (``serving.graphs``),
+as the reference runs them as ``jax.jit`` programs: the decode step, of
+fixed shape (``max_batch`` rows, full-width tables), and the prefill
+forward of each power-of-two bucket, each captured at its first use.
+``graphs=False`` runs the same steps eagerly; the CPU always does, and
+``graphs=True`` on the CPU raises.  What depends on a request's real
+length stays eager, outside the graphs: picking the last real row of the
+prefill's logits, ``scatter_prefill`` and the slot writes.  Sampling
+stays outside too, as the reference keeps ``sample_token`` a program of
+its own.
+
+Either way the steps read static inputs: tensors made once, here, and
+refilled in place every step (``copy_`` from pinned host buffers,
+without a host sync), and persistent state (the page store, the slot
+cache) is only ever written in place.  The slot engine keeps every
+slot's length on the host too, so it reads nothing back from the card.
+A pinned buffer is written again only after a host sync (each request's
+sampling), so no copy from it is still pending.
 """
 from __future__ import annotations
 
@@ -42,6 +61,7 @@ from repro_torch.core.sched.local import make_local_scheduler
 from repro_torch.models import model_zoo as zoo
 from repro_torch.models.common import resolve_device
 from repro_torch.serving import paged_model
+from repro_torch.serving.graphs import StepGraphs
 from repro_torch.serving.sampling import sample_token
 
 
@@ -77,10 +97,13 @@ class ServingEngine:
     """``pool`` (a multi-round KV pool with ``store``/``lookup``) and
     ``discipline`` (a tenant-aware queue order with ``select``,
     ``victim_key``, ``admit_key`` and ``on_service_start``) are taken by
-    duck typing, as the reference's scheduler uses them."""
+    duck typing, as the reference's scheduler uses them.  ``graphs``:
+    run the steps as CUDA graphs; ``None`` means yes on the card, no on
+    the CPU."""
 
     def __init__(self, model: zoo.Model, params, ec: EngineConfig,
-                 pool=None, discipline=None, device=None):
+                 pool=None, discipline=None, device=None,
+                 graphs: Optional[bool] = None):
         self.paged = paged_model.supports_paged(model)
         if not self.paged and model.cfg.family not in SLOT_FAMILIES:
             raise NotImplementedError(
@@ -107,6 +130,11 @@ class ServingEngine:
             max_batched_tokens=ec.max_batched_tokens)
 
         self.max_ctx = ec.max_pages_per_seq * ec.block_size
+        if graphs is None:
+            graphs = self.device.type == "cuda"
+        #: the CUDA graphs of the steps; None runs them eagerly
+        self.graphs = StepGraphs(self.device) if graphs else None
+
         if self.paged:
             # physical page `num_blocks` is the trash page for padded slots
             self.pages = paged_model.init_pages(
@@ -118,6 +146,29 @@ class ServingEngine:
                                         self.device)
             self.slot_of: Dict[int, int] = {}
             self.free_slots = list(range(ec.max_batch))[::-1]
+            #: every slot's length, as ``cache["len"]`` holds it
+            self.slot_len = np.zeros((ec.max_batch,), np.int32)
+
+        # static inputs: the decode step's tokens, the prefill's tokens
+        # (a bucket takes the first columns) and (paged) the prefill's
+        # table row, each with a host buffer it is filled from
+        def static(shape, dtype):
+            return torch.zeros(shape, dtype=dtype, device=self.device)
+
+        bsz, mp = ec.max_batch, ec.max_pages_per_seq
+        pin = self.device.type == "cuda"
+        self._host = {
+            "tokens": torch.zeros((bsz,), dtype=torch.int64, pin_memory=pin),
+            "prompt": torch.zeros((self.max_ctx,), dtype=torch.int64,
+                                  pin_memory=pin),
+            "lens": torch.zeros((bsz,), dtype=torch.int32, pin_memory=pin),
+            "tables": torch.zeros((bsz, mp), dtype=torch.int32,
+                                  pin_memory=pin),
+            "table_row": torch.zeros((mp,), dtype=torch.int64,
+                                     pin_memory=pin)}
+        self._tokens = static((bsz,), torch.int64)
+        self._table_row = static((mp,), torch.int64)
+        self._prompt = static((1, self.max_ctx), torch.int64)
 
         self.tokens_by_req: Dict[int, List[int]] = {}
         self.prompt_tokens: Dict[int, np.ndarray] = {}
@@ -262,28 +313,38 @@ class ServingEngine:
             seq = self._full_sequence(req)[:ctx + chunk]
             plen = int(seq.shape[0])
             spad = min(self._bucket(plen), self.max_ctx)
-            padded = np.zeros((1, spad), np.int64)
-            padded[0, :plen] = seq
-            toks = torch.from_numpy(padded).to(self.device)
+            prompt = self._host["prompt"][:spad]
+            prompt.zero_()
+            prompt.numpy()[:plen] = seq
+            toks = self._prompt[:, :spad]
+            self._upload(toks, prompt)
             if self.paged:
-                last_logits, k, v = paged_model.prefill_collect(
-                    self.model, self.params, toks, plen)
-                table = np.full((self.ec.max_pages_per_seq,),
-                                self.trash_page, np.int64)
+                logits, k, v = self._step(
+                    ("prefill", spad), lambda: paged_model.prefill_forward(
+                        self.model, self.params, toks))
+                row = self._host["table_row"]
+                row.fill_(self.trash_page)
                 blocks = self.mem.block_table(req)
-                table[:len(blocks)] = blocks
-                paged_model.scatter_prefill(
-                    self.model, self.pages, k, v,
-                    torch.from_numpy(table).to(self.device), plen)
+                row.numpy()[:len(blocks)] = blocks
+                self._upload(self._table_row, row)
+                paged_model.scatter_prefill(self.model, self.pages, k, v,
+                                            self._table_row, plen)
             else:
-                cache1 = zoo.init_cache(self.model, 1, self.max_ctx,
-                                        self.device)
-                logits, cache1 = zoo.prefill(self.model, self.params,
-                                             {"tokens": toks}, cache1)
-                last_logits = logits[0, plen - 1]
-                self._write_slot(self.slot_of[req.id], cache1)
-            self.tokens_by_req[req.id].append(self._sample(last_logits))
+                logits, conv, ssd = self._step(
+                    ("prefill", spad), lambda: self._prefill_slot(toks))
+                self._write_slot(self.slot_of[req.id],
+                                 {"conv": conv, "ssd": ssd})
+            self.tokens_by_req[req.id].append(
+                self._sample(logits[0, plen - 1]))
             self._slot_write_len(req, plen)
+
+    def _prefill_slot(self, toks):
+        """The slot path's prefill forward on the bucket's static tokens:
+        logits (1,S,V) and the single-request cache's states."""
+        cache1 = zoo.init_cache(self.model, 1, self.max_ctx, self.device)
+        logits, cache1 = zoo.prefill(self.model, self.params,
+                                     {"tokens": toks}, cache1)
+        return logits, cache1["conv"], cache1["ssd"]
 
     def _write_slot(self, slot: int, cache1) -> None:
         """Copy a single-request cache into row ``slot`` of every cache
@@ -295,7 +356,24 @@ class ServingEngine:
 
     def _slot_write_len(self, req: Request, length: int) -> None:
         if not self.paged:
-            self.cache["len"][self.slot_of[req.id]] = length
+            self.slot_len[self.slot_of[req.id]] = length
+            self._upload_slot_len()
+
+    def _upload_slot_len(self) -> None:
+        lens = self._host["lens"]
+        lens.numpy()[:] = self.slot_len
+        self._upload(self.cache["len"], lens)
+
+    # -- steps -------------------------------------------------------------
+    def _upload(self, dst, host) -> None:
+        """Refill the static input ``dst`` from its host buffer."""
+        dst.copy_(host, non_blocking=True)
+
+    def _step(self, key, step):
+        """Run ``step``: its CUDA graph ``key`` on the card, else eagerly."""
+        if self.graphs is None:
+            return step()
+        return self.graphs.run(key, step)
 
     # -- decode ------------------------------------------------------------
     def _run_decode(self, plan) -> None:
@@ -303,36 +381,39 @@ class ServingEngine:
             self._run_decode_slots(plan.decode)
             return
         reqs = plan.decode
-        bsz = self.ec.max_batch
-        tables = np.full((bsz, self.ec.max_pages_per_seq), self.trash_page,
-                         np.int32)
-        lens = np.zeros((bsz,), np.int32)
-        toks = np.zeros((bsz,), np.int64)
+        tables, lens, toks = (self._host[k].numpy()
+                              for k in ("tables", "lens", "tokens"))
+        tables.fill(self.trash_page)
+        lens.fill(0)
+        toks.fill(0)
         for i, r in enumerate(reqs):
             bt = self.mem.block_table(r)
             tables[i, :len(bt)] = bt
             lens[i] = r.context_len - 1      # KV before this token
             toks[i] = self._current_token(r)
-        self.pages["tables"] = torch.from_numpy(tables).to(self.device)
-        self.pages["len"] = torch.from_numpy(lens).to(self.device)
-        logits, self.pages = paged_model.paged_decode_step(
-            self.model, self.params, self.pages,
-            torch.from_numpy(toks).to(self.device), self.ec.attn_path)
+        self._upload(self.pages["tables"], self._host["tables"])
+        self._upload(self.pages["len"], self._host["lens"])
+        self._upload(self._tokens, self._host["tokens"])
+        logits = self._step(
+            ("decode",), lambda: paged_model.paged_decode_step(
+                self.model, self.params, self.pages, self._tokens,
+                self.ec.attn_path)[0])
         for i, r in enumerate(reqs):
             self.tokens_by_req[r.id].append(self._sample(logits[i]))
 
     def _run_decode_slots(self, reqs) -> None:
         """One decode step over every slot; empty slots decode token 0."""
-        toks = np.zeros((self.ec.max_batch,), np.int64)
-        lens = self.cache["len"].cpu().numpy().copy()
+        toks = self._host["tokens"].numpy()
+        toks.fill(0)
         for r in reqs:
             slot = self.slot_of[r.id]
             toks[slot] = self._current_token(r)
-            lens[slot] = r.context_len - 1
-        self.cache["len"] = torch.from_numpy(lens).to(self.device)
-        logits, self.cache = zoo.decode_step(
-            self.model, self.params, self.cache,
-            torch.from_numpy(toks).to(self.device))
+            self.slot_len[slot] = r.context_len - 1
+        self._upload_slot_len()
+        self._upload(self._tokens, self._host["tokens"])
+        logits = self._step(("decode",), lambda: zoo.decode_step(
+            self.model, self.params, self.cache, self._tokens)[0])
+        self.slot_len += 1                   # the step advanced every slot
         for r in reqs:
             self.tokens_by_req[r.id].append(
                 self._sample(logits[self.slot_of[r.id]]))

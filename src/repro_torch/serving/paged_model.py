@@ -16,8 +16,10 @@ Hkv, hd)``, token-major, with the last physical page as the trash page
 that takes bucket padding and padded batch rows.  Unlike the reference,
 which returns new arrays, ``scatter_prefill`` and ``paged_decode_step``
 update the store **in place** (``index_put_``): at full width it is GiBs,
-and a copy per layer per step is not affordable.  They still return the
-store, so callers read like the reference's.
+and a copy per layer per step is not affordable.  ``paged_decode_step``
+also advances ``pages["len"]`` in place, so the store's tensors keep
+their addresses, which a CUDA graph of the step replays.  They still
+return the store, so callers read like the reference's.
 """
 from __future__ import annotations
 
@@ -60,14 +62,15 @@ def init_pages(model: zoo.Model, num_pages: int, page_size: int,
 # ---------------------------------------------------------------------------
 # Prefill: run the contiguous forward, then scatter KV into pages
 # ---------------------------------------------------------------------------
-def prefill_collect(model: zoo.Model, params, tokens, prompt_len: int):
-    """tokens: (1, S) with S a padded bucket; ``prompt_len`` marks the
-    real prompt.
+def prefill_forward(model: zoo.Model, params, tokens):
+    """The reference's ``prefill_collect`` on the shapes alone (what the
+    engine captures per bucket): the caller picks the last real row of
+    the logits.  tokens: (1, S) with S a padded bucket.
 
-    Returns (logits_at_last_real_token (V,), k, v (L,S,Hkv,hd))."""
+    Returns (logits (1,S,V), k, v (L,S,Hkv,hd))."""
     cache = zoo.init_cache(model, 1, tokens.shape[1], device=tokens.device)
     logits, cache = zoo.prefill(model, params, {"tokens": tokens}, cache)
-    return logits[0, prompt_len - 1], cache["k"][:, 0], cache["v"][:, 0]
+    return logits, cache["k"][:, 0], cache["v"][:, 0]
 
 
 def scatter_prefill(model: zoo.Model, pages, k, v, table_row,
@@ -137,7 +140,7 @@ def paged_decode_step(model: zoo.Model, params, pages, tokens,
 
     tokens: (B,) current token per slot (padded slots: anything).
     Returns (logits (B,V), pages with the new K/V written in place and
-    lens advanced)."""
+    ``pages["len"]`` advanced in place)."""
     if attn_path not in ATTN_PATHS:
         raise ValueError(f"unknown attn_path {attn_path!r}; have "
                          f"{ATTN_PATHS}")
@@ -154,5 +157,5 @@ def paged_decode_step(model: zoo.Model, params, pages, tokens,
         h = norm_apply(lp["ln2"], x, cfg.norm)
         x = x + zoo._ffn_apply(lp, h, model)
     logits = zoo._lm_head(model, params, x)[:, 0]
-    pages["len"] = lens + 1
+    lens.add_(1)
     return logits, pages

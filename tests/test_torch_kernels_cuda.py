@@ -36,7 +36,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from repro_torch.kernels import build  # noqa: E402
+from repro_torch.kernels import build, counts  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as paged  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd  # noqa: E402
@@ -139,10 +139,10 @@ def _paged_case_inputs(case, device):
 def test_paged_kernel_vs_plain(cuda, case):
     dtype = case[7]
     args = _paged_case_inputs(case, cuda)
-    before = paged.launches
+    before = counts.get("paged_attention")
     got = paged.paged_attention(*args)
     torch.cuda.synchronize()
-    assert paged.launches == before + 1
+    assert counts.get("paged_attention") == before + 1
     want = _paged_plain(args)
     assert torch.isfinite(got).all()
     assert _row_rel_err(got, want).max() <= REL_TOL[dtype]
@@ -189,10 +189,10 @@ def test_flash_kernel_vs_plain(cuda, case):
     q, k, v = (torch.from_numpy(rng.randn(b, s, n, d).astype(np.float32))
                .to(device=cuda, dtype=dtype)
                for s, n in ((sq, h), (skv, hkv), (skv, hkv)))
-    before = flash.launches
+    before = counts.get("flash_attention")
     got = flash.flash_attention(q, k, v, causal=causal, softcap=softcap)
     torch.cuda.synchronize()
-    assert flash.launches == before + 1
+    assert counts.get("flash_attention") == before + 1
     want = _flash_plain(q, k, v, causal=causal, softcap=softcap)
     assert torch.isfinite(got).all()
     assert _row_rel_err(got, want).max() <= REL_TOL[dtype]
@@ -286,17 +286,17 @@ def test_cpu_tensors_take_the_plain_version():
     """On CPU tensors the wrappers compute the plain version and launch
     nothing."""
     args = _paged_inputs(3, 8, 4, 64, 33, 8, 8, torch.float32, "cpu")
-    before = paged.launches
+    before = counts.get("paged_attention")
     torch.testing.assert_close(paged.paged_attention(*args),
                                paged.paged_attention_ref(*args))
-    assert paged.launches == before
+    assert counts.get("paged_attention") == before
     q = torch.randn(1, 40, 4, 64)
-    before = flash.launches
+    before = counts.get("flash_attention")
     torch.testing.assert_close(flash.flash_attention(q, q[:, :, :2],
                                                      q[:, :, :2]),
                                flash.flash_attention_ref(q, q[:, :, :2],
                                                          q[:, :, :2]))
-    assert flash.launches == before
+    assert counts.get("flash_attention") == before
 
 
 # ---------------------------------------------------------------------------
@@ -384,9 +384,9 @@ SSD = [
 def test_ssd_kernel_vs_plain(cuda, case):
     *shape, chunk, opts = case
     args = _ssd_inputs(*shape, cuda, **opts)
-    before = ssd.launches
+    before = counts.get("ssd_scan")
     rel_y, rel_s = _ssd_rel_errs(args, chunk)
-    assert ssd.launches == before + 1
+    assert counts.get("ssd_scan") == before + 1
     assert rel_y <= REL_TOL[torch.float32]
     assert rel_s <= REL_TOL[torch.float32]
 
@@ -486,7 +486,7 @@ def test_ssd_wrapper_rejects_what_the_kernel_does_not_take(cuda):
 
 def test_ssd_cpu_tensors_take_the_plain_version():
     args = _ssd_inputs(1, 64, 2, 16, 1, 16, "cpu")
-    before = ssd.launches
+    before = counts.get("ssd_scan")
     y, fs = ssd.ssd_scan(*args[:4], chunk=32)
     torch.testing.assert_close(y, ssd.ssd_chunked_ref(*args[:4], 32)[0])
-    assert ssd.launches == before
+    assert counts.get("ssd_scan") == before

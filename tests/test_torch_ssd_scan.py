@@ -18,6 +18,7 @@ import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.ssd_scan import ops as jops  # noqa: E402
 from repro.models import ssm as jssm  # noqa: E402
+from repro_torch.kernels import counts  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops  # noqa: E402
 
 #: (b, s, h, p, g, n, chunk, tol), as tests/test_kernels.py SSD_CASES
@@ -45,9 +46,9 @@ def test_plain_scan_matches_reference_kernel(case):
     b, s, h, p, g, n, chunk, tol = case
     arrays = _inputs(b, s, h, p, g, n)
     yw, fw = jops.ssd_scan(*map(jnp.asarray, arrays), chunk=chunk)
-    before = ops.launches
+    before = counts.get("ssd_scan")
     y, f = ops.ssd_scan(*map(torch.from_numpy, arrays), chunk=chunk)
-    assert ops.launches == before             # CPU tensors launch nothing
+    assert counts.get("ssd_scan") == before   # CPU tensors launch nothing
     assert y.shape == (b, s, h, p) and f.shape == (b, h, n, p)
     np.testing.assert_allclose(y.numpy(), np.asarray(yw), rtol=tol, atol=tol)
     np.testing.assert_allclose(f.numpy(), np.asarray(fw), rtol=tol, atol=tol)
