@@ -19,7 +19,8 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    its three kernels' time and grid inside whole scans (``torch.profiler``);
    the paged kernel with the queue filled ahead and back to back, with
    its grid, its working blocks and the time of one contiguous read of
-   as many bytes;
+   as many bytes, at the decode shapes of llama2-7b, opt-13b, qwen3-14b
+   (GQA 5) and qwen2-0.5b (GQA 7, head_dim 64);
 4. serving: llama2-7b at full width and depth (random weights from
    ``init_params(seed=0)``) behind ``ServingEngine``, 16 requests of
    64-1024 prompt tokens and 32 output tokens, on the kernel path; the
@@ -39,7 +40,12 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    prefilled pages, kernel path against plain path; a profile of a
    decode step (with the paged kernel's share of its device time) and
    of a 1024-token prefill, eager and graphed; the same requests on the
-   plain path;
+   plain path.  opt-13b (learned positions, LayerNorm, GELU; MHA 40/40)
+   runs the same phase set at full width and depth; qwen3-14b (qk-norm,
+   GQA 40/8) at full width and depth runs the main path (one graphed
+   engine on the kernel routes), the two logit comparisons and the
+   profiles.  Each model frees its weights and pages before the next
+   one loads;
 5. serving: mamba2-130m at full width and depth (random weights from
    ``init_params(seed=0)``) through ``launch/serve.py``'s engine on the
    slot path (graphed on the card), 16 requests of 20-990 prompt tokens
@@ -52,7 +58,9 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    profile of a decode step at batch 8 and of a 1024-token prefill (with
    the SSD scan's share of the prefill's device time), eager and
    graphed;
-6. the ``kernels`` JSON line, then the result line.
+6. the ``kernels`` JSON line (each kernel's launches summed over the
+   main paths that run it, with ``launches_by_path``; its times at the
+   llama2-7b case), then the result line.
 
 Without a CUDA device, or without the rest of the checkout, it fails
 before printing a result.
@@ -148,6 +156,8 @@ SSD_KERNELS = ("chunk_state_kernel", "state_passing_kernel",
 #: the paged kernel (kernels/csrc/paged_attention.cu; the merge of the
 #: splits is inside it)
 PAGED_KERNELS = ("paged_attn_kernel",)
+#: the flash kernel (kernels/csrc/flash_attention.cu)
+FLASH_KERNELS = ("flash_kernel",)
 
 PAGE = 16
 NUM_BLOCKS = 1024
@@ -342,6 +352,17 @@ def check_kernels():
                    seed=1),
         paged_case("fp32 gqa 8/4 d64", batch=4, hq=8, hkv=4, d=64, dtype=f32,
                    seed=2),
+        paged_case("opt-13b decode", batch=MAX_BATCH, hq=40, hkv=40,
+                   dtype=bf16, seed=3),
+        # GQA 5 (qwen3-14b, 40/8) and GQA 7 (qwen2-0.5b, 14/2, d 64)
+        paged_case("qwen3-14b decode", batch=MAX_BATCH, hq=40, hkv=8,
+                   dtype=bf16, seed=4),
+        paged_case("fp32 qwen3-14b decode", batch=MAX_BATCH, hq=40, hkv=8,
+                   dtype=f32, seed=5),
+        paged_case("qwen2-0.5b decode", batch=MAX_BATCH, hq=14, hkv=2, d=64,
+                   dtype=bf16, seed=6),
+        paged_case("fp32 qwen2-0.5b decode", batch=MAX_BATCH, hq=14, hkv=2,
+                   d=64, dtype=f32, seed=7),
     ]
     # every prefill bucket of the serving path (64 ... max_ctx 2048)
     flash = {s: flash_case(f"causal S={s}", sq=s, skv=s, h=32, hkv=32,
@@ -357,6 +378,11 @@ def check_kernels():
                causal=True, dtype=bf16, seed=4)
     flash_case("top-left Sq<Skv d64", sq=130, skv=300, h=8, hkv=8, d=64,
                causal=True, dtype=bf16, seed=5)
+    # the prefills of opt-13b (40/40) and qwen3-14b (40/8)
+    flash_case("opt-13b causal S=1024", sq=1024, skv=1024, h=40, hkv=40,
+               causal=True, dtype=bf16, seed=6)
+    flash_case("qwen3-14b causal S=1024", sq=1024, skv=1024, h=40, hkv=8,
+               causal=True, dtype=bf16, seed=7)
     # the rows of the kernels line: the serving path's shapes
     return paged[0], flash[PROMPT_RANGE[1]]
 
@@ -383,7 +409,7 @@ def make_requests(offset=0):
                     output_len=OUTPUT_LEN) for i, p in enumerate(lens)]
 
 
-def llama_engine(model, params, attn_path, graphs=None):
+def paged_engine(model, params, attn_path, graphs=None):
     ec = EngineConfig(num_blocks=NUM_BLOCKS, block_size=PAGE,
                       max_batch=MAX_BATCH, max_pages_per_seq=MAX_PAGES,
                       attn_path=attn_path)
@@ -620,7 +646,9 @@ def eager_vs_graphed(label, graphed, log, eager, make_reqs, prompts, main,
 
 def first_token_logits(model, params, prompts):
     """Logits of each prompt's first generated token, as the engine's
-    prefill computes them (power-of-two bucket, last real position)."""
+    prefill computes them (power-of-two bucket, last real position), over
+    the logical vocabulary (past it, both routes hold the -1e30 mask)."""
+    vocab = model.plan.vocab_logical
     out = []
     for p in prompts:
         plen = len(p)
@@ -628,12 +656,22 @@ def first_token_logits(model, params, prompts):
         toks = torch.zeros((1, spad), dtype=torch.long, device="cuda")
         toks[0, :plen] = torch.from_numpy(p.astype(np.int64))
         logits, _, _ = paged_model.prefill_forward(model, params, toks)
-        out.append(logits[0, plen - 1])
+        out.append(logits[0, plen - 1, :vocab].clone())
     return out
 
 
-def check_serving():
-    cfg = get_config("llama2-7b")
+def check_serving(arch):
+    """``arch`` at full width and depth on the paged path.  The main
+    path: the engine on the kernel routes (``attn_impl="pallas"``,
+    ``attn_path="pallas"``), graphed; then first-token and decode-step
+    logits of the kernel routes against the plain routes, and the
+    profiles of a decode step and a 1024-token prefill, eager and
+    graphed.  For the archs of FULL_PHASE_SET, also eager against
+    graphed engines and the same requests on the plain path.  Phase
+    names carry the arch as a prefix (none for llama2-7b, as before)."""
+    prefix = "" if arch == "llama2-7b" else f"{arch}_"
+    full = arch in FULL_PHASE_SET
+    cfg = get_config(arch)
     kernel_model = zoo.build(cfg, settings=RunSettings(attn_impl="pallas"))
     plain_model = kernel_model.with_settings(attn_impl="naive")
     t0 = time.perf_counter()
@@ -641,18 +679,22 @@ def check_serving():
     torch.cuda.synchronize()
     n_bytes = sum(t.numel() * t.element_size()
                   for t in _leaves(params))
-    phase("init_params", model=cfg.name, layers=cfg.num_layers,
-          d_model=cfg.d_model, n_heads=cfg.n_heads, head_dim=cfg.head_dim,
-          d_ff=cfg.d_ff, vocab=cfg.vocab_size, param_gb=n_bytes / 1e9,
+    plan = kernel_model.plan
+    phase(f"{prefix}init_params", model=cfg.name, layers=cfg.num_layers,
+          d_model=cfg.d_model, n_heads=cfg.n_heads,
+          n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
+          d_ff=cfg.d_ff, vocab=cfg.vocab_size, vocab_padded=plan.vocab,
+          norm=cfg.norm, act=cfg.act, pos_emb=cfg.pos_emb,
+          qk_norm=cfg.qk_norm, param_gb=n_bytes / 1e9,
           seconds=time.perf_counter() - t0)
 
     # the main path: the engine as a user builds it, graphed on the card
     torch.cuda.reset_peak_memory_stats()
-    graphed = llama_engine(kernel_model, params, "pallas")
+    graphed = paged_engine(kernel_model, params, "pallas")
     log = instrument(graphed)
     main = serve_set(graphed, make_requests(), {}, log)
     launches = main["launches"]
-    kernel_stats = {"attn_path": "pallas",
+    kernel_stats = {"model": cfg.name, "attn_path": "pallas",
                     "attn_impl": kernel_model.settings.attn_impl,
                     **main["stats"],
                     "launches": {k: launches[k] for k in
@@ -661,36 +703,42 @@ def check_serving():
                     "graphs": len(graphed.graphs),
                     "capture_s": graphed.graphs.capture_seconds,
                     "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
-    phase("serve_kernel_path", **kernel_stats)
+    phase(f"{prefix}serve_kernel_path", **kernel_stats)
     for name, n in kernel_stats["launches"].items():
         if n <= 0:
-            raise AssertionError(f"{name} was never launched while serving")
+            raise AssertionError(f"{arch}: {name} was never launched while "
+                                 f"serving")
     prompts = dict(graphed.prompt_tokens)
     kernel_tokens = main["tokens"]
 
-    eager = llama_engine(kernel_model, params, "pallas", graphs=False)
-    eager_vs_graphed("llama2-7b", graphed, log, eager, make_requests,
-                     prompts, main, ("k", "v"))
-    del graphed, eager
+    if full:
+        eager = paged_engine(kernel_model, params, "pallas", graphs=False)
+        eager_vs_graphed(cfg.name, graphed, log, eager, make_requests,
+                         prompts, main, ("k", "v"))
+        del eager
+    del graphed
     free_memory()
 
     ordered = [prompts[rid] for rid in sorted(prompts)]
-    compare_logits("first_token_logits",
+    compare_logits(f"{prefix}first_token_logits",
                    first_token_logits(kernel_model, params, ordered),
                    first_token_logits(plain_model, params, ordered),
                    cfg.vocab_size)
 
     pages, lens, toks, free_row = decode_state(kernel_model, params)
-    compare_logits("decode_logits",
+    compare_logits(f"{prefix}decode_logits",
                    *decode_logits(kernel_model, params, pages, lens, toks),
                    cfg.vocab_size)
-    profile_serving(kernel_model, params, pages, lens, toks, free_row)
+    profile_serving(kernel_model, params, pages, lens, toks, free_row,
+                    prefix)
     del pages
-    torch.cuda.empty_cache()
+    free_memory()
+    if not full:
+        return kernel_stats
 
-    plain = llama_engine(plain_model, params, "gather")
+    plain = paged_engine(plain_model, params, "gather")
     plain_run = serve_set(plain, make_requests(), prompts, instrument(plain))
-    plain_stats = {"attn_path": "gather",
+    plain_stats = {"model": cfg.name, "attn_path": "gather",
                    "attn_impl": plain_model.settings.attn_impl,
                    **plain_run["stats"], "graphs": len(plain.graphs)}
     del plain
@@ -702,7 +750,7 @@ def check_serving():
                      for rid in kernel_tokens)
     plain_stats["generated_tokens_agreeing"] = same
     plain_stats["first_tokens_agreeing"] = first_same
-    phase("serve_plain_path", **plain_stats)
+    phase(f"{prefix}serve_plain_path", **plain_stats)
     return kernel_stats
 
 
@@ -766,12 +814,14 @@ def decode_logits(model, params, pages, lens, toks):
     """One decode step's logits through the paged kernel and through the
     plain gather path, from the same page state (each writes the new
     token's K/V into the same slot before it reads it)."""
+    vocab = model.plan.vocab_logical
     out = {}
     for path in ("pallas", "gather"):
         pages["len"].copy_(lens)
-        out[path], _ = paged_model.paged_decode_step(model, params, pages,
-                                                     toks, path)
-    return out["pallas"].float(), out["gather"].float()
+        logits, _ = paged_model.paged_decode_step(model, params, pages,
+                                                  toks, path)
+        out[path] = logits[:, :vocab].float()
+    return out["pallas"], out["gather"]
 
 
 def profile(label, fn, reps, shares=None):
@@ -817,7 +867,7 @@ def profile(label, fn, reps, shares=None):
                        for e in top])
 
 
-def profile_serving(model, params, pages, lens, toks, free_row):
+def profile_serving(model, params, pages, lens, toks, free_row, prefix=""):
     """One prefill of a 1024-token prompt and one decode step of the
     ``decode_state`` batch, on the kernel path: eager, then as the
     engine's CUDA graphs run them (the step in a graph, the copy of the
@@ -853,9 +903,10 @@ def profile_serving(model, params, pages, lens, toks, free_row):
 
     for suffix, dec, pre in (("", decode, prefill),
                              ("_graphed", decode_graphed, prefill_graphed)):
-        profile(f"decode_step{suffix}", dec, 5,
+        profile(f"{prefix}decode_step{suffix}", dec, 5,
                 shares={"paged_attention": PAGED_KERNELS})
-        profile(f"prefill_1024{suffix}", pre, 3)
+        profile(f"{prefix}prefill_1024{suffix}", pre, 3,
+                shares={"flash_attention": FLASH_KERNELS})
 
 
 # ---------------------------------------------------------------------------
@@ -1356,6 +1407,12 @@ def _leaves(tree):
             yield v
 
 
+#: the paged models served at full width and depth, in this order
+PAGED_MODELS = ("llama2-7b", "opt-13b", "qwen3-14b")
+#: those that also run eager against graphed engines and the plain path
+FULL_PHASE_SET = {"llama2-7b", "opt-13b"}
+
+
 def main():
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this check runs on the card",
@@ -1378,14 +1435,23 @@ def main():
     phase("flash_attention_resources", kernels=flash_resources())
     phase("paged_attention_resources", kernels=paged_resources())
 
+    served = {}
     with torch.no_grad():
         paged, flash = check_kernels()
         ssd = check_ssd_kernel()
-        serving = check_serving()
+        # one model at a time: each frees its weights and pages before
+        # the next loads
+        for arch in PAGED_MODELS:
+            served[arch] = check_serving(arch)["launches"]
+            free_memory()
         mamba = check_mamba2()
 
     kernels = []
-    launches = {**serving["launches"], **mamba["launches"]}
+    # the main paths' runs: each paged model's, and mamba2-130m's
+    by_path = {name: {arch: n[name] for arch, n in served.items()}
+               for name in ("paged_attention", "flash_attention")}
+    by_path["ssd_scan"] = {"mamba2-130m": mamba["launches"]["ssd_scan"]}
+    launches = {name: sum(n.values()) for name, n in by_path.items()}
     for name, rec, src, replaces in (
             ("paged_attention", paged,
              "src/repro_torch/kernels/csrc/paged_attention.cu",
@@ -1399,6 +1465,7 @@ def main():
         kernels.append({"name": name, "route": "cuda", "source": src,
                         "replaces": replaces,
                         "launches": launches[name],
+                        "launches_by_path": by_path[name],
                         "max_abs_err": rec["max_abs_err"],
                         "ms": rec["kernel_ms"],
                         "plain_ms": rec["plain_ms"],

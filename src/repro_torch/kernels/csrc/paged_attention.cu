@@ -15,7 +15,8 @@
 // Layout: q (B,Hq,D); k/v pages (NP,P,Hkv,D) token-major, read in place
 // (a row of one kv head is D contiguous elements, rows Hkv*D apart);
 // tables (B,MP) int32; lens (B,) int32; out (B,Hq,D).  bf16 or fp32,
-// D in {64,128}, G in {1,2,4,8}, any page size.  Scratch from the
+// D in {64,128}, G in {1,2,4,5,7,8} (5: qwen3-14b's 40/8, 7: qwen2-0.5b's
+// 14/2), any page size.  Scratch from the
 // wrapper: ws, fp32, one record of G*(D+2) floats per (sequence, kv
 // head, split); tickets, B*Hkv zeroed counters that the kernel leaves
 // zeroed.
@@ -45,7 +46,11 @@
 //   barrier: a thread waits on its own commit groups only.  Rows at or
 //   past len are zero-filled without a read.  The split's block-table
 //   entries are read into shared memory once.  An SM holds up to 6
-//   blocks (shared memory), up to 192 KB in flight.
+//   blocks (shared memory), up to 192 KB in flight.  A thread keeps G
+//   rows of q and of the accumulator in registers, so registers grow
+//   with G (ptxas, bf16 D 128: 74 at G 1, 128 at G 5, 168 at G 7, no
+//   spills), and from G 5 on they, not shared memory, cap the blocks an
+//   SM holds (4 at G 5, 3 at G 7).
 // - Scores: 8 products per thread, summed over D/8 lanes (4 xor
 //   shuffles at D 128, 3 at D 64).  Each row group keeps its own online
 //   softmax (log2 domain) in registers, rescaled at most once a step
@@ -398,6 +403,12 @@ int launch_group(int group, const void* q, const void* k, const void* v,
                                    batch, hkv, page, max_pages, splits,
                                    scale, softcap, stream);
     case 4: return launch<T, D, 4>(q, k, v, tables, lens, out, ws, tickets,
+                                   batch, hkv, page, max_pages, splits,
+                                   scale, softcap, stream);
+    case 5: return launch<T, D, 5>(q, k, v, tables, lens, out, ws, tickets,
+                                   batch, hkv, page, max_pages, splits,
+                                   scale, softcap, stream);
+    case 7: return launch<T, D, 7>(q, k, v, tables, lens, out, ws, tickets,
                                    batch, hkv, page, max_pages, splits,
                                    scale, softcap, stream);
     case 8: return launch<T, D, 8>(q, k, v, tables, lens, out, ws, tickets,

@@ -76,6 +76,16 @@ def norm_apply(p, x, kind, eps=1e-5):
     return y.to(x.dtype)
 
 
+def head_norm_apply(p, x, eps=1e-6):
+    """Per-head RMSNorm over head_dim (qk-norm), in fp32, output in
+    x.dtype. x: (..., H, D).  The reference's eps here is 1e-6, not
+    ``norm_apply``'s 1e-5."""
+    xf = x.float()
+    var = torch.mean(xf * xf, dim=-1, keepdim=True)
+    y = xf * torch.rsqrt(var + eps) * p["scale"].float()
+    return y.to(x.dtype)
+
+
 # ---------------------------------------------------------------------------
 # Rotary position embedding
 # ---------------------------------------------------------------------------

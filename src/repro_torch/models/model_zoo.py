@@ -1,5 +1,6 @@
-"""Model zoo, dense and SSM families: the port of
-``repro.models.model_zoo``.
+"""Model zoo, dense, VLM and SSM families: the port of
+``repro.models.model_zoo``.  VLM (chameleon) runs the dense code, as in
+the reference, its images being tokens of the same vocabulary.
 
 ``Model`` is a frozen bundle of (ArchConfig, PadPlan, RunSettings), as in
 the reference.  Parameters are a dict tree with the reference's keys and
@@ -8,11 +9,13 @@ layers in Python where the reference has ``lax.scan``.
 
 Storage dtypes (``param_dtype``): matmul weights and the embedding table
 in the compute dtype, because every reader casts them to it first;
-norm scales, the Mamba2 mixer's ``A_log``, ``D``, ``dt_bias``,
-``norm_scale``, ``conv_w`` and ``conv_b``, and the unembedding table when
-``logits_fp32``, in fp32, because their readers compute in fp32.  A tied
-embedding table is therefore fp32 and its rows are cast at the lookup.
-At llama2-7b that is about 13 GB of bf16 weights plus a 0.5 GB fp32
+norm scales (qk-norm's too), the Mamba2 mixer's ``A_log``, ``D``,
+``dt_bias``, ``norm_scale``, ``conv_w`` and ``conv_b``, and the
+unembedding table when ``logits_fp32``, in fp32, because their readers
+compute in fp32.  A tied embedding table is therefore fp32 and its rows
+are cast at the lookup.  A learned position table (``pos``) is in the
+compute dtype, because the reference casts it to the activations' dtype
+before the add.  At llama2-7b that is about 13 GB of bf16 weights plus a 0.5 GB fp32
 unembedding table.
 
 Entry points
@@ -32,19 +35,25 @@ from typing import Any, Dict, Tuple
 
 import torch
 
-from repro_torch.configs.base import ArchConfig, DENSE, SSM
+from repro_torch.configs.base import (ArchConfig, AUDIO, DENSE, ENCDEC,
+                                      SSM, VLM)
 from repro_torch.distributed.padding import PadPlan, make_pad_plan
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention_impl import attend, decode_attention
 from repro_torch.models.common import (DEFAULT_SETTINGS, RunSettings,
                                        resolve_device)
 from repro_torch.models.layers import (apply_rope, dense_apply, dense_init,
-                                       embed_apply, embed_init, mlp_apply,
-                                       mlp_init, norm_apply, norm_init,
+                                       embed_apply, embed_init,
+                                       head_norm_apply, mlp_apply, mlp_init,
+                                       norm_apply, norm_init, normal,
                                        unembed_apply)
 
 #: families this slice ports; the others raise
-PORTED_FAMILIES = (DENSE, SSM)
+PORTED_FAMILIES = (DENSE, VLM, SSM)
+#: position encodings the port builds
+POS_EMBS = ("rope", "learned", "none")
+#: learned position tables are capped (reference model_zoo.py:48)
+LEARNED_POS_CAP = 32_768
 #: Mamba2 mixer leaves that the reference reads in fp32 (ssm.py:149-166,
 #: 218-228, 261-263), stored in fp32 so the port reads the same values
 SSM_FP32_LEAVES = ("A_log", "D", "dt_bias", "norm_scale", "conv_w",
@@ -72,9 +81,10 @@ def build(cfg: ArchConfig, tp: int = 1,
         raise NotImplementedError(
             f"{cfg.name}: family {cfg.family!r} is not ported yet "
             f"(have {PORTED_FAMILIES})")
-    if cfg.qk_norm or cfg.pos_emb not in ("rope", "none"):
+    if cfg.pos_emb not in POS_EMBS:
         raise NotImplementedError(
-            f"{cfg.name}: qk-norm and learned positions are not ported yet")
+            f"{cfg.name}: position encoding {cfg.pos_emb!r} is not ported "
+            f"(have {POS_EMBS})")
     return Model(cfg=cfg, plan=make_pad_plan(cfg, tp), settings=settings)
 
 
@@ -107,6 +117,8 @@ def _q_proj(p, x, model: Model, positions):
     b, s, _ = x.shape
     q = dense_apply(p["wq"], x, model.compute_dtype) \
         .reshape(b, s, plan.n_q, cfg.head_dim)
+    if "q_norm" in p:
+        q = head_norm_apply(p["q_norm"], q)
     if cfg.pos_emb == "rope":
         q = apply_rope(q, positions, cfg.rope_theta)
     return q
@@ -120,6 +132,8 @@ def _kv_proj(p, x, model: Model, positions):
     nkv_log = plan.n_kv // plan.kv_rep
     k = dense_apply(p["wk"], x, cd).reshape(b, s, nkv_log, cfg.head_dim)
     v = dense_apply(p["wv"], x, cd).reshape(b, s, nkv_log, cfg.head_dim)
+    if "k_norm" in p:
+        k = head_norm_apply(p["k_norm"], k)
     if cfg.pos_emb == "rope" and positions is not None:
         k = apply_rope(k, positions, cfg.rope_theta)
     if plan.kv_rep > 1:
@@ -202,18 +216,22 @@ def init_params(model: Model, seed: int = 0, device=None) -> Dict[str, Any]:
 
     def block():
         dense = dict(dtype=cd, bias=cfg.qkv_bias, **kw)
+        attn = {
+            "wq": dense_init(d, nq * hd, **dense),
+            "wk": dense_init(d, nkv * hd, **dense),
+            "wv": dense_init(d, nkv * hd, **dense),
+            "wo": dense_init(nq * hd, d, dtype=cd, scale=(nq * hd) ** -0.5,
+                             **kw),
+        }
+        if cfg.qk_norm:
+            attn["q_norm"] = norm_init(hd, "rmsnorm", device=device)
+            attn["k_norm"] = norm_init(hd, "rmsnorm", device=device)
         return {
             "ln1": norm_init(d, cfg.norm, device=device),
-            "attn": {
-                "wq": dense_init(d, nq * hd, **dense),
-                "wk": dense_init(d, nkv * hd, **dense),
-                "wv": dense_init(d, nkv * hd, **dense),
-                "wo": dense_init(nq * hd, d, dtype=cd, scale=(nq * hd) ** -0.5,
-                                 **kw),
-            },
+            "attn": attn,
             "ln2": norm_init(d, cfg.norm, device=device),
             "mlp": mlp_init(d, cfg.d_ff, cfg.act, dtype=cd,
-                            bias=cfg.mlp_bias, **kw),
+                            bias=mlp_bias(cfg), **kw),
         }
 
     def ssm_layer():
@@ -231,7 +249,19 @@ def init_params(model: Model, seed: int = 0, device=None) -> Dict[str, Any]:
     if not cfg.tie_embeddings:
         params["unembed"] = embed_init(plan.vocab, d, dtype=param_dtype(
             model, ("unembed", "table")), **kw)
+    if cfg.pos_emb == "learned":
+        n_pos = min(cfg.max_seq_len, LEARNED_POS_CAP)
+        params["pos"] = normal((n_pos, d), 0.02, dtype=param_dtype(
+            model, ("pos",)), **kw)
     return params
+
+
+def mlp_bias(cfg: ArchConfig) -> bool:
+    """Whether the MLP has biases: the reference adds them for
+    encoder-decoder and audio models and for learned positions (OPT) as
+    well as where the config asks (model_zoo.py:202-204)."""
+    return (cfg.mlp_bias or cfg.family in (AUDIO, ENCDEC)
+            or cfg.pos_emb == "learned")
 
 
 def _tree_map(fn, *trees):
@@ -248,6 +278,22 @@ def _embed_tokens(model: Model, params, tokens):
     return embed_apply(params["embed"], tokens, model.compute_dtype)
 
 
+def _add_positions(model: Model, params, x, lens=None):
+    """``x`` plus its learned position rows, where the model has them:
+    rows 0..S-1 for a full sequence (``lens`` None), else row ``lens[b]``
+    for the one token of each row b (x: (B,1,d)).  A decode index past
+    the table's end reads its last row, as the reference's gather does
+    (JAX clamps the index); the clamp reads ``lens`` on the device, so a
+    CUDA graph replays it."""
+    if model.cfg.pos_emb != "learned":
+        return x
+    table = params["pos"]
+    if lens is None:
+        return x + table[:x.shape[1]][None].to(x.dtype)
+    idx = lens.clamp(max=table.shape[0] - 1).long()
+    return x + table[idx][:, None].to(x.dtype)
+
+
 def _lm_head(model: Model, params, x):
     x = norm_apply(params["final_norm"], x, model.cfg.norm)
     table = params.get("unembed", params["embed"])["table"]
@@ -259,7 +305,7 @@ def _run_blocks(model: Model, params, tokens, on_kv=None):
     """Embed, run every block, and hand each layer's (k, v) to on_kv."""
     s = tokens.shape[1]
     positions = torch.arange(s, device=tokens.device)
-    x = _embed_tokens(model, params, tokens)
+    x = _add_positions(model, params, _embed_tokens(model, params, tokens))
     for i in range(model.cfg.num_layers):
         x, kv = _block_apply(layer(params["layers"], i), x, model, positions)
         if on_kv is not None:
@@ -379,7 +425,9 @@ def decode_step(model: Model, params, cache, tokens):
     if cfg.family == SSM:
         return _ssm_decode_step(model, params, cache, tokens)
     cache_len = cache["len"]
-    x = _embed_tokens(model, params, tokens[:, None])
+    x = _add_positions(model, params,
+                       _embed_tokens(model, params, tokens[:, None]),
+                       cache_len)
     for i in range(cfg.num_layers):
         lp = layer(params["layers"], i)
         h = norm_apply(lp["ln1"], x, cfg.norm)

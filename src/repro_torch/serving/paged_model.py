@@ -27,13 +27,13 @@ from typing import Dict
 
 import torch
 
-from repro_torch.configs.base import DENSE
+from repro_torch.configs.base import DENSE, VLM
 from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.models import model_zoo as zoo
 from repro_torch.models.attention_impl import decode_attention
 from repro_torch.models.layers import norm_apply
 
-PAGED_FAMILIES = (DENSE,)
+PAGED_FAMILIES = (DENSE, VLM)
 ATTN_PATHS = ("gather", "pallas")
 
 
@@ -140,14 +140,18 @@ def paged_decode_step(model: zoo.Model, params, pages, tokens,
 
     tokens: (B,) current token per slot (padded slots: anything).
     Returns (logits (B,V), pages with the new K/V written in place and
-    ``pages["len"]`` advanced in place)."""
+    ``pages["len"]`` advanced in place).  A learned position is read at
+    each row's length, clamped to the table's last row as the
+    reference's gather clamps it (``zoo._add_positions``)."""
     if attn_path not in ATTN_PATHS:
         raise ValueError(f"unknown attn_path {attn_path!r}; have "
                          f"{ATTN_PATHS}")
     cfg = model.cfg
     lens = pages["len"]
     tables = pages["tables"]
-    x = zoo._embed_tokens(model, params, tokens[:, None])
+    x = zoo._add_positions(model, params,
+                           zoo._embed_tokens(model, params, tokens[:, None]),
+                           lens)
     for i in range(cfg.num_layers):
         lp = zoo.layer(params["layers"], i)
         h = norm_apply(lp["ln1"], x, cfg.norm)

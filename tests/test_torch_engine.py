@@ -1,7 +1,9 @@
-"""The port's ServingEngine against the reference's, fp32 smoke model.
+"""The port's ServingEngine against the reference's, fp32 smoke models.
 
-Both engines serve the same six requests of mixed lengths with a page
-pool small enough to force preemption.  The port must reproduce the
+For every DENSE/VLM entry of ``repro.configs.SMOKE_CONFIGS`` (the
+reference's weights loaded into the port, ``model_pair`` of
+tests/test_torch_model.py), both engines serve the same six requests of
+mixed lengths with a page pool small enough to force preemption.  The port must reproduce the
 reference exactly where the reference is exact: greedy tokens of every
 request, and every iteration record's kind, batch and ``BatchMix``.
 This structural test stands in for the class sharing the reference
@@ -13,6 +15,12 @@ Run once on the plain path (``gather``, naive prefill attention) and
 once on the kernel path (``pallas`` decode and prefill): the reference
 runs its Pallas kernels in interpret mode, the port its kernels' plain
 versions, as it does for any CPU tensor.
+
+opt's learned positions past the end of the table: a position table of
+24 rows, requests decoded to context 30 on both paged paths, with pages
+enough that nothing is preempted (a recompute would prefill past the
+table, which the reference's ``pos[:S]`` does not take).  The decode
+reads the table's last row there, as the reference's gather does.
 
 The slot path (mamba2-130m smoke model, fp32) is held to the same
 standard: greedy tokens and iteration records exactly, with preemption
@@ -38,55 +46,53 @@ from repro_torch.core.request import Request  # noqa: E402
 from repro_torch.models import model_zoo as tzoo  # noqa: E402
 from repro_torch.serving import engine as teng  # noqa: E402
 from repro_torch.serving.sampling import sample_token  # noqa: E402
+from test_torch_model import arch_cases, model_pair  # noqa: E402
 
 PROMPTS = [5, 12, 20, 9, 30, 16]
 OUTPUTS = [8, 6, 10, 12, 5, 9]
 ENGINE = dict(num_blocks=14, block_size=8, max_batch=4, max_pages_per_seq=8)
+#: opt with a position table of 24 rows; prompts bucket to 16
+SHORT_POS = 24
+POS_PROMPTS = [16, 12]
+POS_OUTPUTS = [15, 14]
+POS_ENGINE = dict(num_blocks=16, block_size=8, max_batch=2,
+                  max_pages_per_seq=8)
 
 
-@pytest.fixture(scope="module")
-def models():
-    jcfg = dataclasses.replace(jax_smoke("llama2-7b"), dtype="float32")
-    tcfg = dataclasses.replace(get_smoke_config("llama2-7b"),
-                               dtype="float32")
-    jmodel = jzoo.build(jcfg)
-    params = jzoo.init_params(jmodel, jax.random.key(0))
-    tmodel = tzoo.build(tcfg)
-    tparams = params_from_jax(tmodel, jax.tree.map(np.asarray, params),
-                              device="cpu")
-    return jmodel, params, tmodel, tparams
-
-
-def _requests(cls):
-    return [cls(id=i, arrival_time=0.01 * i, prompt_len=p, output_len=o)
-            for i, (p, o) in enumerate(zip(PROMPTS, OUTPUTS))]
-
-
-@pytest.mark.parametrize("path", ["gather", "pallas"])
-def test_engine_matches_reference(models, path):
+def _serve(models, path, prompts, outputs, ecfg):
+    """Both engines on the same requests; returns (port engine, its
+    requests, reference engine, its requests)."""
     jmodel, params, tmodel, tparams = models
     impl = "pallas" if path == "pallas" else "auto"
     jm = jmodel.with_settings(attn_impl=impl, attn_block_q=8,
                               attn_block_kv=8)
     tm = tmodel.with_settings(attn_impl=impl)
 
-    jreqs = _requests(JaxRequest)
+    def requests(cls):
+        return [cls(id=i, arrival_time=0.01 * i, prompt_len=p,
+                    output_len=o)
+                for i, (p, o) in enumerate(zip(prompts, outputs))]
+
+    jreqs = requests(JaxRequest)
     je = jeng.ServingEngine(jm, params,
-                            jeng.EngineConfig(attn_path=path, **ENGINE))
+                            jeng.EngineConfig(attn_path=path, **ecfg))
     for r in jreqs:
         je.add_request(r)
     je.run()
 
-    treqs = _requests(Request)
+    treqs = requests(Request)
     te = teng.ServingEngine(tm, tparams,
-                            teng.EngineConfig(attn_path=path, **ENGINE),
+                            teng.EngineConfig(attn_path=path, **ecfg),
                             device="cpu")
     for r in treqs:
         te.add_request(r)
     te.run()
+    return te, treqs, je, jreqs
 
+
+def _same_run(te, treqs, je, jreqs):
+    assert te.paged
     assert len(te.finished) == len(treqs) == len(je.finished)
-    assert sum(r.preempt_count for r in jreqs) > 0, "no preemption forced"
     assert [r.preempt_count for r in treqs] == \
         [r.preempt_count for r in jreqs]
     assert te.tokens_by_req == je.tokens_by_req
@@ -97,11 +103,30 @@ def test_engine_matches_reference(models, path):
         assert t.batch_ids == j.batch_ids
         assert dataclasses.asdict(t.mix) == dataclasses.asdict(j.mix)
 
-    n = ENGINE["num_blocks"]                  # the trash page is index n
+    n = te.trash_page
     for key in ("k", "v"):
         np.testing.assert_allclose(te.pages[key][:, :n].numpy(),
                                    np.asarray(je.pages[key])[:, :n],
                                    rtol=1e-5, atol=1e-5)
+
+
+@pytest.mark.parametrize("arch,path", arch_cases(["gather", "pallas"]))
+def test_engine_matches_reference(arch, path):
+    te, treqs, je, jreqs = _serve(model_pair(arch), path, PROMPTS, OUTPUTS,
+                                  ENGINE)
+    assert sum(r.preempt_count for r in jreqs) > 0, "no preemption forced"
+    _same_run(te, treqs, je, jreqs)
+
+
+@pytest.mark.parametrize("path", ["gather", "pallas"])
+def test_learned_positions_past_the_table(path):
+    models = model_pair("opt-13b", seed=2, max_seq_len=SHORT_POS)
+    assert models[3]["pos"].shape[0] == SHORT_POS
+    te, treqs, je, jreqs = _serve(models, path, POS_PROMPTS, POS_OUTPUTS,
+                                  POS_ENGINE)
+    assert max(r.context_len for r in treqs) > SHORT_POS + 4
+    assert sum(r.preempt_count for r in jreqs) == 0
+    _same_run(te, treqs, je, jreqs)
 
 
 def test_sampling_respects_padded_vocab():

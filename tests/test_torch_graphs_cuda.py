@@ -14,7 +14,11 @@ the kernels' launch counts (the graphs add their launches at every
 replay) and the persistent state after the run (the page store but its
 trash page, which takes colliding writes in no fixed order; the slot
 cache).  llama2-7b runs both attention paths (the paged and flash
-kernels inside the graphs on ``pallas``); mamba2-130m the slot path with
+kernels inside the graphs on ``pallas``); opt-13b the kernel path
+(learned positions, LayerNorm, GELU, MLP biases), once with its table of
+2048 positions and preemption forced, and once with the table cut to 64
+rows and decodes past it, so the clamped position read runs inside the
+decode graph; mamba2-130m the slot path with
 buckets of 256 and 512, so the SSD scan's kernels run inside the prefill
 graphs.  ``test_stale_tables_are_caught`` plants a fault (the decode
 step's static block tables left unrefreshed before replay) and shows
@@ -40,6 +44,14 @@ LLAMA_PROMPTS = [40, 100, 70, 20, 90, 60]
 LLAMA_OUTPUTS = [20, 12, 25, 30, 10, 18]
 LLAMA_ENGINE = dict(num_blocks=10, block_size=16, max_batch=4,
                     max_pages_per_seq=16)
+#: opt-13b with its table cut to 64 positions: buckets 32 and 64 (the
+#: prefill reads ``pos[:S]``), decodes to context 80, 15 of 24 pages (no
+#: preemption: a recompute would prefill past the table)
+OPT_SHORT_POS = 64
+OPT_PROMPTS = [40, 60, 30]
+OPT_OUTPUTS = [30, 20, 40]
+OPT_ENGINE = dict(num_blocks=24, block_size=16, max_batch=4,
+                  max_pages_per_seq=16)
 #: 24 pages force a preemption; buckets 32, 64, 256 and 512 (the SSD
 #: kernel takes 256 and 512, the recurrence the others)
 MAMBA_PROMPTS = [300, 20, 200, 140, 60, 260]
@@ -56,8 +68,9 @@ def cuda():
     return torch.device("cuda")
 
 
-def _model(arch, cuda, **settings):
-    cfg = dataclasses.replace(get_config(arch), num_layers=LAYERS)
+def _model(arch, cuda, overrides=None, **settings):
+    cfg = dataclasses.replace(get_config(arch), num_layers=LAYERS,
+                              **(overrides or {}))
     model = zoo.build(cfg, settings=RunSettings(**settings))
     return model, zoo.init_params(model, seed=0, device=cuda)
 
@@ -139,6 +152,32 @@ def test_graphed_engine_matches_eager(llama, path):
     else:
         assert launches.get("paged_attention", 0) == 0
         assert launches.get("flash_attention", 0) == 0
+
+
+@pytest.mark.parametrize("table", ["full", "short"])
+def test_graphed_opt_engine_matches_eager(cuda, table):
+    short = table == "short"
+    model, params = _model("opt-13b", cuda,
+                           {"max_seq_len": OPT_SHORT_POS} if short else None,
+                           attn_impl="pallas")
+    assert params["pos"].shape[0] == (OPT_SHORT_POS if short else 2048)
+    prompts, outputs, engine = (OPT_PROMPTS, OPT_OUTPUTS, OPT_ENGINE) \
+        if short else (LLAMA_PROMPTS, LLAMA_OUTPUTS, LLAMA_ENGINE)
+    ec = EngineConfig(attn_path="pallas", **engine)
+    eager = _serve(model, params, ec, prompts, outputs, False)
+    graphed = _serve(model, params, ec, prompts, outputs, None)
+    g, reqs = graphed[0], graphed[1]
+    assert _differences(eager, graphed) == []
+    if short:
+        assert sum(r.preempt_count for r in reqs) == 0
+        assert max(r.context_len for r in reqs) > OPT_SHORT_POS + 8
+    else:
+        assert sum(r.preempt_count for r in reqs) > 0, \
+            "no preemption forced"
+    assert g.graphs.graphs[("decode",)].replays > 0
+    decodes = sum(r.kind == "decode" for r in g.records)
+    assert graphed[2].get("paged_attention", 0) == LAYERS * decodes
+    assert graphed[2].get("flash_attention", 0) > 0
 
 
 def test_graphed_slot_engine_matches_eager(mamba):

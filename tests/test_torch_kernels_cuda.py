@@ -120,6 +120,19 @@ PAGED = [
     # GQA 8 at d 128
     (4, 64, 8, 128, 129, 16, 32, torch.bfloat16, {}),
     (3, 16, 2, 128, 65, 16, 32, torch.float32, {}),
+    # GQA 5 (qwen3-14b, 40/8) and GQA 7 (qwen2-0.5b, 14/2)
+    (8, 40, 8, 128, 129, 16, 16, torch.bfloat16, {}),
+    (3, 40, 8, 128, 65, 16, 16, torch.float32, {}),
+    (7, 40, 8, 128, 129, 16, 16, torch.bfloat16,
+     {"lens": "split-boundary"}),
+    (8, 40, 8, 128, 1025, 16, 128, torch.bfloat16,
+     {"lens": [2048, 3, 17, 40, 64, 5, 100, 1]}),
+    (8, 14, 2, 64, 129, 16, 16, torch.bfloat16, {}),
+    (3, 14, 2, 64, 65, 16, 16, torch.float32, {}),
+    (7, 14, 2, 64, 193, 16, 32, torch.float32, {"lens": "split-boundary"}),
+    (6, 14, 2, 64, 40, 16, 32, torch.bfloat16, {"shared_pages": True}),
+    (3, 5, 1, 64, 33, 8, 8, torch.float32, {}),
+    (3, 7, 1, 128, 33, 8, 8, torch.bfloat16, {}),
 ]
 
 
@@ -179,6 +192,11 @@ FLASH = [
     (1, 70, 150, 4, 2, 128, False, 20.0, torch.bfloat16),  # ragged softcap
     (1, 1000, 1000, 32, 32, 128, True, 0.0, torch.bfloat16),  # Sq % 128
     (1, 130, 300, 4, 4, 64, True, 0.0, torch.bfloat16),   # top-left, 2 tiles
+    # opt-13b (40/40) and qwen3-14b (40/8) prefills; qwen2-0.5b (14/2, d 64)
+    (1, 1024, 1024, 40, 40, 128, True, 0.0, torch.bfloat16),
+    (1, 1024, 1024, 40, 8, 128, True, 0.0, torch.bfloat16),
+    (1, 300, 300, 40, 8, 128, True, 0.0, torch.bfloat16),
+    (1, 500, 500, 14, 2, 64, True, 0.0, torch.bfloat16),
 ]
 
 
@@ -229,14 +247,16 @@ FAULTS = {
 }
 
 
-def _serving_shape_case(name, device):
+def _serving_shape_case(name, device, hkv=32):
     """Run kernel ``name`` once at the serving path's shape (llama2-7b,
-    bf16); returns (kernel output, fp32 plain output, the long rows).
-    Long rows: paged, every row but the padded one (contexts up to 2048);
-    flash, causal S 2048, the rows at positions 512 and later."""
+    bf16; paged with ``hkv`` 8, qwen3-14b's 40/8); returns (kernel
+    output, fp32 plain output, the long rows).  Long rows: paged, every
+    row but the padded one (contexts up to 2048); flash, causal S 2048,
+    the rows at positions 512 and later."""
     dtype = torch.bfloat16
     if name == "paged_attention":
-        args = _paged_inputs(8, 32, 32, 128, 1025, 16, 128, dtype, device)
+        hq = 32 if hkv == 32 else 5 * hkv
+        args = _paged_inputs(8, hq, hkv, 128, 1025, 16, 128, dtype, device)
         return paged.paged_attention(*args), _paged_plain(args), \
             slice(0, -1)
     rng = np.random.RandomState(2)
@@ -269,6 +289,46 @@ def test_relative_limit_catches_an_off_by_one(cuda, fault, tmp_path,
     assert sound <= REL_TOL[torch.bfloat16] < planted
 
 
+@pytest.mark.parametrize("fault", sorted(f for f in FAULTS
+                                         if f.startswith("paged")))
+def test_relative_limit_catches_an_off_by_one_at_group_5(
+        cuda, fault, tmp_path, monkeypatch):
+    """The paged faults again at qwen3-14b's decode shape (GQA 40/8)."""
+    name, old, new = FAULTS[fault]
+    got, want, rows = _serving_shape_case(name, cuda, hkv=8)
+    sound = float(_row_rel_err(got, want)[rows].max())
+    src = (build.CSRC / f"{name}.cu").read_text()
+    (tmp_path / f"{name}.cu").write_text(src.replace(old, new))
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "lib")
+    monkeypatch.setattr(build, "_loaded", {})
+    got, want, rows = _serving_shape_case(name, cuda, hkv=8)
+    planted = float(_row_rel_err(got, want)[rows].max())
+    print(f"\n{fault} at G 5: long-row relative error, sound {sound:.3e}, "
+          f"planted {planted:.3e}, limit {REL_TOL[torch.bfloat16]:.0e}")
+    assert sound <= REL_TOL[torch.bfloat16] < planted
+
+
+def test_head_dim_80_raises(cuda):
+    """stablelm-3b's head_dim (2560/32 = 80): neither kernel takes it, so
+    its kernel routes raise on the card; its served routes are the plain
+    defaults (``gather``, and ``auto`` prefill attention)."""
+    from repro_torch.configs import get_config
+    cfg = get_config("stablelm-3b")
+    d, h = cfg.head_dim, cfg.n_heads
+    assert d == 80
+    q = torch.zeros(2, h, d, device=cuda, dtype=torch.bfloat16)
+    kp = torch.zeros(9, 16, cfg.n_kv_heads, d, device=cuda,
+                     dtype=torch.bfloat16)
+    bt = torch.zeros(2, 4, dtype=torch.int32, device=cuda)
+    cl = torch.ones(2, dtype=torch.int32, device=cuda)
+    with pytest.raises(ValueError, match="head_dim 80"):
+        paged.paged_attention(q, kp, kp, bt, cl)
+    x = torch.zeros(1, 64, h, d, device=cuda, dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="head_dim 80"):
+        flash.flash_attention(x, x, x)
+
+
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     q = torch.zeros(2, 4, 96, device=cuda)              # head_dim 96
     kp = torch.zeros(8, 16, 2, 96, device=cuda)
@@ -276,6 +336,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     cl = torch.ones(2, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         paged.paged_attention(q, kp, kp, bt, cl)
+    q3 = torch.zeros(2, 6, 64, device=cuda)             # group 3
+    kp3 = torch.zeros(8, 16, 2, 64, device=cuda)
+    with pytest.raises(ValueError, match="6/2"):
+        paged.paged_attention(q3, kp3, kp3, bt, cl)
     for dtype in (torch.float16, torch.float32):
         x = torch.zeros(1, 64, 2, 64, device=cuda, dtype=dtype)
         with pytest.raises(TypeError):

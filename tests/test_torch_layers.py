@@ -39,6 +39,19 @@ def test_norm(kind):
     _close(tl.norm_apply(tp, tx, kind), jl.norm_apply(jp, jx, kind))
 
 
+def test_head_norm():
+    """qk-norm over head_dim with eps 1e-6: on head 0, whose rows have a
+    mean square near 1e-6, eps 1e-5 would read about 0.3 of the value
+    lower, so a wrong eps shows."""
+    rng = np.random.RandomState(3)
+    x = rng.randn(2, 5, 3, 16).astype(np.float32)
+    x[:, :, 0] *= 1e-3
+    scale = rng.randn(16).astype(np.float32)
+    jx, tx = _both(x)
+    _close(tl.head_norm_apply({"scale": torch.from_numpy(scale)}, tx),
+           jl.head_norm_apply({"scale": jnp.asarray(scale)}, jx))
+
+
 @pytest.mark.parametrize("pos_ndim", [1, 2])
 def test_rope(pos_ndim):
     rng = np.random.RandomState(1)

@@ -1,7 +1,7 @@
 """The port's ``launch/serve.py`` against the reference's, on the CPU.
 
-For each ported arch (llama2-7b on the paged path, mamba2-130m on the
-slot path), ``python -m repro.launch.serve --smoke`` and the port's
+For llama2-7b and opt-13b on the paged path and mamba2-130m on the slot
+path, ``python -m repro.launch.serve --smoke`` and the port's
 ``--smoke --device cpu`` with the same arguments must draw the same
 request stream and report the same counts: finished requests,
 preemption rate and engine iterations.  Walls and rates are host times
@@ -31,7 +31,7 @@ def _recording(generate, into):
     return wrapped
 
 
-@pytest.mark.parametrize("arch", ["llama2-7b", "mamba2-130m"])
+@pytest.mark.parametrize("arch", ["llama2-7b", "mamba2-130m", "opt-13b"])
 def test_serve_matches_reference(arch, monkeypatch, capsys):
     argv = ["--arch", arch] + ARGS
     jstream, tstream = [], []
