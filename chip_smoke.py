@@ -58,7 +58,20 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    profile of a decode step at batch 8 and of a 1024-token prefill (with
    the SSD scan's share of the prefill's device time), eager and
    graphed;
-6. the ``kernels`` JSON line (each kernel's launches summed over the
+6. the repaired ``blocked`` attention route at full width on the card:
+   stablelm-3b at full width and depth (32 layers, 32 heads of 80, bf16,
+   random weights from ``init_params(seed=0)``), one 4096-token prompt
+   through ``model_zoo.forward`` with the default ``RunSettings()``
+   (``auto`` resolves to ``blocked``, 4 x 4 blocks of 1024; the flash
+   kernel takes no head_dim 80), against ``attn_impl="naive"``: the last
+   position's logits within LOGIT_REL_MAX of the naive route's largest
+   logit, the greedy tokens, both walls and the peak memory;
+7. the simulator (``repro_torch.launch.simulate``, llama2-7b on A100,
+   1000 requests at 8 QPS) twice, each in its own process: the two
+   summaries must be equal apart from the host's wall time; a third
+   process imports the port's simulator, sweep and CLI and must load
+   nothing of jax or of the reference package;
+8. the ``kernels`` JSON line (each kernel's launches summed over the
    main paths that run it, with ``launches_by_path``; its times at the
    llama2-7b case), then the result line.
 
@@ -70,6 +83,7 @@ from __future__ import annotations
 import dataclasses
 import gc
 import json
+import os
 import re
 import subprocess
 import sys
@@ -1407,6 +1421,136 @@ def _leaves(tree):
             yield v
 
 
+#: the blocked-route check: stablelm-3b's head_dim 80, which the flash
+#: kernel refuses, at a prompt that ``auto`` sends to ``blocked``
+BLOCKED_ARCH = "stablelm-3b"
+BLOCKED_PROMPT = 4096
+
+
+def check_blocked_prefill():
+    """One ``BLOCKED_PROMPT``-token prompt through the full-size
+    ``BLOCKED_ARCH`` with the default settings (``auto``, which resolves
+    to ``blocked`` past ``naive_attn_max_seq``) and with ``naive``: the
+    last position's logits, and the greedy token of every position."""
+    cfg = get_config(BLOCKED_ARCH)
+    model = zoo.build(cfg)
+    if model.settings.resolve_attn(BLOCKED_PROMPT) != "blocked":
+        raise AssertionError("auto does not resolve to blocked at "
+                             f"{BLOCKED_PROMPT} tokens")
+    naive = model.with_settings(attn_impl="naive")
+    t0 = time.perf_counter()
+    params = zoo.init_params(model, seed=SEED)
+    torch.cuda.synchronize()
+    n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
+    load_s = time.perf_counter() - t0
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    toks = torch.randint(0, cfg.vocab_size, (1, BLOCKED_PROMPT),
+                         generator=gen, device="cuda")
+    vocab = model.plan.vocab_logical
+    out = {}
+    for label, m in (("blocked", model), ("naive", naive)):
+        zoo.forward(m, params, {"tokens": toks})    # warm-up
+        launch_counts.reset()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        logits, _ = zoo.forward(m, params, {"tokens": toks})
+        torch.cuda.synchronize()
+        out[label] = {"logits": logits[0, :, :vocab].float(),
+                      "wall_ms": (time.perf_counter() - t0) * 1e3,
+                      "peak_memory_gb":
+                          torch.cuda.max_memory_allocated() / 1e9,
+                      "launches": launch_counts.snapshot()}
+        del logits
+    got, want = out["blocked"]["logits"], out["naive"]["logits"]
+    if not (torch.isfinite(got).all() and got.shape == want.shape
+            == (BLOCKED_PROMPT, vocab)):
+        raise AssertionError("blocked prefill logits not finite or "
+                             "misshapen")
+    last_err = float((got[-1] - want[-1]).abs().max())
+    rel = last_err / float(want[-1].abs().max())
+    greedy_same = (got.argmax(-1) == want.argmax(-1))
+    rec = {"model": cfg.name, "layers": cfg.num_layers,
+           "d_model": cfg.d_model, "n_heads": cfg.n_heads,
+           "head_dim": cfg.head_dim, "dtype": cfg.dtype,
+           "param_gb": n_bytes / 1e9, "init_s": load_s,
+           "prompt": BLOCKED_PROMPT,
+           "attn_impl": model.settings.attn_impl,
+           "resolved": model.settings.resolve_attn(BLOCKED_PROMPT),
+           "blocks": [model.settings.attn_block_q,
+                      model.settings.attn_block_kv],
+           "last_max_abs_err": last_err, "last_rel_err": rel,
+           "tol_rel": LOGIT_REL_MAX,
+           "last_logit_scale": float(want[-1].abs().max()),
+           "last_greedy_agree": bool(greedy_same[-1]),
+           "greedy_agree_share": float(greedy_same.float().mean()),
+           **{f"{k}_{f}": out[k][f] for k in out
+              for f in ("wall_ms", "peak_memory_gb")},
+           "blocked_kernel_launches": {str(k): n for k, n in
+                                       out["blocked"]["launches"].items()
+                                       if n}}
+    phase("stablelm_3b_blocked_prefill", **rec)
+    if rel > LOGIT_REL_MAX:
+        raise AssertionError(f"blocked prefill logits differ from naive: "
+                             f"{rel} of the largest logit")
+    if rec["blocked_kernel_launches"]:
+        raise AssertionError("the blocked route launched a kernel: "
+                             f"{rec['blocked_kernel_launches']}")
+
+
+#: the simulator check: the reference CLI's arguments
+SIM_ARGS = ("--arch", "llama2-7b", "--hw", "A100", "--requests", "1000",
+            "--qps", "8", "--seed", "0")
+
+
+def check_simulator():
+    """Run the port's simulator CLI twice, each in a process of its own,
+    and require equal summaries (``wall_time_s`` is the host's time);
+    then import the simulator, the sweep and the CLI in a third process
+    and require that nothing of jax or of the reference package loads."""
+    root = Path(__file__).resolve().parent
+    out_dir = root / "build" / "repro_torch_simulator"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    env = {**os.environ, "PYTHONPATH": str(root / "src")}
+    runs = []
+    for i in range(2):
+        path = out_dir / f"summary_{i}.json"
+        path.unlink(missing_ok=True)
+        t0 = time.perf_counter()
+        subprocess.run([sys.executable, "-m", "repro_torch.launch.simulate",
+                        *SIM_ARGS, "--out", str(path)], env=env,
+                       check=True, capture_output=True, timeout=300)
+        summary = json.loads(path.read_text())
+        runs.append((summary, summary.pop("wall_time_s"),
+                     time.perf_counter() - t0))
+    (first, sim_wall, proc_wall), (second, sim_wall2, proc_wall2) = runs
+    if json.dumps(first, sort_keys=True) != json.dumps(second,
+                                                       sort_keys=True):
+        raise AssertionError(f"the simulator is not deterministic: "
+                             f"{first} != {second}")
+    code = ("import sys, repro_torch.core.simulator, repro_torch.explore, "
+            "repro_torch.launch.simulate; print(sorted(m for m in "
+            "sys.modules if m.split('.')[0] in ('jax', 'jaxlib', "
+            "'repro')))")
+    loaded = subprocess.run([sys.executable, "-c", code], env=env,
+                            check=True, capture_output=True, text=True,
+                            timeout=120).stdout.strip()
+    phase("simulator", args=" ".join(SIM_ARGS),
+          n_finished=first["n_finished"],
+          throughput_rps=first["throughput_rps"],
+          throughput_tps=first["throughput_tps"],
+          latency_p50_s=first["latency_p50"],
+          latency_p99_s=first["latency_p99"], sim_time_s=first["sim_time"],
+          runs_equal=True, wall_time_s=[sim_wall, sim_wall2],
+          process_wall_s=[proc_wall, proc_wall2],
+          jax_or_reference_modules_loaded=loaded)
+    if loaded != "[]":
+        raise AssertionError(f"the port's simulator loads {loaded}")
+    if first["n_finished"] != 1000:
+        raise AssertionError(f"{first['n_finished']} of 1000 requests "
+                             "finished")
+
+
 #: the paged models served at full width and depth, in this order
 PAGED_MODELS = ("llama2-7b", "opt-13b", "qwen3-14b")
 #: those that also run eager against graphed engines and the plain path
@@ -1445,6 +1589,10 @@ def main():
             served[arch] = check_serving(arch)["launches"]
             free_memory()
         mamba = check_mamba2()
+        free_memory()
+        check_blocked_prefill()
+        free_memory()
+    check_simulator()
 
     kernels = []
     # the main paths' runs: each paged model's, and mamba2-130m's

@@ -1,16 +1,21 @@
-"""Architecture configuration: the port's copy of ``repro.configs.base``.
+"""Architecture / shape configuration system.
 
-One ``ArchConfig`` describes the model that ``repro_torch.models.model_zoo``
-builds.  Configs are frozen dataclasses, so they are hashable and a
-``Model`` holding one can key a cache.  The workload shapes of the
-reference module (``ShapeSpec``, ``LM_SHAPES``) belong to the dry run and
-are not part of the port yet.
+One ``ArchConfig`` is the single source of truth for:
+  * the real JAX model (``repro.models.model_zoo.build``),
+  * the simulator's operator graph (``repro.core.costmodel.operators``),
+  * the sharding plan (``repro.distributed.shard_plan``),
+  * the roofline MODEL_FLOPS accounting.
+
+Configs are frozen dataclasses so they are hashable (usable as jit static
+arguments and dictionary keys for compilation caches).
+
+The port's copy of ``repro.configs.base``, its imports rewritten.
 """
 from __future__ import annotations
 
 import dataclasses
 from dataclasses import dataclass
-from typing import Optional
+from typing import Optional, Tuple
 
 # ---------------------------------------------------------------------------
 # Families
@@ -208,6 +213,50 @@ class ArchConfig:
         inactive = self.num_layers * (m.num_experts - m.top_k) * \
             self.d_model * m.d_expert * (3 if gated else 2)
         return self.param_count() - inactive
+
+
+# ---------------------------------------------------------------------------
+# Shapes
+# ---------------------------------------------------------------------------
+TRAIN = "train"
+PREFILL = "prefill"
+DECODE = "decode"
+
+
+@dataclass(frozen=True)
+class ShapeSpec:
+    """One assigned (workload) shape."""
+
+    name: str
+    seq_len: int
+    global_batch: int
+    kind: str  # train | prefill | decode
+
+    @property
+    def tokens(self) -> int:
+        if self.kind == DECODE:
+            return self.global_batch  # one new token per sequence
+        return self.seq_len * self.global_batch
+
+
+LM_SHAPES: Tuple[ShapeSpec, ...] = (
+    ShapeSpec("train_4k", 4_096, 256, TRAIN),
+    ShapeSpec("prefill_32k", 32_768, 32, PREFILL),
+    ShapeSpec("decode_32k", 32_768, 128, DECODE),
+    ShapeSpec("long_500k", 524_288, 1, DECODE),
+)
+
+SHAPES = {s.name: s for s in LM_SHAPES}
+
+
+def shape_applicable(cfg: ArchConfig, shape: ShapeSpec) -> Tuple[bool, str]:
+    """Whether (arch, shape) is a runnable cell; else the reason to skip."""
+    if shape.kind == DECODE and not cfg.supports_decode:
+        return False, "encoder-only arch has no decode step"
+    if shape.name == "long_500k" and not cfg.subquadratic:
+        return False, ("long_500k requires sub-quadratic attention; "
+                       f"{cfg.name} is full-attention (skip per assignment)")
+    return True, ""
 
 
 def pad_to(x: int, mult: int) -> int:

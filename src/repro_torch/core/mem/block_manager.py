@@ -1,29 +1,28 @@
 """PagedAttention-style block-granular KV memory manager (paper §III-B,
 docs/MEMORY.md).
 
-The port's copy of ``repro.core.mem.block_manager``, kept verbatim apart
-from its imports and from ``MemoryConfig.from_model``, which sizes a pool
-from the cost model and has no caller in the port yet.  The serving
-engine (``repro_torch.serving.engine``) allocates its pages with it; that
-it plans exactly as the reference does is checked by
-tests/test_torch_engine.py, which compares the two engines' iteration
-records one by one.
+Tracks device memory at block / token / byte granularity.  The *same
+class* backs both the simulator's worker memory model and the real JAX
+serving engine's page allocator (repro.serving.engine) — one
+implementation, structurally validated against itself.
 
 With ``MemoryConfig(prefix_sharing=True)`` the manager adds a
 shared-prefix tier: requests declaring a common prefix
 (``Request.prefix_id`` / ``prefix_len``) resolve their prefix blocks
-through a content-keyed :class:`~repro_torch.core.mem.memory_pool.PrefixTrie`
+through a content-keyed :class:`~repro.core.mem.memory_pool.PrefixTrie`
 and share resident physical blocks under refcounts, with copy-on-write
 on append into a shared block.  Blocks are append-only, so a registered
 content range is immutable; sharing is between concurrently resident
 requests (the cross-time cache is the MemoryPool's job).
 
-Invariants (property-tested on the reference in tests/test_block_manager.py
-and tests/test_kv_hierarchy.py):
+Invariants (property-tested in tests/test_block_manager.py and
+tests/test_kv_hierarchy.py):
   * without sharing, a block belongs to at most one request; with
     sharing, a block's refcount equals the number of tables holding it,
   * free + Σ unique allocated == total,
   * a request's blocks always cover ceil(context_len / block_size).
+
+The port's copy of ``repro.core.mem.block_manager``, its imports rewritten.
 """
 from __future__ import annotations
 
@@ -47,6 +46,34 @@ class MemoryConfig:
     #: shared-prefix copy-on-write caching (docs/MEMORY.md): requests
     #: with equal (prefix_id, prefix_len) share resident prefix blocks
     prefix_sharing: bool = False
+
+    @staticmethod
+    def from_model(cfg, hw_mem_bytes: float, *, block_size: int = 16,
+                   dtype_bytes: int = 2, tp: int = 1,
+                   gpu_mem_util: float = 0.9, watermark: float = 0.0,
+                   reserve_bytes: float = 0.0,
+                   prefix_sharing: bool = False) -> "MemoryConfig":
+        """Size the KV pool like vLLM: (mem_util × capacity − params −
+        reserve) / block bytes."""
+        from repro_torch.core.costmodel.operators import (kv_bytes_per_token,
+                                                          param_bytes,
+                                                          state_bytes_per_seq)
+        kvt = kv_bytes_per_token(cfg, dtype_bytes, tp)
+        sps = state_bytes_per_seq(cfg, dtype_bytes, tp)
+        budget = hw_mem_bytes * gpu_mem_util - param_bytes(
+            cfg, dtype_bytes, tp) - reserve_bytes
+        if kvt <= 0:                     # pure SSM: budget counts states
+            n = max(1, int(budget / max(sps, 1.0)))
+            return MemoryConfig(num_blocks=n, block_size=1,
+                                kv_bytes_per_token=0.0,
+                                state_bytes_per_seq=sps,
+                                watermark=watermark,
+                                prefix_sharing=prefix_sharing)
+        n = max(1, int(budget / (kvt * block_size)))
+        return MemoryConfig(num_blocks=n, block_size=block_size,
+                            kv_bytes_per_token=kvt,
+                            state_bytes_per_seq=sps, watermark=watermark,
+                            prefix_sharing=prefix_sharing)
 
 
 class BlockManager:

@@ -1,13 +1,102 @@
-"""Prompt-prefix trie: the port's copy of ``PrefixTrie`` from
-``repro.core.mem.memory_pool``.
+"""Multi-round KV memory pool and prompt-prefix trie (docs/MEMORY.md).
 
-``BlockManager`` resolves shared-prefix blocks through it.  The rest of
-the reference module (``MemoryPool``, the multi-round KV pool) is not
-part of the port yet; the engine takes a pool by duck typing.
+Citations: CachedAttention / MemServe (paper §IV-E, Fig. 14).
+
+Finished conversations park their KV in a tiered pool (host DRAM or a
+disaggregated memory pool); a follow-up round of the same session reuses
+the cached prefix instead of recomputing prefill.  A prompt-prefix trie
+gives MemServe-style cross-request locality for identical prefixes —
+both for global-scheduler routing (worker payloads) and inside the
+``BlockManager`` allocation path (physical-block payloads backing
+shared-prefix copy-on-write caching).
+
+Costs: retrieval latency per block (MemServe quotes ~800 ns/block for
+pooled memory) plus optional bandwidth-limited transfer handled by the
+simulator's comm model.
+
+The port's copy of ``repro.core.mem.memory_pool``, its imports rewritten.
 """
 from __future__ import annotations
 
+from collections import OrderedDict
+from dataclasses import dataclass
 from typing import Dict, List, Optional, Sequence, Tuple
+
+from repro_torch.core.request import Request
+
+#: every accepted ``PoolConfig.eviction`` policy; scripts/check_docs.py
+#: asserts each entry is documented in docs/MEMORY.md
+EVICTION_KINDS = ("lru",)
+
+
+@dataclass(frozen=True)
+class PoolConfig:
+    capacity_tokens: int = 4_000_000
+    block_size: int = 16
+    retrieve_latency_per_block: float = 800e-9   # MemServe figure
+    store_latency_per_block: float = 800e-9
+    eviction: str = "lru"                # see EVICTION_KINDS
+    enabled: bool = True
+
+
+class MemoryPool:
+    """LRU pool of per-session KV prefixes (token granularity)."""
+
+    def __init__(self, pc: PoolConfig):
+        if pc.eviction not in EVICTION_KINDS:
+            raise ValueError(f"unknown pool eviction policy "
+                             f"{pc.eviction!r}; have {EVICTION_KINDS}")
+        self.pc = pc
+        self._entries: "OrderedDict[int, int]" = OrderedDict()
+        self.used_tokens = 0
+        self.hits = 0
+        self.misses = 0
+        self.evictions = 0
+
+    # -- store / lookup ---------------------------------------------------
+    def store(self, session_id: Optional[int], context_len: int) -> float:
+        """Park `context_len` tokens of KV for the session; returns the
+        simulated store latency."""
+        if not self.pc.enabled or session_id is None:
+            return 0.0
+        prev = self._entries.pop(session_id, 0)
+        self.used_tokens -= prev
+        keep = max(prev, context_len)
+        while self.used_tokens + keep > self.pc.capacity_tokens \
+                and self._entries:
+            _, ev = self._entries.popitem(last=False)
+            self.used_tokens -= ev
+            self.evictions += 1
+        if self.used_tokens + keep > self.pc.capacity_tokens:
+            return 0.0                    # doesn't fit at all
+        self._entries[session_id] = keep
+        self.used_tokens += keep
+        blocks = -(-keep // self.pc.block_size)
+        return blocks * self.pc.store_latency_per_block
+
+    def lookup(self, req: Request) -> Tuple[int, float]:
+        """Returns (reusable_prefix_tokens, retrieve_latency)."""
+        if not self.pc.enabled or req.session_id is None:
+            return 0, 0.0
+        cached = self._entries.get(req.session_id, 0)
+        if cached <= 0:
+            self.misses += 1
+            return 0, 0.0
+        self._entries.move_to_end(req.session_id)   # LRU touch
+        reuse = min(cached, req.history_len, req.prompt_len)
+        if reuse <= 0:
+            self.misses += 1
+            return 0, 0.0
+        self.hits += 1
+        blocks = -(-reuse // self.pc.block_size)
+        return reuse, blocks * self.pc.retrieve_latency_per_block
+
+    def stats(self) -> Dict[str, float]:
+        total = self.hits + self.misses
+        return {"hits": self.hits, "misses": self.misses,
+                "hit_rate": self.hits / total if total else 0.0,
+                "used_tokens": self.used_tokens,
+                "evictions": self.evictions}
 
 
 class PrefixTrie:

@@ -14,9 +14,7 @@ Two accounting modes share one ``Results`` surface:
   log-binned sketch with bounded relative error (default 0.3%, see
   docs/PERFORMANCE.md for the accuracy model).
 
-The port's copy of ``repro.core.metrics``, imports rewritten.  It leaves
-out ``Results.time_breakdown`` and ``Results.explain``: they read the
-simulator's latency attribution (``repro.obs``), which is not ported.
+The port's copy of ``repro.core.metrics``, its imports rewritten.
 """
 from __future__ import annotations
 
@@ -531,6 +529,23 @@ class Results:
         if path.endswith(".json"):
             return self.timeseries.export_json(path)
         return self.timeseries.export_csv(path)
+
+    def time_breakdown(self) -> dict:
+        """Mean (and, in exact mode, P99-tail) decomposition of TTFT,
+        decode-phase and per-token latency into attribution components
+        (repro.obs.attribution.COMPONENTS).  Requires the sim to have
+        run with ``ObsSpec(attribution=True)``; works in streaming
+        drop-mode via the sums folded into ``StreamingStats``."""
+        from repro_torch.obs.attribution import (aggregate_exact,
+                                                 aggregate_streaming)
+        if self.stats is not None and self.stats.attrib["n"]:
+            return aggregate_streaming(self.stats.attrib)
+        return aggregate_exact(self.finished)
+
+    def explain(self) -> str:
+        """``time_breakdown()`` rendered as a table."""
+        from repro_torch.obs.attribution import format_breakdown
+        return format_breakdown(self.time_breakdown())
 
     def preemption_rate(self) -> float:
         if self.stats is not None:

@@ -8,8 +8,9 @@ import torch
 #: every accepted ``RunSettings.attn_impl``; the reference's values all
 #: resolve.  ``pallas`` names the hand-written flash kernel
 #: (``repro_torch.kernels.flash_attention``); ``blocked`` and
-#: ``blocked_causal`` are ``lax.scan`` formulations in the reference and
-#: go to the same kernel on the card (see ``models.attention_impl``).
+#: ``blocked_causal`` are plain PyTorch loops over blocks of
+#: ``attn_block_q`` x ``attn_block_kv``, as the reference's are plain JAX
+#: (see ``models.attention_impl``).
 ATTN_IMPLS = ("auto", "naive", "blocked", "blocked_causal", "pallas")
 
 
@@ -23,6 +24,8 @@ class RunSettings:
     """
 
     attn_impl: str = "auto"         # one of ATTN_IMPLS
+    attn_block_q: int = 1024
+    attn_block_kv: int = 1024
     naive_attn_max_seq: int = 2048  # "auto" switches to blocked above this
     logits_fp32: bool = True
 

@@ -166,8 +166,9 @@ def _attn_full(p, x, model: Model, positions, *, causal: bool):
     """Full-sequence attention. Returns (out, (k, v))."""
     q = _q_proj(p, x, model, positions)
     k, v = _kv_proj(p, x, model, positions)
-    impl = model.settings.resolve_attn(q.shape[1])
-    ctx = attend(q, k, v, causal=causal, impl=impl,
+    st = model.settings
+    ctx = attend(q, k, v, causal=causal, impl=st.resolve_attn(q.shape[1]),
+                 block_q=st.attn_block_q, block_kv=st.attn_block_kv,
                  logit_softcap=model.cfg.attn_logit_softcap)
     return _attn_out(p, ctx, model), (k, v)
 

@@ -6,6 +6,14 @@ the JAX wrapper ``repro.kernels.flash_attention.ops.flash_attention``
 on the reference's FLASH_CASES, its softcap case, and shapes at the CUDA
 kernel's tile edges.  Tolerances: 2e-5 in fp32, 3e-2 in bf16.  The CUDA kernel is held to the plain version on
 the card in tests/test_torch_kernels_cuda.py.
+
+The ``blocked`` and ``blocked_causal`` routes of ``attend`` are plain
+loops over blocks in both packages; the port's are held to the
+reference's ``attend`` with the same impl and blocks of 32, on even
+blocks and on the shapes that fall back to ``naive`` (S not a multiple
+of the block, and ``sq != skv`` for ``blocked_causal``).  Tolerances:
+1e-5 in fp32; in bf16, each output row's largest error within 2e-2 of
+its largest |value| (one bf16 rounding of the output is 2^-8).
 """
 import numpy as np
 import pytest
@@ -15,7 +23,11 @@ torch = pytest.importorskip("torch")
 import jax.numpy as jnp  # noqa: E402
 
 from repro.kernels.flash_attention import ops as jax_flash  # noqa: E402
+from repro.models import attention_impl as jax_attn  # noqa: E402
+from repro_torch.configs import get_smoke_config  # noqa: E402
 from repro_torch.kernels.flash_attention import ops  # noqa: E402
+from repro_torch.models import attention_impl, model_zoo  # noqa: E402
+from repro_torch.models.common import RunSettings  # noqa: E402
 
 #: (b, sq, skv, h, hkv, d, causal, dtype) — tests/test_kernels.py
 FLASH_CASES = [
@@ -92,3 +104,88 @@ def test_causal_is_top_left_when_sq_below_skv():
     np.testing.assert_allclose(got[0, 0, 0].numpy(), v[0, 0, 0],
                                rtol=1e-6, atol=1e-6)
 
+
+
+#: (impl, sq, skv, causal): S 96 is three blocks of 32; S 100 and
+#: sq != skv take the reference's fallback to naive
+BLOCKED_SHAPES = [
+    ("blocked", 96, 96, True),
+    ("blocked", 96, 96, False),
+    ("blocked", 100, 100, True),
+    ("blocked", 64, 96, False),
+    ("blocked_causal", 96, 96, True),
+    ("blocked_causal", 100, 100, True),
+    ("blocked_causal", 64, 96, True),
+    ("blocked_causal", 96, 96, False),
+]
+BLOCKED_TOL = {"float32": 1e-5, "bfloat16": 2e-2}
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("d", [80, 64])
+@pytest.mark.parametrize("shape", BLOCKED_SHAPES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_blocked_routes_vs_jax(shape, d, dtype):
+    """GQA 4/2 through the port's and the reference's ``attend``."""
+    impl, sq, skv, causal = shape
+    q, k, v = _inputs(2, sq, skv, 4, 2, d, seed=3)
+    jd = getattr(jnp, dtype)
+    want = np.asarray(jax_attn.attend(
+        *(jnp.asarray(a, jd) for a in (q, k, v)), causal=causal, impl=impl,
+        block_q=32, block_kv=32).astype(jnp.float32))
+    td = getattr(torch, dtype)
+    got = attention_impl.attend(
+        *(torch.from_numpy(a).to(td) for a in (q, k, v)), causal=causal,
+        impl=impl, block_q=32, block_kv=32)
+    assert got.dtype == td and got.shape == (2, sq, 4, d)
+    got = got.float().numpy()
+    tol = BLOCKED_TOL[dtype]
+    if dtype == "float32":
+        np.testing.assert_allclose(got, want, rtol=tol, atol=tol)
+    else:
+        err = np.abs(got - want).max(-1) / np.abs(want).max(-1)
+        assert err.max() <= tol, err.max()
+
+
+@pytest.mark.parametrize("impl", ["blocked", "blocked_causal"])
+def test_blocked_block_order(impl, monkeypatch):
+    """``blocked`` visits every (q block, kv block) pair; ``blocked_causal``
+    the reference's pair list, ``kb * block_kv <= qb * block_q + block_q
+    - 1``, in row-major order (attention_impl.py:166-169)."""
+    visited = []
+    real = attention_impl._block_scores
+
+    def spy(q_blk, k_blk, **kw):
+        visited.append((kw["q_pos0"] // 32, kw["k_pos0"] // 16))
+        return real(q_blk, k_blk, **kw)
+
+    monkeypatch.setattr(attention_impl, "_block_scores", spy)
+    q = torch.zeros(1, 96, 2, 16)
+    attention_impl.attend(q, q, q, causal=True, impl=impl, block_q=32,
+                          block_kv=16)
+    every = [(qi, ki) for qi in range(3) for ki in range(6)]
+    lower = [(qi, ki) for qi, ki in every if ki * 16 <= qi * 32 + 31]
+    assert visited == (every if impl == "blocked" else lower)
+
+
+def test_run_settings_block_sizes_reach_attend(monkeypatch):
+    """``attn_block_q``/``attn_block_kv`` go from ``RunSettings`` through
+    ``_attn_full`` to ``attend``, as in the reference (model_zoo.py:147)."""
+    seen = []
+    real = model_zoo.attend
+
+    def spy(*args, **kw):
+        seen.append((kw["impl"], kw["block_q"], kw["block_kv"]))
+        return real(*args, **kw)
+
+    monkeypatch.setattr(model_zoo, "attend", spy)
+    assert (RunSettings().attn_block_q, RunSettings().attn_block_kv) == \
+        (1024, 1024)
+    cfg = get_smoke_config("llama2-7b")
+    model = model_zoo.build(cfg, settings=RunSettings(
+        attn_impl="blocked", attn_block_q=16, attn_block_kv=8))
+    params = model_zoo.init_params(model, seed=0, device="cpu")
+    tokens = torch.zeros(1, 32, dtype=torch.long)
+    logits, _ = model_zoo.forward(model, params, {"tokens": tokens})
+    assert torch.isfinite(logits).all()
+    assert seen == [("blocked", 16, 8)] * cfg.num_layers

@@ -32,9 +32,16 @@ def test_no_jax_or_reference_imports(path):
         assert name.split(".")[0] not in FORBIDDEN, (path, name)
 
 
-def test_engine_import_loads_no_jax():
+@pytest.mark.parametrize("modules", [
+    "repro_torch.serving.engine, repro_torch.convert",
+    "repro_torch.core.simulator, repro_torch.explore, "
+    "repro_torch.launch.simulate",
+])
+def test_engine_import_loads_no_jax(modules):
+    """Importing the serving engine, or the simulator and its entry
+    points, loads nothing of jax or of the reference."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
-    code = ("import sys, repro_torch.serving.engine, repro_torch.convert; "
+    code = (f"import sys, {modules}; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
             "('jax', 'jaxlib', 'repro')]; print(bad); "
             "sys.exit(1 if bad else 0)")

@@ -17,6 +17,13 @@ flash kernel's K/V ring, the end of a paged split, the paged merge's
 rescale) and shows that the limit catches it on long rows; ``-s``
 prints both readings.
 
+The ``blocked``/``blocked_causal`` attention routes launch no kernel (they
+are plain PyTorch, as the reference's are plain JAX): they are held to
+the naive route on the card, with the same row limits, at the shapes
+the flash kernel refuses (head_dim 80 in bf16, head_dim 128 in fp32, S
+4096 in blocks of 1024, and a ragged S 3000), and one of them is
+captured in a CUDA graph and replayed, equal to eager.
+
 The SSD scan (three kernels: chunk state, state passing, chunk scan) is
 held to its plain version (run on the CPU, in fp32, on the same values;
 two of its runs must agree within rounding) and to an fp64 recurrence
@@ -40,6 +47,7 @@ from repro_torch.kernels import build, counts  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as paged  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd  # noqa: E402
+from repro_torch.models import attention_impl  # noqa: E402
 
 REL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 
@@ -361,6 +369,67 @@ def test_cpu_tensors_take_the_plain_version():
                                flash.flash_attention_ref(q, q[:, :, :2],
                                                          q[:, :, :2]))
     assert counts.get("flash_attention") == before
+
+
+# ---------------------------------------------------------------------------
+# the blocked attention routes (plain PyTorch, no kernel)
+# ---------------------------------------------------------------------------
+#: (impl, s, h, hkv, d, dtype): stablelm-3b's head_dim 80 in bf16 and
+#: head_dim 128 in fp32 (GQA 4), which the flash kernel refuses; S 4096
+#: is 4 x 4 blocks of 1024, S 3000 takes the reference's ragged fallback
+BLOCKED = [
+    ("blocked", 4096, 32, 32, 80, torch.bfloat16),
+    ("blocked", 4096, 32, 8, 128, torch.float32),
+    ("blocked_causal", 4096, 32, 32, 80, torch.bfloat16),
+    ("blocked", 3000, 32, 32, 80, torch.bfloat16),
+]
+
+
+def _blocked_inputs(s, h, hkv, d, dtype, device, seed=0):
+    gen = torch.Generator(device=device).manual_seed(seed)
+    return [torch.randn(1, s, n, d, generator=gen, device=device).to(dtype)
+            for n in (h, hkv, hkv)]
+
+
+@pytest.mark.parametrize("case", BLOCKED, ids=lambda c: "-".join(
+    map(str, c[:5])) + "-" + str(c[5]).split(".")[-1])
+def test_blocked_route_vs_naive(cuda, case):
+    """The repaired route serves what the flash kernel refuses, and
+    launches no kernel: each output row (one q head of one token) is
+    within ``REL_TOL`` of the naive route on the same card."""
+    impl, s, h, hkv, d, dtype = case
+    q, k, v = _blocked_inputs(s, h, hkv, d, dtype, cuda)
+    before = counts.snapshot()
+    got = attention_impl.attend(q, k, v, causal=True, impl=impl)
+    assert counts.snapshot() == before
+    want = attention_impl.attend(q, k, v, causal=True, impl="naive")
+    assert got.dtype == dtype and got.shape == q.shape
+    err = float(_row_rel_err(got, want).max())
+    print(f"\n{case}: largest row relative error {err:.3e}")
+    assert err <= REL_TOL[dtype]
+
+
+def test_blocked_route_captures_in_a_cuda_graph(cuda):
+    """Nothing in the blocked loop reads a tensor on the host, so a CUDA
+    graph captures it (as the engine captures a prefill bucket above
+    2048 tokens); the replay on new inputs equals eager."""
+    q, k, v = _blocked_inputs(4096, 32, 32, 80, torch.bfloat16, cuda)
+    step = functools.partial(attention_impl.attend, q, k, v, causal=True,
+                             impl="blocked")
+    stream = torch.cuda.Stream(cuda)
+    stream.wait_stream(torch.cuda.current_stream(cuda))
+    with torch.cuda.stream(stream):
+        step()
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph, stream=stream):
+        static = step()
+    torch.cuda.current_stream(cuda).wait_stream(stream)
+    for seed in (1, 2):
+        for dst, src in zip((q, k, v), _blocked_inputs(
+                4096, 32, 32, 80, torch.bfloat16, cuda, seed=seed)):
+            dst.copy_(src)
+        graph.replay()
+        assert torch.equal(static, step())
 
 
 # ---------------------------------------------------------------------------

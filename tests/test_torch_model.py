@@ -37,10 +37,12 @@ import jax  # noqa: E402
 import jax.numpy as jnp  # noqa: E402
 
 from repro.configs import SMOKE_CONFIGS as JAX_SMOKE  # noqa: E402
+from repro.configs import CONFIGS as JAX_CONFIGS  # noqa: E402
 from repro.configs import get_config as jax_config  # noqa: E402
 from repro.models import model_zoo as jzoo  # noqa: E402
-from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
-from repro_torch.configs.base import DENSE, VLM  # noqa: E402
+from repro_torch.configs import (CONFIGS, get_config,  # noqa: E402
+                                 get_smoke_config)
+from repro_torch.configs.base import ENCDEC, DENSE, VLM  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.models import model_zoo as tzoo  # noqa: E402
 
@@ -101,6 +103,35 @@ def test_every_dense_and_vlm_arch_is_registered():
             dataclasses.asdict(JAX_SMOKE[name])
         assert dataclasses.asdict(get_config(name)) == \
             dataclasses.asdict(jax_config(name))
+
+
+def test_registry_holds_all_twelve_archs():
+    """The simulator resolves any of the reference's archs by name, so
+    the port's registry holds all twelve; the five beyond ``ARCHS`` are
+    verbatim copies too, full size and smoke."""
+    assert sorted(CONFIGS) == sorted(JAX_CONFIGS) and len(CONFIGS) == 12
+    for name in sorted(set(CONFIGS) - set(ARCHS)):
+        assert dataclasses.asdict(get_smoke_config(name)) == \
+            dataclasses.asdict(JAX_SMOKE[name])
+        assert dataclasses.asdict(get_config(name)) == \
+            dataclasses.asdict(jax_config(name))
+
+
+#: archs whose families the port registers for the simulator's cost model
+#: but does not serve (MoE, hybrid, audio), and an encoder-decoder
+UNSERVED = ["granite-moe-1b-a400m", "granite-moe-3b-a800m", "zamba2-2.7b",
+            "whisper-base", "whisper-base-as-encdec"]
+
+
+@pytest.mark.parametrize("arch", UNSERVED)
+def test_build_raises_for_families_not_served(arch):
+    if arch.endswith("-as-encdec"):
+        cfg = dataclasses.replace(get_config("whisper-base"), family=ENCDEC)
+    else:
+        cfg = get_config(arch)
+    assert cfg.family not in tzoo.PORTED_FAMILIES
+    with pytest.raises(NotImplementedError, match="is not ported"):
+        tzoo.build(cfg)
 
 
 @pytest.mark.parametrize("arch", ARCHS)
