@@ -13,14 +13,17 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
 3. each kernel against its plain PyTorch version on the card, at the
    serving path's shapes (flash: every prefill bucket, 64-2048), with the
    tolerance stated, timed beside the plain version, the bound and
-   (flash) ``scaled_dot_product_attention``, flash and the SSD scan also
+   (flash) ``scaled_dot_product_attention`` (both with the card's queue
+   filled ahead, and flash also back to back), flash and the SSD scan also
    in TFLOP/s and as a share of their bound; the SSD scan also against
    an fp64 recurrence on the card beside its plain version, and each of
    its three kernels' time and grid inside whole scans (``torch.profiler``);
    the paged kernel with the queue filled ahead and back to back, with
    its grid, its working blocks and the time of one contiguous read of
    as many bytes, at the decode shapes of llama2-7b, opt-13b, qwen3-14b
-   (GQA 5) and qwen2-0.5b (GQA 7, head_dim 64);
+   (GQA 5), qwen2-0.5b (GQA 7, head_dim 64), granite-moe-1b (GQA 2,
+   head_dim 64) and granite-moe-3b (GQA 3, head_dim 64, bf16 and fp32);
+   flash also at the 1024-token prefills of the two granite models;
 4. serving: llama2-7b at full width and depth (random weights from
    ``init_params(seed=0)``) behind ``ServingEngine``, 16 requests of
    64-1024 prompt tokens and 32 output tokens, on the kernel path; the
@@ -44,7 +47,18 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    runs the same phase set at full width and depth; qwen3-14b (qk-norm,
    GQA 40/8) at full width and depth runs the main path (one graphed
    engine on the kernel routes), the two logit comparisons and the
-   profiles.  Each model frees its weights and pages before the next
+   profiles.  granite-moe-3b (MoE, 40 experts top 8, GQA 24/8, head_dim
+   64) runs llama2-7b's phase set, granite-moe-1b (32 experts top 8,
+   GQA 16/8) qwen3-14b's and one more request set on the ``sort`` MoE
+   route (greedy tokens against ``dense_onehot``'s, walls).  For the MoE
+   models the logit comparisons record each route's expert sets per
+   layer (a hook on ``models.moe._router``), report the share of
+   (token, layer) pairs whose set differs, and hold the limits on the
+   rows whose own token's set agrees in every layer; and the profiles
+   add the MoE's share of a graphed decode step and prefill (a graph of
+   every layer's MoE, timed apart).  Every main path launches the paged
+   kernel once a layer a decode iteration and flash once a layer a
+   prefill.  Each model frees its weights and pages before the next
    one loads;
 5. serving: mamba2-130m at full width and depth (random weights from
    ``init_params(seed=0)``) through ``launch/serve.py``'s engine on the
@@ -103,7 +117,9 @@ from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as paged_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
+from repro_torch.configs.base import MOE  # noqa: E402
 from repro_torch.models import model_zoo as zoo  # noqa: E402
+from repro_torch.models import moe  # noqa: E402
 from repro_torch.models import ssm  # noqa: E402
 from repro_torch.models.common import RunSettings  # noqa: E402
 from repro_torch.models.layers import norm_apply  # noqa: E402
@@ -326,7 +342,14 @@ def flash_case(name, *, sq, skv, h, hkv, causal, dtype, d=128, softcap=0.0,
     flops = 4 * h * d * pairs
     nbytes = (2 * sq * h * d + 2 * skv * hkv * d) * esize(dtype)
     bound_ms, bound_by = bound(nbytes, flops, dtype)
-    kernel_ms = time_ms(lambda: flash_ops.flash_attention(q, k, v, **kw), 20)
+
+    def call():
+        flash_ops.flash_attention(q, k, v, **kw)
+
+    # the card's time (the wrapper's host time hidden behind a queue
+    # filled ahead), and the time a call takes back to back
+    kernel_ms = time_ms(call, 20, queue_ahead=True)
+    call_ms = time_ms(call, 20)
 
     library_ms = None
     if not softcap:
@@ -337,12 +360,13 @@ def flash_case(name, *, sq, skv, h, hkv, causal, dtype, d=128, softcap=0.0,
         kt = k.repeat_interleave(rep, dim=2).transpose(1, 2).contiguous()
         vt = v.repeat_interleave(rep, dim=2).transpose(1, 2).contiguous()
         sdpa = torch.nn.functional.scaled_dot_product_attention
-        library_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=causal), 20)
+        library_ms = time_ms(lambda: sdpa(qt, kt, vt, is_causal=causal), 20,
+                             queue_ahead=True)
     rec = {"case": name, "dtype": str(dtype), "sq": sq, "skv": skv, "h": h,
            "hkv": hkv, "head_dim": d, "causal": causal, "softcap": softcap,
            "max_abs_err": err, "max_rel_err": rel,
            "tol_rel": REL_TOL[dtype], "finite": finite,
-           "kernel_ms": kernel_ms,
+           "kernel_ms": kernel_ms, "call_ms": call_ms,
            "plain_ms": time_ms(
                lambda: flash_ops.flash_attention_ref(q, k, v, **kw), 5),
            "bound_ms": bound_ms, "bound_by": bound_by,
@@ -377,6 +401,14 @@ def check_kernels():
                    dtype=bf16, seed=6),
         paged_case("fp32 qwen2-0.5b decode", batch=MAX_BATCH, hq=14, hkv=2,
                    d=64, dtype=f32, seed=7),
+        # GQA 2 (granite-moe-1b, 16/8) and GQA 3 (granite-moe-3b, 24/8),
+        # d 64
+        paged_case("granite-moe-1b decode", batch=MAX_BATCH, hq=16, hkv=8,
+                   d=64, dtype=bf16, seed=8),
+        paged_case("granite-moe-3b decode", batch=MAX_BATCH, hq=24, hkv=8,
+                   d=64, dtype=bf16, seed=9),
+        paged_case("fp32 granite-moe-3b decode", batch=MAX_BATCH, hq=24,
+                   hkv=8, d=64, dtype=f32, seed=10),
     ]
     # every prefill bucket of the serving path (64 ... max_ctx 2048)
     flash = {s: flash_case(f"causal S={s}", sq=s, skv=s, h=32, hkv=32,
@@ -397,6 +429,11 @@ def check_kernels():
                causal=True, dtype=bf16, seed=6)
     flash_case("qwen3-14b causal S=1024", sq=1024, skv=1024, h=40, hkv=8,
                causal=True, dtype=bf16, seed=7)
+    # the prefills of granite-moe-1b (16/8) and granite-moe-3b (24/8), d 64
+    flash_case("granite-moe-1b causal S=1024", sq=1024, skv=1024, h=16,
+               hkv=8, d=64, causal=True, dtype=bf16, seed=8)
+    flash_case("granite-moe-3b causal S=1024", sq=1024, skv=1024, h=24,
+               hkv=8, d=64, causal=True, dtype=bf16, seed=9)
     # the rows of the kernels line: the serving path's shapes
     return paged[0], flash[PROMPT_RANGE[1]]
 
@@ -658,10 +695,39 @@ def eager_vs_graphed(label, graphed, log, eager, make_reqs, prompts, main,
     return out
 
 
-def first_token_logits(model, params, prompts):
+class RoutingLog:
+    """A hook on ``models.moe._router`` while in the ``with`` block: keeps
+    each MoE call's top-k expert ids, sorted per token (a set), one
+    (T, k) tensor a layer in call order.  The logit checks read it to
+    tell the rows whose routing the two attention routes agree on; the
+    package has no knob for it."""
+
+    def __enter__(self):
+        self.calls = []
+        self._router = moe._router
+
+        def router(*args, **kw):
+            out = self._router(*args, **kw)
+            self.calls.append(out[1].sort(dim=-1).values)
+            return out
+
+        moe._router = router
+        return self
+
+    def __exit__(self, *exc):
+        moe._router = self._router
+
+    def ids(self):
+        """(L, T, k): every layer's expert set of every token."""
+        return torch.stack(self.calls)
+
+
+def first_token_logits(model, params, prompts, routes=None):
     """Logits of each prompt's first generated token, as the engine's
     prefill computes them (power-of-two bucket, last real position), over
-    the logical vocabulary (past it, both routes hold the -1e30 mask)."""
+    the logical vocabulary (past it, both routes hold the -1e30 mask).
+    For an MoE model, ``routes`` (a list) receives each prompt's expert
+    sets, (L, prompt length, k), the last position being the row's."""
     vocab = model.plan.vocab_logical
     out = []
     for p in prompts:
@@ -669,23 +735,43 @@ def first_token_logits(model, params, prompts):
         spad = min(ServingEngine._bucket(plen), MAX_PAGES * PAGE)
         toks = torch.zeros((1, spad), dtype=torch.long, device="cuda")
         toks[0, :plen] = torch.from_numpy(p.astype(np.int64))
-        logits, _, _ = paged_model.prefill_forward(model, params, toks)
+        with RoutingLog() as log:
+            logits, _, _ = paged_model.prefill_forward(model, params, toks)
         out.append(logits[0, plen - 1, :vocab].clone())
+        if routes is not None:
+            routes.append(log.ids()[:, :plen])
     return out
+
+
+def routing_agreement(got, want):
+    """Expert sets of the kernel route (``got``) against the plain route
+    (``want``), one (L, T, k) tensor a logits row whose last token is the
+    row's: the share of (token, layer) pairs whose set differs, and for
+    each row whether its own token's set agrees in every layer."""
+    flips = [(a != b).any(-1) for a, b in zip(got, want)]     # (L, T)
+    pairs = sum(f.numel() for f in flips)
+    return {"flip_share": sum(int(f.sum()) for f in flips) / pairs,
+            "pairs": pairs,
+            "agree": [not bool(f[:, -1].any()) for f in flips]}
 
 
 def check_serving(arch):
     """``arch`` at full width and depth on the paged path.  The main
     path: the engine on the kernel routes (``attn_impl="pallas"``,
-    ``attn_path="pallas"``), graphed; then first-token and decode-step
-    logits of the kernel routes against the plain routes, and the
-    profiles of a decode step and a 1024-token prefill, eager and
-    graphed.  For the archs of FULL_PHASE_SET, also eager against
-    graphed engines and the same requests on the plain path.  Phase
-    names carry the arch as a prefix (none for llama2-7b, as before)."""
+    ``attn_path="pallas"``), graphed, with one paged launch a layer a
+    decode iteration and one flash launch a layer a prefill; then
+    first-token and decode-step logits of the kernel routes against the
+    plain routes (for an MoE model, with the routing flips between the
+    two), and the profiles of a decode step and a 1024-token prefill,
+    eager and graphed (for an MoE model, with the MoE's share).  For the
+    archs of FULL_PHASE_SET, also eager against graphed engines and the
+    same requests on the plain path; for SORT_ROUTE_ARCH, one request
+    set on the ``sort`` MoE route.  Phase names carry the arch as a
+    prefix (none for llama2-7b, as before)."""
     prefix = "" if arch == "llama2-7b" else f"{arch}_"
     full = arch in FULL_PHASE_SET
     cfg = get_config(arch)
+    is_moe = cfg.family == MOE
     kernel_model = zoo.build(cfg, settings=RunSettings(attn_impl="pallas"))
     plain_model = kernel_model.with_settings(attn_impl="naive")
     t0 = time.perf_counter()
@@ -694,12 +780,16 @@ def check_serving(arch):
     n_bytes = sum(t.numel() * t.element_size()
                   for t in _leaves(params))
     plan = kernel_model.plan
+    moe_fields = {"n_experts": plan.n_experts, "top_k": cfg.moe.top_k,
+                  "d_expert": cfg.moe.d_expert,
+                  "moe_impl": kernel_model.settings.moe_impl} \
+        if is_moe else {}
     phase(f"{prefix}init_params", model=cfg.name, layers=cfg.num_layers,
           d_model=cfg.d_model, n_heads=cfg.n_heads,
           n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
           d_ff=cfg.d_ff, vocab=cfg.vocab_size, vocab_padded=plan.vocab,
           norm=cfg.norm, act=cfg.act, pos_emb=cfg.pos_emb,
-          qk_norm=cfg.qk_norm, param_gb=n_bytes / 1e9,
+          qk_norm=cfg.qk_norm, **moe_fields, param_gb=n_bytes / 1e9,
           seconds=time.perf_counter() - t0)
 
     # the main path: the engine as a user builds it, graphed on the card
@@ -718,12 +808,17 @@ def check_serving(arch):
                     "capture_s": graphed.graphs.capture_seconds,
                     "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
     phase(f"{prefix}serve_kernel_path", **kernel_stats)
+    expect = {"paged_attention":
+              cfg.num_layers * main["stats"]["decode_iterations"],
+              "flash_attention": cfg.num_layers * len(main["buckets"])}
     for name, n in kernel_stats["launches"].items():
-        if n <= 0:
-            raise AssertionError(f"{arch}: {name} was never launched while "
-                                 f"serving")
+        if n <= 0 or n != expect[name]:
+            raise AssertionError(f"{arch}: {name} launched {n} times while "
+                                 f"serving, expected {expect[name]}")
     prompts = dict(graphed.prompt_tokens)
     kernel_tokens = main["tokens"]
+    if arch == SORT_ROUTE_ARCH:
+        check_sort_route(kernel_model, params, prompts, main)
 
     if full:
         eager = paged_engine(kernel_model, params, "pallas", graphs=False)
@@ -734,15 +829,24 @@ def check_serving(arch):
     free_memory()
 
     ordered = [prompts[rid] for rid in sorted(prompts)]
-    compare_logits(f"{prefix}first_token_logits",
-                   first_token_logits(kernel_model, params, ordered),
-                   first_token_logits(plain_model, params, ordered),
-                   cfg.vocab_size)
+    routes = {"kernel": [], "plain": []} if is_moe else {}
+    got = first_token_logits(kernel_model, params, ordered,
+                             routes.get("kernel"))
+    want = first_token_logits(plain_model, params, ordered,
+                              routes.get("plain"))
+    compare_logits(f"{prefix}first_token_logits", got, want, cfg.vocab_size,
+                   routing_agreement(routes["kernel"], routes["plain"])
+                   if is_moe else None)
 
     pages, lens, toks, free_row = decode_state(kernel_model, params)
-    compare_logits(f"{prefix}decode_logits",
-                   *decode_logits(kernel_model, params, pages, lens, toks),
-                   cfg.vocab_size)
+    routes = {} if is_moe else None
+    got, want = decode_logits(kernel_model, params, pages, lens, toks,
+                              routes)
+    # a decode row is one token: its (L, 1, k) expert sets
+    compare_logits(f"{prefix}decode_logits", got, want, cfg.vocab_size,
+                   routing_agreement(routes["pallas"].split(1, dim=1),
+                                     routes["gather"].split(1, dim=1))
+                   if is_moe else None)
     profile_serving(kernel_model, params, pages, lens, toks, free_row,
                     prefix)
     del pages
@@ -768,23 +872,82 @@ def check_serving(arch):
     return kernel_stats
 
 
-def compare_logits(label, got, want, vocab):
+def check_sort_route(model, params, prompts, main):
+    """Set 0 of the main path's requests (same prompts) on the ``sort``
+    MoE route, graphed, beside the main path's ``dense_onehot`` run:
+    greedy tokens that agree, and both runs' walls.  The two routes
+    compute one function; in bf16 they round at other points (``sort``
+    weights and sums each token's top-k outputs, ``dense_onehot`` sums
+    over every expert in one product), so a near tie may part the
+    tokens.  The CPU tests hold the two routes equal in fp32."""
+    eng = paged_engine(model.with_settings(moe_impl="sort"), params,
+                       "pallas")
+    run = serve_set(eng, make_requests(), prompts, instrument(eng))
+    dense, sort = main["tokens"], run["tokens"]
+
+    def agreeing_prefix(a, b):
+        n = 0
+        while n < min(len(a), len(b)) and a[n] == b[n]:
+            n += 1
+        return n
+
+    keys = ("mean_prefill_wall_ms", "mean_decode_wall_ms",
+            "mean_prefill_wall_ms_without_capture",
+            "mean_decode_wall_ms_without_capture",
+            "generated_tokens_per_s", "capture_iterations")
+    phase(f"{model.cfg.name}_sort_route", moe_impl="sort",
+          requests=len(sort), graphs=len(eng.graphs),
+          generated_tokens_agreeing=sum(
+              int(x == y) for rid in dense
+              for x, y in zip(dense[rid], sort[rid])),
+          generated_tokens=sum(len(t) for t in sort.values()),
+          first_tokens_agreeing=sum(int(dense[rid][0] == sort[rid][0])
+                                    for rid in dense),
+          mean_agreeing_prefix=float(np.mean(
+              [agreeing_prefix(dense[rid], sort[rid]) for rid in dense])),
+          **{f"sort_{k}": run["stats"][k] for k in keys},
+          **{f"dense_onehot_{k}": main["stats"][k] for k in keys})
+    del eng
+    free_memory()
+
+
+def compare_logits(label, got, want, vocab, routing=None):
     """Kernel-path logits ``got`` against plain-path ``want``, row by
-    row; fails past LOGIT_REL_MAX or LOGIT_REL_L2."""
-    max_abs, rel_max, rel_l2, argmax_same = 0.0, 0.0, 0.0, 0
-    for a, b in zip(got, want):
+    row; fails past LOGIT_REL_MAX or LOGIT_REL_L2.  For an MoE model,
+    ``routing`` (``routing_agreement``) says which rows' tokens the two
+    routes sent to the same experts in every layer: the limits hold those
+    rows; a row whose expert set flipped swaps part of its FFN output,
+    which is not the attention's rounding, and its errors are reported
+    beside them."""
+    agree = routing["agree"] if routing else [True] * len(got)
+    errs = {True: [], False: []}
+    argmax_same = 0
+    for a, b, same in zip(got, want, agree):
         if not (torch.isfinite(a).all() and a.shape == (vocab,)):
             raise AssertionError(f"{label}: logits not finite or misshapen")
         err = float((a - b).abs().max())
-        max_abs = max(max_abs, err)
-        rel_max = max(rel_max, err / float(b.abs().max()))
-        rel_l2 = max(rel_l2, float((a - b).norm() / b.norm()))
+        errs[same].append((err, err / float(b.abs().max()),
+                           float((a - b).norm() / b.norm())))
         argmax_same += int(a.argmax() == b.argmax())
-    phase(label, rows=len(got), max_abs_err=max_abs,
+
+    def worst(rows, i):
+        return max((r[i] for r in rows), default=None)
+
+    held = errs[True]
+    fields = {}
+    if routing:
+        fields = {"routing_flip_share": routing["flip_share"],
+                  "routing_pairs": routing["pairs"],
+                  "rows_routing_agrees": len(held),
+                  "rows_routing_differs": len(errs[False]),
+                  "routing_differs_max_rel_err": worst(errs[False], 1),
+                  "routing_differs_max_rel_l2": worst(errs[False], 2)}
+    rel_max, rel_l2 = worst(held, 1), worst(held, 2)
+    phase(label, rows=len(got), max_abs_err=worst(held, 0),
           max_rel_err=rel_max, tol_rel_max=LOGIT_REL_MAX, max_rel_l2=rel_l2,
           tol_rel_l2=LOGIT_REL_L2, argmax_agree=argmax_same,
-          logit_scale=float(torch.stack(list(want)).abs().max()))
-    if rel_max > LOGIT_REL_MAX or rel_l2 > LOGIT_REL_L2:
+          logit_scale=float(torch.stack(list(want)).abs().max()), **fields)
+    if held and (rel_max > LOGIT_REL_MAX or rel_l2 > LOGIT_REL_L2):
         raise AssertionError(f"{label} differ: max {rel_max}, rel L2 "
                              f"{rel_l2} of the plain path's")
 
@@ -824,17 +987,22 @@ def decode_state(model, params):
             free_row)
 
 
-def decode_logits(model, params, pages, lens, toks):
+def decode_logits(model, params, pages, lens, toks, routes=None):
     """One decode step's logits through the paged kernel and through the
     plain gather path, from the same page state (each writes the new
-    token's K/V into the same slot before it reads it)."""
+    token's K/V into the same slot before it reads it).  For an MoE
+    model, ``routes`` (a dict) receives each path's expert sets,
+    (L, B, k)."""
     vocab = model.plan.vocab_logical
     out = {}
     for path in ("pallas", "gather"):
         pages["len"].copy_(lens)
-        logits, _ = paged_model.paged_decode_step(model, params, pages,
-                                                  toks, path)
+        with RoutingLog() as log:
+            logits, _ = paged_model.paged_decode_step(model, params, pages,
+                                                      toks, path)
         out[path] = logits[:, :vocab].float()
+        if routes is not None:
+            routes[path] = log.ids()
     return out["pallas"], out["gather"]
 
 
@@ -921,6 +1089,43 @@ def profile_serving(model, params, pages, lens, toks, free_row, prefix=""):
                 shares={"paged_attention": PAGED_KERNELS})
         profile(f"{prefix}prefill_1024{suffix}", pre, 3,
                 shares={"flash_attention": FLASH_KERNELS})
+    if model.cfg.family == MOE:
+        moe_share(model, params, {"decode": decode_graphed,
+                                  "prefill_1024": prefill_graphed}, prefix)
+
+
+def moe_share(model, params, steps, prefix):
+    """The MoE's share of a graphed step: the device time (CUDA events)
+    of a CUDA graph of every layer's ``moe_apply`` at the step's rows
+    (``MAX_BATCH`` for the decode step, ``PROMPT_RANGE[1]`` for the
+    prefill; random hidden states) over that of the step as
+    ``profile_serving`` replays it.  The MoE has no kernel name of its
+    own in a trace (cuBLAS GEMMs, top-k, elementwise), so it is timed
+    apart, graphed as in the step."""
+    cfg, cd = model.cfg, model.compute_dtype
+    layers = [zoo.layer(params["layers"], i)["moe"]
+              for i in range(cfg.num_layers)]
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    graphs = StepGraphs("cuda")
+    out = {}
+    for kind, step in steps.items():
+        rows = MAX_BATCH if kind == "decode" else PROMPT_RANGE[1]
+        x = torch.randn(rows, cfg.d_model, generator=gen,
+                        device="cuda").to(cd)
+
+        def moe_layers():
+            return [moe.moe_apply(lp, x, top_k=cfg.moe.top_k,
+                                  n_experts_logical=model.plan
+                                  .n_experts_logical,
+                                  impl=model.settings.moe_impl,
+                                  compute_dtype=cd)[0] for lp in layers]
+
+        moe_ms = time_ms(lambda: graphs.run(kind, moe_layers), 10)
+        step_ms = time_ms(step, 10)
+        out[kind] = {"rows": rows, "moe_ms": moe_ms, "step_ms": step_ms,
+                     "moe_share": moe_ms / step_ms}
+    phase(f"{prefix}moe_share", moe_impl=model.settings.moe_impl,
+          layers=cfg.num_layers, **out)
 
 
 # ---------------------------------------------------------------------------
@@ -1552,9 +1757,12 @@ def check_simulator():
 
 
 #: the paged models served at full width and depth, in this order
-PAGED_MODELS = ("llama2-7b", "opt-13b", "qwen3-14b")
+PAGED_MODELS = ("llama2-7b", "opt-13b", "qwen3-14b", "granite-moe-3b-a800m",
+                "granite-moe-1b-a400m")
 #: those that also run eager against graphed engines and the plain path
-FULL_PHASE_SET = {"llama2-7b", "opt-13b"}
+FULL_PHASE_SET = {"llama2-7b", "opt-13b", "granite-moe-3b-a800m"}
+#: the MoE model that also serves one request set on the ``sort`` route
+SORT_ROUTE_ARCH = "granite-moe-1b-a400m"
 
 
 def main():

@@ -15,8 +15,8 @@
 // Layout: q (B,Hq,D); k/v pages (NP,P,Hkv,D) token-major, read in place
 // (a row of one kv head is D contiguous elements, rows Hkv*D apart);
 // tables (B,MP) int32; lens (B,) int32; out (B,Hq,D).  bf16 or fp32,
-// D in {64,128}, G in {1,2,4,5,7,8} (5: qwen3-14b's 40/8, 7: qwen2-0.5b's
-// 14/2), any page size.  Scratch from the
+// D in {64,128}, G in {1,2,3,4,5,7,8} (3: granite-moe-3b's 24/8, 5:
+// qwen3-14b's 40/8, 7: qwen2-0.5b's 14/2), any page size.  Scratch from the
 // wrapper: ws, fp32, one record of G*(D+2) floats per (sequence, kv
 // head, split); tickets, B*Hkv zeroed counters that the kernel leaves
 // zeroed.
@@ -400,6 +400,9 @@ int launch_group(int group, const void* q, const void* k, const void* v,
                                    batch, hkv, page, max_pages, splits,
                                    scale, softcap, stream);
     case 2: return launch<T, D, 2>(q, k, v, tables, lens, out, ws, tickets,
+                                   batch, hkv, page, max_pages, splits,
+                                   scale, softcap, stream);
+    case 3: return launch<T, D, 3>(q, k, v, tables, lens, out, ws, tickets,
                                    batch, hkv, page, max_pages, splits,
                                    scale, softcap, stream);
     case 4: return launch<T, D, 4>(q, k, v, tables, lens, out, ws, tickets,

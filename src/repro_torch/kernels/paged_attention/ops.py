@@ -36,8 +36,9 @@ from repro_torch.kernels import build, counts
 NEG_INF = -1e30
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
 HEAD_DIMS = (64, 128)
-#: q heads per kv head: llama2-7b and opt-13b 1, qwen3-14b 5, qwen2-0.5b 7
-GROUPS = (1, 2, 4, 5, 7, 8)
+#: q heads per kv head: llama2-7b and opt-13b 1, granite-moe-1b 2,
+#: granite-moe-3b 3, qwen3-14b 5, qwen2-0.5b 7
+GROUPS = (1, 2, 3, 4, 5, 7, 8)
 
 #: (device index, stream) -> zeroed int32 counters, one per (sequence, kv
 #: head); the kernel leaves them zeroed

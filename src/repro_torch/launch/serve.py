@@ -2,11 +2,13 @@
 ``repro.launch.serve``, with the same arguments and defaults plus
 ``--device``: the CUDA card unless ``--device cpu`` is asked for.
 
-Every arch of the port's registry is accepted: the dense and VLM ones
-(llama2-7b, opt-13b, qwen3-14b, qwen2-0.5b, internlm2-1.8b, stablelm-3b,
-chameleon-34b) run the paged path, SSM models (mamba2-130m) the slot
-path.  ``--attn pallas`` takes the paged kernel in the decode; the
-prefill attention is the reference's default, ``auto``.  On the card
+The dense, MoE and VLM archs of the port's registry (llama2-7b,
+opt-13b, qwen3-14b, qwen2-0.5b, internlm2-1.8b, stablelm-3b,
+granite-moe-1b-a400m, granite-moe-3b-a800m, chameleon-34b) run the
+paged path, SSM models (mamba2-130m) the slot path; the hybrid and
+audio archs are not ported and raise.  ``--attn pallas`` takes the
+paged kernel in the decode; the prefill attention is the reference's
+default, ``auto``.  On the card
 the engine runs its steps as CUDA graphs, as the reference runs them as
 ``jax.jit`` programs (``serving.graphs``); on the CPU it runs them
 eagerly.  Examples:
@@ -17,6 +19,8 @@ eagerly.  Examples:
       --requests 16 --prompt-len 600 --output-len 32
   PYTHONPATH=src python -m repro_torch.launch.serve --arch qwen3-14b \\
       --smoke --device cpu
+  PYTHONPATH=src python -m repro_torch.launch.serve \\
+      --arch granite-moe-3b-a800m --attn pallas
 
 Weights are random, from ``--seed`` (``init_params``).  Prints the
 summary of ``Results`` and the number of engine iterations as JSON.

@@ -12,6 +12,8 @@ import torch
 #: ``attn_block_q`` x ``attn_block_kv``, as the reference's are plain JAX
 #: (see ``models.attention_impl``).
 ATTN_IMPLS = ("auto", "naive", "blocked", "blocked_causal", "pallas")
+#: every accepted ``RunSettings.moe_impl`` (``models.moe``)
+MOE_IMPLS = ("dense_onehot", "sort")
 
 
 @dataclass(frozen=True)
@@ -19,7 +21,7 @@ class RunSettings:
     """Hashable knobs threaded through the model functions.
 
     The port's copy of ``repro.models.common.RunSettings``, holding the
-    fields that the serving path reads.  The remat, layer-scan, MoE and
+    fields that the serving path reads.  The remat, layer-scan and
     sharding knobs of the reference come with the slices that use them.
     """
 
@@ -27,12 +29,16 @@ class RunSettings:
     attn_block_q: int = 1024
     attn_block_kv: int = 1024
     naive_attn_max_seq: int = 2048  # "auto" switches to blocked above this
+    moe_impl: str = "dense_onehot"  # one of MOE_IMPLS
     logits_fp32: bool = True
 
     def __post_init__(self):
         if self.attn_impl not in ATTN_IMPLS:
             raise ValueError(f"unknown attention impl {self.attn_impl!r}; "
                              f"have {ATTN_IMPLS}")
+        if self.moe_impl not in MOE_IMPLS:
+            raise ValueError(f"unknown moe impl {self.moe_impl!r}; "
+                             f"have {MOE_IMPLS}")
 
     def resolve_attn(self, seq_len: int) -> str:
         if self.attn_impl != "auto":

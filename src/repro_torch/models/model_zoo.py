@@ -1,15 +1,17 @@
-"""Model zoo, dense, VLM and SSM families: the port of
+"""Model zoo, dense, MoE, VLM and SSM families: the port of
 ``repro.models.model_zoo``.  VLM (chameleon) runs the dense code, as in
-the reference, its images being tokens of the same vocabulary.
+the reference, its images being tokens of the same vocabulary; MoE
+(granite) runs it with ``models.moe`` in place of the MLP.
 
 ``Model`` is a frozen bundle of (ArchConfig, PadPlan, RunSettings), as in
 the reference.  Parameters are a dict tree with the reference's keys and
 shapes, layers stacked on a leading L axis; the functions below loop over
 layers in Python where the reference has ``lax.scan``.
 
-Storage dtypes (``param_dtype``): matmul weights and the embedding table
-in the compute dtype, because every reader casts them to it first;
-norm scales (qk-norm's too), the Mamba2 mixer's ``A_log``, ``D``,
+Storage dtypes (``param_dtype``): matmul weights (the MoE experts'
+``up``/``gate``/``down`` among them) and the embedding table in the
+compute dtype, because every reader casts them to it first; norm scales
+(qk-norm's too), the MoE router, the Mamba2 mixer's ``A_log``, ``D``,
 ``dt_bias``, ``norm_scale``, ``conv_w`` and ``conv_b``, and the
 unembedding table when ``logits_fp32``, in fp32, because their readers
 compute in fp32.  A tied embedding table is therefore fp32 and its rows
@@ -36,7 +38,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from repro_torch.configs.base import (ArchConfig, AUDIO, DENSE, ENCDEC,
-                                      SSM, VLM)
+                                      MOE, SSM, VLM)
 from repro_torch.distributed.padding import PadPlan, make_pad_plan
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention_impl import attend, decode_attention
@@ -47,9 +49,10 @@ from repro_torch.models.layers import (apply_rope, dense_apply, dense_init,
                                        head_norm_apply, mlp_apply, mlp_init,
                                        norm_apply, norm_init, normal,
                                        unembed_apply)
+from repro_torch.models.moe import moe_apply, moe_init
 
 #: families this slice ports; the others raise
-PORTED_FAMILIES = (DENSE, VLM, SSM)
+PORTED_FAMILIES = (DENSE, MOE, VLM, SSM)
 #: position encodings the port builds
 POS_EMBS = ("rope", "learned", "none")
 #: learned position tables are capped (reference model_zoo.py:48)
@@ -97,6 +100,8 @@ def param_dtype(model: Model, path: Tuple[str, ...]) -> torch.dtype:
             and model.cfg.tie_embeddings:
         return torch.float32
     if path[-1] in ("scale", "bias"):
+        return torch.float32
+    if path[-2:] == ("moe", "router"):
         return torch.float32
     if "mixer" in path and path[-1] in SSM_FP32_LEAVES:
         return torch.float32
@@ -174,17 +179,27 @@ def _attn_full(p, x, model: Model, positions, *, causal: bool):
 
 
 def _ffn_apply(p, x, model: Model):
-    return mlp_apply(p["mlp"], x, model.cfg.act, model.compute_dtype)
+    """MLP or MoE second half-block. Returns (y, aux): the MoE's
+    ``{"aux", "zloss"}``, None for an MLP."""
+    cfg = model.cfg
+    if "moe" in p:
+        return moe_apply(p["moe"], x, top_k=cfg.moe.top_k,
+                         n_experts_logical=model.plan.n_experts_logical,
+                         impl=model.settings.moe_impl,
+                         compute_dtype=model.compute_dtype)
+    return mlp_apply(p["mlp"], x, cfg.act, model.compute_dtype), None
 
 
 def _block_apply(p, x, model: Model, positions):
-    """Pre-norm causal transformer block (full-seq). Returns (x, (k, v))."""
+    """Pre-norm causal transformer block (full-seq). Returns
+    (x, (k, v), aux)."""
     cfg = model.cfg
     h = norm_apply(p["ln1"], x, cfg.norm)
     attn, kv = _attn_full(p["attn"], h, model, positions, causal=True)
     x = x + attn
     h = norm_apply(p["ln2"], x, cfg.norm)
-    return x + _ffn_apply(p, h, model), kv
+    y, aux = _ffn_apply(p, h, model)
+    return x + y, kv, aux
 
 
 # ---------------------------------------------------------------------------
@@ -227,13 +242,16 @@ def init_params(model: Model, seed: int = 0, device=None) -> Dict[str, Any]:
         if cfg.qk_norm:
             attn["q_norm"] = norm_init(hd, "rmsnorm", device=device)
             attn["k_norm"] = norm_init(hd, "rmsnorm", device=device)
-        return {
-            "ln1": norm_init(d, cfg.norm, device=device),
-            "attn": attn,
-            "ln2": norm_init(d, cfg.norm, device=device),
-            "mlp": mlp_init(d, cfg.d_ff, cfg.act, dtype=cd,
-                            bias=mlp_bias(cfg), **kw),
-        }
+        p = {"ln1": norm_init(d, cfg.norm, device=device),
+             "attn": attn,
+             "ln2": norm_init(d, cfg.norm, device=device)}
+        if cfg.family == MOE:
+            p["moe"] = moe_init(d, plan.n_experts, cfg.moe.d_expert,
+                                cfg.act, dtype=cd, **kw)
+        else:
+            p["mlp"] = mlp_init(d, cfg.d_ff, cfg.act, dtype=cd,
+                                bias=mlp_bias(cfg), **kw)
+        return p
 
     def ssm_layer():
         return {"ln": norm_init(d, cfg.norm, device=device),
@@ -303,26 +321,32 @@ def _lm_head(model: Model, params, x):
 
 
 def _run_blocks(model: Model, params, tokens, on_kv=None):
-    """Embed, run every block, and hand each layer's (k, v) to on_kv."""
+    """Embed, run every block, and hand each layer's (k, v) to on_kv.
+    Returns (x, aux): the MoE's aux values summed over layers, as the
+    reference's ``_collect_aux`` sums them; empty for an MLP."""
     s = tokens.shape[1]
     positions = torch.arange(s, device=tokens.device)
     x = _add_positions(model, params, _embed_tokens(model, params, tokens))
+    total: Dict[str, torch.Tensor] = {}
     for i in range(model.cfg.num_layers):
-        x, kv = _block_apply(layer(params["layers"], i), x, model, positions)
+        x, kv, aux = _block_apply(layer(params["layers"], i), x, model,
+                                  positions)
+        for k, v in (aux or {}).items():
+            total[k] = total[k] + v if k in total else v
         if on_kv is not None:
             on_kv(i, kv)
-    return x
+    return x, total
 
 
 def forward(model: Model, params, batch) -> Tuple[torch.Tensor, Dict]:
     """Full-sequence logits.  batch: {"tokens": (B,S)}.
 
-    Returns (logits (B,S,V_phys), aux dict — empty for these families)."""
+    Returns (logits (B,S,V_phys), aux dict with the MoE losses if any)."""
     if model.cfg.family == SSM:
-        x = _run_ssm_blocks(model, params, batch["tokens"])
+        x, aux = _run_ssm_blocks(model, params, batch["tokens"]), {}
     else:
-        x = _run_blocks(model, params, batch["tokens"])
-    return _lm_head(model, params, x), {}
+        x, aux = _run_blocks(model, params, batch["tokens"])
+    return _lm_head(model, params, x), aux
 
 
 def _ssm_head_mask(model: Model, device):
@@ -394,7 +418,7 @@ def prefill(model: Model, params, batch, cache, prompt_lens=None):
         cache["k"][i, :, :s] = kv[0]
         cache["v"][i, :, :s] = kv[1]
 
-    x = _run_blocks(model, params, tokens, on_kv=write)
+    x, _ = _run_blocks(model, params, tokens, on_kv=write)
     cache["len"].copy_(prompt_lens)
     return _lm_head(model, params, x), cache
 
@@ -435,7 +459,7 @@ def decode_step(model: Model, params, cache, tokens):
         x = x + _attn_decode(lp["attn"], h, model, cache["k"][i],
                              cache["v"][i], cache_len)
         h = norm_apply(lp["ln2"], x, cfg.norm)
-        x = x + _ffn_apply(lp, h, model)
+        x = x + _ffn_apply(lp, h, model)[0]
     cache_len.add_(1)
     return _lm_head(model, params, x)[:, 0], cache
 

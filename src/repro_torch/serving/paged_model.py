@@ -27,13 +27,13 @@ from typing import Dict
 
 import torch
 
-from repro_torch.configs.base import DENSE, VLM
+from repro_torch.configs.base import DENSE, MOE, VLM
 from repro_torch.kernels.paged_attention import ops as paged_ops
 from repro_torch.models import model_zoo as zoo
 from repro_torch.models.attention_impl import decode_attention
 from repro_torch.models.layers import norm_apply
 
-PAGED_FAMILIES = (DENSE, VLM)
+PAGED_FAMILIES = (DENSE, MOE, VLM)
 ATTN_PATHS = ("gather", "pallas")
 
 
@@ -159,7 +159,9 @@ def paged_decode_step(model: zoo.Model, params, pages, tokens,
                                    pages["v"][i], tables, lens,
                                    attn_path=attn_path)
         h = norm_apply(lp["ln2"], x, cfg.norm)
-        x = x + zoo._ffn_apply(lp, h, model)
+        # every row of the batch, padded ones too: an MoE's token choice
+        # has no capacity, so a padded row cannot change a live one
+        x = x + zoo._ffn_apply(lp, h, model)[0]
     logits = zoo._lm_head(model, params, x)[:, 0]
     lens.add_(1)
     return logits, pages

@@ -1,6 +1,6 @@
 """The port's ServingEngine against the reference's, fp32 smoke models.
 
-For every DENSE/VLM entry of ``repro.configs.SMOKE_CONFIGS`` (the
+For every DENSE/MOE/VLM entry of ``repro.configs.SMOKE_CONFIGS`` (the
 reference's weights loaded into the port, ``model_pair`` of
 tests/test_torch_model.py), both engines serve the same six requests of
 mixed lengths with a page pool small enough to force preemption.  The port must reproduce the
@@ -14,7 +14,10 @@ writes) must match to 1e-5.
 Run once on the plain path (``gather``, naive prefill attention) and
 once on the kernel path (``pallas`` decode and prefill): the reference
 runs its Pallas kernels in interpret mode, the port its kernels' plain
-versions, as it does for any CPU tensor.
+versions, as it does for any CPU tensor.  The granite MoE models run
+on the ``dense_onehot`` route (the default) there, and once more on
+``sort``; a decode batch's padded rows go through the MoE as the live
+ones do.
 
 opt's learned positions past the end of the table: a position table of
 24 rows, requests decoded to context 30 on both paged paths, with pages
@@ -59,14 +62,14 @@ POS_ENGINE = dict(num_blocks=16, block_size=8, max_batch=2,
                   max_pages_per_seq=8)
 
 
-def _serve(models, path, prompts, outputs, ecfg):
+def _serve(models, path, prompts, outputs, ecfg, **settings):
     """Both engines on the same requests; returns (port engine, its
     requests, reference engine, its requests)."""
     jmodel, params, tmodel, tparams = models
     impl = "pallas" if path == "pallas" else "auto"
     jm = jmodel.with_settings(attn_impl=impl, attn_block_q=8,
-                              attn_block_kv=8)
-    tm = tmodel.with_settings(attn_impl=impl)
+                              attn_block_kv=8, **settings)
+    tm = tmodel.with_settings(attn_impl=impl, **settings)
 
     def requests(cls):
         return [cls(id=i, arrival_time=0.01 * i, prompt_len=p,
@@ -114,6 +117,15 @@ def _same_run(te, treqs, je, jreqs):
 def test_engine_matches_reference(arch, path):
     te, treqs, je, jreqs = _serve(model_pair(arch), path, PROMPTS, OUTPUTS,
                                   ENGINE)
+    assert sum(r.preempt_count for r in jreqs) > 0, "no preemption forced"
+    _same_run(te, treqs, je, jreqs)
+
+
+@pytest.mark.parametrize("arch", ["granite-moe-3b-a800m"])
+def test_engine_matches_reference_moe_sort(arch):
+    te, treqs, je, jreqs = _serve(model_pair(arch), "pallas", PROMPTS,
+                                  OUTPUTS, ENGINE, moe_impl="sort")
+    assert te.model.settings.moe_impl == "sort"
     assert sum(r.preempt_count for r in jreqs) > 0, "no preemption forced"
     _same_run(te, treqs, je, jreqs)
 

@@ -18,7 +18,10 @@ kernels inside the graphs on ``pallas``); opt-13b the kernel path
 (learned positions, LayerNorm, GELU, MLP biases), once with its table of
 2048 positions and preemption forced, and once with the table cut to 64
 rows and decodes past it, so the clamped position read runs inside the
-decode graph; mamba2-130m the slot path with
+decode graph; granite-moe-3b the kernel path (the paged kernel at
+group 3, head_dim 64) on each MoE route, so the router's top-k, the
+expert products and (``sort``) the argsort and grouped GEMM run inside
+the prefill and decode graphs; mamba2-130m the slot path with
 buckets of 256 and 512, so the SSD scan's kernels run inside the prefill
 graphs.  ``test_stale_tables_are_caught`` plants a fault (the decode
 step's static block tables left unrefreshed before replay) and shows
@@ -174,6 +177,23 @@ def test_graphed_opt_engine_matches_eager(cuda, table):
     else:
         assert sum(r.preempt_count for r in reqs) > 0, \
             "no preemption forced"
+    assert g.graphs.graphs[("decode",)].replays > 0
+    decodes = sum(r.kind == "decode" for r in g.records)
+    assert graphed[2].get("paged_attention", 0) == LAYERS * decodes
+    assert graphed[2].get("flash_attention", 0) > 0
+
+
+@pytest.mark.parametrize("moe_impl", ["dense_onehot", "sort"])
+def test_graphed_moe_engine_matches_eager(cuda, moe_impl):
+    model, params = _model("granite-moe-3b-a800m", cuda, attn_impl="pallas",
+                           moe_impl=moe_impl)
+    ec = EngineConfig(attn_path="pallas", **LLAMA_ENGINE)
+    eager = _serve(model, params, ec, LLAMA_PROMPTS, LLAMA_OUTPUTS, False)
+    graphed = _serve(model, params, ec, LLAMA_PROMPTS, LLAMA_OUTPUTS, None)
+    g = graphed[0]
+    assert sum(r.preempt_count for r in graphed[1]) > 0, \
+        "no preemption forced"
+    assert _differences(eager, graphed) == []
     assert g.graphs.graphs[("decode",)].replays > 0
     decodes = sum(r.kind == "decode" for r in g.records)
     assert graphed[2].get("paged_attention", 0) == LAYERS * decodes

@@ -141,6 +141,15 @@ PAGED = [
     (6, 14, 2, 64, 40, 16, 32, torch.bfloat16, {"shared_pages": True}),
     (3, 5, 1, 64, 33, 8, 8, torch.float32, {}),
     (3, 7, 1, 128, 33, 8, 8, torch.bfloat16, {}),
+    # GQA 3 (granite-moe-3b, 24/8, d 64)
+    (8, 24, 8, 64, 129, 16, 16, torch.bfloat16, {}),
+    (3, 24, 8, 64, 65, 16, 16, torch.float32, {}),
+    (7, 24, 8, 64, 193, 16, 32, torch.bfloat16, {"lens": "split-boundary"}),
+    (7, 24, 8, 64, 193, 16, 32, torch.float32, {"lens": "split-boundary"}),
+    (8, 24, 8, 64, 1025, 16, 128, torch.bfloat16,
+     {"lens": [2048, 3, 17, 40, 64, 5, 100, 1]}),
+    (6, 24, 8, 64, 40, 16, 32, torch.float32, {"shared_pages": True}),
+    (3, 3, 1, 128, 33, 8, 8, torch.bfloat16, {}),
 ]
 
 
@@ -255,16 +264,16 @@ FAULTS = {
 }
 
 
-def _serving_shape_case(name, device, hkv=32):
+def _serving_shape_case(name, device, hq=32, hkv=32, d=128):
     """Run kernel ``name`` once at the serving path's shape (llama2-7b,
-    bf16; paged with ``hkv`` 8, qwen3-14b's 40/8); returns (kernel
-    output, fp32 plain output, the long rows).  Long rows: paged, every
-    row but the padded one (contexts up to 2048); flash, causal S 2048,
-    the rows at positions 512 and later."""
+    bf16; paged also at other decode shapes: qwen3-14b's 40/8,
+    granite-moe-3b's 24/8 at d 64); returns (kernel output, fp32 plain
+    output, the long rows).  Long rows: paged, every row but the padded
+    one (contexts up to 2048); flash, causal S 2048, the rows at
+    positions 512 and later."""
     dtype = torch.bfloat16
     if name == "paged_attention":
-        hq = 32 if hkv == 32 else 5 * hkv
-        args = _paged_inputs(8, hq, hkv, 128, 1025, 16, 128, dtype, device)
+        args = _paged_inputs(8, hq, hkv, d, 1025, 16, 128, dtype, device)
         return paged.paged_attention(*args), _paged_plain(args), \
             slice(0, -1)
     rng = np.random.RandomState(2)
@@ -297,22 +306,42 @@ def test_relative_limit_catches_an_off_by_one(cuda, fault, tmp_path,
     assert sound <= REL_TOL[torch.bfloat16] < planted
 
 
-@pytest.mark.parametrize("fault", sorted(f for f in FAULTS
-                                         if f.startswith("paged")))
-def test_relative_limit_catches_an_off_by_one_at_group_5(
-        cuda, fault, tmp_path, monkeypatch):
-    """The paged faults again at qwen3-14b's decode shape (GQA 40/8)."""
+def _planted_paged_fault(fault, device, tmp_path, monkeypatch, **shape):
+    """(sound, planted) long-row errors of the paged kernel at ``shape``
+    (``_serving_shape_case``'s), before and after planting ``fault``."""
     name, old, new = FAULTS[fault]
-    got, want, rows = _serving_shape_case(name, cuda, hkv=8)
+    got, want, rows = _serving_shape_case(name, device, **shape)
     sound = float(_row_rel_err(got, want)[rows].max())
     src = (build.CSRC / f"{name}.cu").read_text()
     (tmp_path / f"{name}.cu").write_text(src.replace(old, new))
     monkeypatch.setattr(build, "CSRC", tmp_path)
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "lib")
     monkeypatch.setattr(build, "_loaded", {})
-    got, want, rows = _serving_shape_case(name, cuda, hkv=8)
-    planted = float(_row_rel_err(got, want)[rows].max())
+    got, want, rows = _serving_shape_case(name, device, **shape)
+    return sound, float(_row_rel_err(got, want)[rows].max())
+
+
+@pytest.mark.parametrize("fault", sorted(f for f in FAULTS
+                                         if f.startswith("paged")))
+def test_relative_limit_catches_an_off_by_one_at_group_5(
+        cuda, fault, tmp_path, monkeypatch):
+    """The paged faults again at qwen3-14b's decode shape (GQA 40/8)."""
+    sound, planted = _planted_paged_fault(fault, cuda, tmp_path,
+                                          monkeypatch, hq=40, hkv=8)
     print(f"\n{fault} at G 5: long-row relative error, sound {sound:.3e}, "
+          f"planted {planted:.3e}, limit {REL_TOL[torch.bfloat16]:.0e}")
+    assert sound <= REL_TOL[torch.bfloat16] < planted
+
+
+@pytest.mark.parametrize("fault", sorted(f for f in FAULTS
+                                         if f.startswith("paged")))
+def test_relative_limit_catches_an_off_by_one_at_group_3(
+        cuda, fault, tmp_path, monkeypatch):
+    """The paged faults again at granite-moe-3b's decode shape (GQA 24/8,
+    head_dim 64)."""
+    sound, planted = _planted_paged_fault(fault, cuda, tmp_path,
+                                          monkeypatch, hq=24, hkv=8, d=64)
+    print(f"\n{fault} at G 3: long-row relative error, sound {sound:.3e}, "
           f"planted {planted:.3e}, limit {REL_TOL[torch.bfloat16]:.0e}")
     assert sound <= REL_TOL[torch.bfloat16] < planted
 
@@ -344,10 +373,10 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     cl = torch.ones(2, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         paged.paged_attention(q, kp, kp, bt, cl)
-    q3 = torch.zeros(2, 6, 64, device=cuda)             # group 3
-    kp3 = torch.zeros(8, 16, 2, 64, device=cuda)
-    with pytest.raises(ValueError, match="6/2"):
-        paged.paged_attention(q3, kp3, kp3, bt, cl)
+    q6 = torch.zeros(2, 12, 64, device=cuda)            # group 6
+    kp6 = torch.zeros(8, 16, 2, 64, device=cuda)
+    with pytest.raises(ValueError, match="12/2"):
+        paged.paged_attention(q6, kp6, kp6, bt, cl)
     for dtype in (torch.float16, torch.float32):
         x = torch.zeros(1, 64, 2, 64, device=cuda, dtype=dtype)
         with pytest.raises(TypeError):

@@ -1,9 +1,11 @@
 """repro_torch.models.model_zoo against repro.models.model_zoo.
 
-One case per DENSE/VLM entry of ``repro.configs.SMOKE_CONFIGS``:
+One case per DENSE/MOE/VLM entry of ``repro.configs.SMOKE_CONFIGS``:
 llama2, qwen3 (qk-norm, GQA), qwen2 (qkv bias, tied embeddings, GQA
 7/1), internlm2 (GQA), opt (learned positions, LayerNorm, GELU, MLP
-biases), stablelm (LayerNorm, SwiGLU) and chameleon (VLM, qk-norm).
+biases), stablelm (LayerNorm, SwiGLU), chameleon (VLM, qk-norm) and the
+two granite MoE models (token-choice top-2 of 4 and of 5 experts, GQA
+2/1 and 3/1, tied embeddings).
 Each smoke model is made in fp32 by the reference and loaded with
 ``params_from_jax`` (``model_pair``, shared with
 tests/test_torch_engine.py):
@@ -15,7 +17,10 @@ tests/test_torch_engine.py):
   ``decode_step``s agree to 1e-4 (fp32 through two layers; the
   libraries sum in other orders), once with the naive attention and once
   with ``pallas``, which is the Pallas kernel in interpret mode on the
-  reference side and the flash kernel's plain version on the port's.
+  reference side and the flash kernel's plain version on the port's;
+  the MoE models' ``forward`` also returns the ``aux`` and ``zloss``
+  values summed over layers, held to the same tolerance, and they run
+  once more on the ``sort`` MoE route (``RunSettings.moe_impl``).
   The reference's entry points run under ``jax.jit``, as its engine
   runs them (one compile per model and shape instead of one per
   operation).
@@ -42,13 +47,14 @@ from repro.configs import get_config as jax_config  # noqa: E402
 from repro.models import model_zoo as jzoo  # noqa: E402
 from repro_torch.configs import (CONFIGS, get_config,  # noqa: E402
                                  get_smoke_config)
-from repro_torch.configs.base import ENCDEC, DENSE, VLM  # noqa: E402
+from repro_torch.configs.base import ENCDEC, DENSE, MOE, VLM  # noqa: E402
 from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.models import model_zoo as tzoo  # noqa: E402
 
-#: the reference's dense and VLM architectures (static data)
+#: the reference's dense, MoE and VLM architectures (static data)
 ARCHS = sorted(name for name, cfg in JAX_SMOKE.items()
-               if cfg.family in (DENSE, VLM))
+               if cfg.family in (DENSE, MOE, VLM))
+MOE_ARCHS = [name for name in ARCHS if JAX_SMOKE[name].family == MOE]
 FORWARD = jax.jit(jzoo.forward, static_argnums=0)
 PREFILL = jax.jit(jzoo.prefill, static_argnums=0)
 DECODE = jax.jit(jzoo.decode_step, static_argnums=0)
@@ -95,9 +101,11 @@ def _close(got, want):
 
 
 def test_every_dense_and_vlm_arch_is_registered():
-    """The port's registry holds verbatim copies of the reference's
-    configs, full size and smoke."""
-    assert len(ARCHS) == 7 and "opt-13b" in ARCHS and "chameleon-34b" in ARCHS
+    """The archs the port serves on the paged path, dense, VLM and (since
+    the MoE slice) the two granite MoE models: the port's registry holds
+    verbatim copies of the reference's configs, full size and smoke."""
+    assert len(ARCHS) == 9 and "opt-13b" in ARCHS and "chameleon-34b" in ARCHS
+    assert MOE_ARCHS == ["granite-moe-1b-a400m", "granite-moe-3b-a800m"]
     for name in ARCHS:
         assert dataclasses.asdict(get_smoke_config(name)) == \
             dataclasses.asdict(JAX_SMOKE[name])
@@ -118,9 +126,8 @@ def test_registry_holds_all_twelve_archs():
 
 
 #: archs whose families the port registers for the simulator's cost model
-#: but does not serve (MoE, hybrid, audio), and an encoder-decoder
-UNSERVED = ["granite-moe-1b-a400m", "granite-moe-3b-a800m", "zamba2-2.7b",
-            "whisper-base", "whisper-base-as-encdec"]
+#: but does not serve (hybrid, audio), and an encoder-decoder
+UNSERVED = ["zamba2-2.7b", "whisper-base", "whisper-base-as-encdec"]
 
 
 @pytest.mark.parametrize("arch", UNSERVED)
@@ -161,16 +168,31 @@ def test_param_tree_matches_reference(arch):
 
 @pytest.mark.parametrize("arch,impl", arch_cases(["naive", "pallas"]))
 def test_forward_prefill_decode(arch, impl):
+    _forward_prefill_decode(arch, attn_impl=impl)
+
+
+@pytest.mark.parametrize("arch,impl", [
+    pytest.param(arch, impl, id=f"{arch}-{impl}")
+    for arch in MOE_ARCHS for impl in ("naive", "pallas")])
+def test_forward_prefill_decode_moe_sort(arch, impl):
+    _forward_prefill_decode(arch, attn_impl=impl, moe_impl="sort")
+
+
+def _forward_prefill_decode(arch, **settings):
     jmodel, params, tmodel, tparams = model_pair(arch, seed=1)
-    jm = jmodel.with_settings(attn_impl=impl, attn_block_q=8,
-                              attn_block_kv=8)
-    tm = tmodel.with_settings(attn_impl=impl)
+    jm = jmodel.with_settings(attn_block_q=8, attn_block_kv=8, **settings)
+    tm = tmodel.with_settings(**settings)
     tokens = np.random.RandomState(0).randint(0, tm.cfg.vocab_size,
                                               size=(2, S))
 
-    want, _ = FORWARD(jm, params, {"tokens": jnp.asarray(tokens)})
-    got, _ = tzoo.forward(tm, tparams, {"tokens": torch.from_numpy(tokens)})
+    want, want_aux = FORWARD(jm, params, {"tokens": jnp.asarray(tokens)})
+    got, got_aux = tzoo.forward(tm, tparams,
+                                {"tokens": torch.from_numpy(tokens)})
     _close(got, want)
+    assert set(got_aux) == set(want_aux) == \
+        ({"aux", "zloss"} if tm.cfg.family == MOE else set())
+    for key in got_aux:
+        _close(got_aux[key], want_aux[key])
 
     max_len = S + 4
     jcache = jzoo.init_cache(jm, 2, max_len)
@@ -243,3 +265,27 @@ def test_param_layout():
     assert a[("unembed", "table")].dtype == torch.float32
     assert a[("layers", "ln1", "scale")].dtype == torch.float32
     assert len(jax.tree.leaves(params)) == len(a)
+
+
+@pytest.mark.parametrize("arch", MOE_ARCHS)
+def test_moe_param_layout(arch):
+    """bf16 compute: the router in fp32 (its reader computes in fp32),
+    the experts' up/gate/down in bf16, stacked (L, E, ...), as
+    ``params_from_jax`` and ``init_params`` agree."""
+    _, params, _, _ = model_pair(arch, seed=1)
+    model = tzoo.build(get_smoke_config(arch))
+    cfg = model.cfg
+    e, d, f = model.plan.n_experts, cfg.d_model, cfg.moe.d_expert
+    loaded = dict(_leaves(params_from_jax(
+        model, jax.tree.map(np.asarray, params), device="cpu")))
+    drawn = dict(_leaves(tzoo.init_params(model, seed=0, device="cpu")))
+    for tree in (loaded, drawn):
+        assert ("layers", "mlp", "up", "w") not in tree
+        router = tree[("layers", "moe", "router")]
+        assert router.dtype == torch.float32
+        assert router.shape == (cfg.num_layers, d, e)
+        for name, shape in (("up", (e, d, f)), ("gate", (e, d, f)),
+                            ("down", (e, f, d))):
+            leaf = tree[("layers", "moe", name)]
+            assert leaf.dtype == torch.bfloat16, name
+            assert leaf.shape == (cfg.num_layers,) + shape, name
