@@ -72,7 +72,23 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    profile of a decode step at batch 8 and of a 1024-token prefill (with
    the SSD scan's share of the prefill's device time), eager and
    graphed;
-6. the repaired ``blocked`` attention route at full width on the card:
+6. serving: whisper-base at full width and depth (6 encoder and 6
+   decoder layers, d 512, 8 heads of 64, 1500 frames; random weights
+   from ``init_params(seed=0)``) through ``launch/serve.py``'s engine
+   with ``attn_impl="pallas"`` on the slot path (graphed on the card),
+   16 requests of 8-448 prompt tokens (buckets 8-512) and 32 output
+   tokens: flash must launch 18 times a prefill (the encoder's
+   non-causal 1500 x 1500 self-attention, the decoder's causal
+   self-attention and its non-causal bucket x 1500 cross-attention, a
+   layer each); the device's idle share over one more request set under
+   ``torch.profiler``; eager against graphed as for llama2-7b (the slot
+   cache's ``k``, ``v``, ``xk``, ``xv`` must be identical); first-token
+   and decode-step logits of the kernel route against ``naive``; flash
+   at whisper's shapes (non-causal 1500 x 1500, 8 x 1500 and 512 x
+   1500, causal 512, D 64) against its plain version, with its bound and
+   SDPA's time; a profile of a decode step at batch 8 and of a 448-token
+   prefill (with flash's share of its device time), eager and graphed;
+7. the repaired ``blocked`` attention route at full width on the card:
    stablelm-3b at full width and depth (32 layers, 32 heads of 80, bf16,
    random weights from ``init_params(seed=0)``), one 4096-token prompt
    through ``model_zoo.forward`` with the default ``RunSettings()``
@@ -80,12 +96,12 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    kernel takes no head_dim 80), against ``attn_impl="naive"``: the last
    position's logits within LOGIT_REL_MAX of the naive route's largest
    logit, the greedy tokens, both walls and the peak memory;
-7. the simulator (``repro_torch.launch.simulate``, llama2-7b on A100,
+8. the simulator (``repro_torch.launch.simulate``, llama2-7b on A100,
    1000 requests at 8 QPS) twice, each in its own process: the two
    summaries must be equal apart from the host's wall time; a third
    process imports the port's simulator, sweep and CLI and must load
    nothing of jax or of the reference package;
-8. the ``kernels`` JSON line (each kernel's launches summed over the
+9. the ``kernels`` JSON line (each kernel's launches summed over the
    main paths that run it, with ``launches_by_path``; its times at the
    llama2-7b case), then the result line.
 
@@ -188,6 +204,9 @@ SSD_KERNELS = ("chunk_state_kernel", "state_passing_kernel",
 PAGED_KERNELS = ("paged_attn_kernel",)
 #: the flash kernel (kernels/csrc/flash_attention.cu)
 FLASH_KERNELS = ("flash_kernel",)
+#: rows of one q tile of the flash kernel (kBM, kernels/csrc/
+#: flash_attention.cu): its grid is (heads, batch, ceil(Sq / kBM))
+FLASH_TILE_Q = 128
 
 PAGE = 16
 NUM_BLOCKS = 1024
@@ -364,6 +383,7 @@ def flash_case(name, *, sq, skv, h, hkv, causal, dtype, d=128, softcap=0.0,
                              queue_ahead=True)
     rec = {"case": name, "dtype": str(dtype), "sq": sq, "skv": skv, "h": h,
            "hkv": hkv, "head_dim": d, "causal": causal, "softcap": softcap,
+           "grid": [h, 1, -(-sq // FLASH_TILE_Q)],
            "max_abs_err": err, "max_rel_err": rel,
            "tol_rel": REL_TOL[dtype], "finite": finite,
            "kernel_ms": kernel_ms, "call_ms": call_ms,
@@ -1564,6 +1584,248 @@ def profile_mamba2(model, params, max_ctx):
                 shares={"ssd_scan": SSD_KERNELS})
 
 
+# ---------------------------------------------------------------------------
+# whisper-base: the encoder-decoder family on the slot path
+# ---------------------------------------------------------------------------
+WHISPER_ARCH = "whisper-base"
+#: prompt lengths, chosen to cover the flash kernel's shapes and not as
+#: a user's traffic: one prompt in each power-of-two bucket 8 ... 512, the
+#: others drawn up to 448, the decoder's whole text context (a published
+#: Whisper decoder cuts its prompt to 223 tokens)
+WHISPER_PROMPTS = (8, 448)
+WHISPER_BUCKETS = (8, 16, 32, 64, 128, 256, 512)
+WHISPER_MAX_CTX = 1024
+
+
+def whisper_requests(offset=0):
+    rng = np.random.RandomState(SEED)
+    lo, hi = WHISPER_PROMPTS
+    lens = [lo] + [rng.randint(b // 2 + 1, min(b, hi) + 1)
+                   for b in WHISPER_BUCKETS[1:]]
+    lens += list(rng.randint(lo, hi + 1, size=N_REQUESTS - len(lens)))
+    rng.shuffle(lens)
+    return [Request(id=offset + i, arrival_time=0.0, prompt_len=int(p),
+                    output_len=OUTPUT_LEN) for i, p in enumerate(lens)]
+
+
+def profiled_serving(eng, reqs, prompts):
+    """Serve ``reqs`` under ``torch.profiler``: the run's wall and its
+    device-busy time (every kernel and copy), in seconds."""
+    for r in reqs:
+        eng.add_request(r, prompts.get(r.id % SET_IDS))
+    acts = [torch.profiler.ProfilerActivity.CPU,
+            torch.profiler.ProfilerActivity.CUDA]
+    torch.cuda.synchronize()
+    with torch.profiler.profile(activities=acts) as prof:
+        t0 = time.perf_counter()
+        eng.run()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+    dev = [e for e in prof.key_averages()
+           if e.device_type == torch.autograd.DeviceType.CUDA]
+    busy = sum(e.self_device_time_total for e in dev) / 1e6 if dev else None
+    return wall, busy
+
+
+def check_whisper():
+    """whisper-base at full width and depth (6 encoder and 6 decoder
+    layers, 1500 frames) on the slot path: the engine ``launch/serve.py``
+    builds, but with ``attn_impl="pallas"``, graphed, serving 16 requests
+    of 8-448 prompt tokens whose buckets reach 8 ... 512 (kernel-shape
+    coverage, not a user's traffic); every prefill launches
+    flash once a layer in the encoder (non-causal, 1500 x 1500) and twice
+    a layer in the decoder (causal self-attention over the bucket,
+    non-causal cross-attention bucket x 1500).  Then eager against
+    graphed, first-token and decode-step logits of the kernel route
+    against ``naive``, flash at whisper's shapes, and the profiles of a
+    decode step and a 448-token prefill."""
+    cfg = get_config(WHISPER_ARCH)
+    t0 = time.perf_counter()
+    model = zoo.build(cfg, settings=RunSettings(attn_impl="pallas"))
+    params = zoo.init_params(model, seed=SEED)
+    torch.cuda.synchronize()
+    # the serve CLI's engine sizes (512 blocks of 16, a context of 1024)
+    engine = ServingEngine(model, params, EngineConfig(
+        num_blocks=512, block_size=PAGE, max_batch=MAX_BATCH,
+        max_pages_per_seq=WHISPER_MAX_CTX // PAGE, seed=SEED))
+    table = params["embed"]["table"]
+    phase("whisper-base_init_params", model=cfg.name,
+          enc_layers=cfg.n_enc_layers, dec_layers=cfg.n_dec_layers,
+          d_model=cfg.d_model, n_heads=cfg.n_heads,
+          n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim, d_ff=cfg.d_ff,
+          vocab=cfg.vocab_size, vocab_padded=model.plan.vocab,
+          enc_seq_len=cfg.enc_seq_len,
+          dec_pos_rows=params["dec_pos"].shape[0], norm=cfg.norm,
+          act=cfg.act, pos_emb=cfg.pos_emb,
+          param_gb=sum(t.numel() * t.element_size()
+                       for t in _leaves(params)) / 1e9,
+          embed_table_gb=table.numel() * table.element_size() / 1e9,
+          embed_table_dtype=str(table.dtype),
+          seconds=time.perf_counter() - t0)
+
+    per_prefill = cfg.n_enc_layers + 2 * cfg.n_dec_layers
+
+    def expect_launches(run):
+        n, want = run["launches"], per_prefill * len(run["buckets"])
+        if n["flash_attention"] != want or n["paged_attention"] \
+                or n["ssd_scan"]:
+            raise AssertionError(f"whisper-base: launches {n}, expected "
+                                 f"flash {per_prefill} x "
+                                 f"{len(run['buckets'])} and nothing else")
+
+    # the main path: the engine, graphed on the card
+    log = instrument(engine)
+    reqs = whisper_requests()
+    torch.cuda.reset_peak_memory_stats()
+    summary = {}
+    main = serve_set(engine, reqs, {}, log, serve_fn=lambda e, rs:
+                     summary.update(serve_cli.serve(e, rs)))
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    prompts = dict(engine.prompt_tokens)
+    spads = main["buckets"]
+    # the device's idle share: one more request set (same lengths) on the
+    # same engine, every step a replay, under torch.profiler
+    wall_s, busy_s = profiled_serving(
+        engine, whisper_requests((GRAPH_SETS + 2) * SET_IDS), prompts)
+    launches = main["launches"]
+    stats = {"model": cfg.name, "attn_impl": model.settings.attn_impl,
+             "max_ctx": engine.max_ctx, "requests": len(reqs),
+             "prompt_lens": [r.prompt_len for r in reqs],
+             "finished": summary["n_finished"], **main["stats"],
+             "prefill_calls": len(spads),
+             "prefill_buckets": sorted(set(spads)),
+             "launches": {k: launches[k] for k in
+                          ("flash_attention", "paged_attention",
+                           "ssd_scan")},
+             "flash_launches_by_sq": launches["flash_attention_by_sq"],
+             "expected_flash_launches": per_prefill * len(spads),
+             "graphs": len(engine.graphs),
+             "capture_s": engine.graphs.capture_seconds,
+             "peak_memory_gb": peak_gb,
+             "profiled_set_wall_s": wall_s,
+             "profiled_set_device_busy_s": busy_s if busy_s is not None
+             else "not measured",
+             "idle_share": 1 - busy_s / wall_s if busy_s is not None
+             else "not measured"}
+    phase("whisper-base_serve_slot_path", **stats)
+    if summary["n_finished"] != len(reqs):
+        raise AssertionError("whisper-base: not every request finished")
+    if sorted(set(spads)) != list(WHISPER_BUCKETS):
+        raise AssertionError(f"whisper-base: prefill buckets "
+                             f"{sorted(set(spads))}, expected "
+                             f"{WHISPER_BUCKETS}")
+    expect_launches(main)
+
+    eager = ServingEngine(model, params, engine.ec, graphs=False)
+    eager_vs_graphed(cfg.name, engine, log, eager, whisper_requests, prompts,
+                     main, ("k", "v", "xk", "xv", "len"), expect_launches)
+    del eager
+    free_memory()
+
+    vocab = model.plan.vocab_logical
+    plain = model.with_settings(attn_impl="naive")
+    got, got_cache = whisper_slot_states(model, params, engine, reqs,
+                                         prompts)
+    want, want_cache = whisper_slot_states(plain, params, engine, reqs,
+                                           prompts)
+    compare_logits("whisper-base_first_token_logits", got, want,
+                   cfg.vocab_size)
+    # one decode step on the slots each route prefilled (the decode
+    # attention is the plain one on both, as in the reference)
+    toks = torch.from_numpy(np.random.RandomState(1).randint(
+        0, cfg.vocab_size, size=MAX_BATCH)).cuda()
+    got = zoo.decode_step(model, params, got_cache, toks)[0]
+    want = zoo.decode_step(plain, params, want_cache, toks)[0]
+    compare_logits("whisper-base_decode_logits",
+                   list(got[:, :vocab].float()),
+                   list(want[:, :vocab].float()), cfg.vocab_size)
+    del got_cache, want_cache
+    free_memory()
+
+    bf16, d, h = torch.bfloat16, cfg.head_dim, cfg.n_heads
+    senc = cfg.enc_seq_len
+    flash_case(f"whisper-base encoder non-causal S={senc}", sq=senc,
+               skv=senc, h=h, hkv=h, d=d, causal=False, dtype=bf16, seed=10)
+    for sq in (WHISPER_BUCKETS[0], WHISPER_BUCKETS[-1]):
+        flash_case(f"whisper-base cross non-causal {sq}x{senc}", sq=sq,
+                   skv=senc, h=h, hkv=h, d=d, causal=False, dtype=bf16,
+                   seed=11 + sq)
+    flash_case(f"whisper-base decoder causal S={WHISPER_BUCKETS[-1]}",
+               sq=WHISPER_BUCKETS[-1], skv=WHISPER_BUCKETS[-1], h=h, hkv=h,
+               d=d, causal=True, dtype=bf16, seed=12)
+    profile_whisper(model, params, engine, reqs)
+    del engine
+    free_memory()
+    return stats
+
+
+def whisper_slot_states(model, params, engine, reqs, prompts):
+    """Each request prefilled as the engine prefills it (its prompt in its
+    bucket, its frame embeddings): the first token's logits over the
+    logical vocabulary, and a slot cache holding the first MAX_BATCH
+    requests."""
+    vocab = model.plan.vocab_logical
+    cache = zoo.init_cache(model, MAX_BATCH, engine.max_ctx, "cuda")
+    first = []
+    for i, r in enumerate(reqs):
+        p = prompts[r.id]
+        plen = len(p)
+        toks = torch.zeros((1, min(ServingEngine._bucket(plen),
+                                   engine.max_ctx)),
+                           dtype=torch.long, device="cuda")
+        toks[0, :plen] = torch.from_numpy(p.astype(np.int64))
+        embeds = torch.from_numpy(engine._enc_embeds(r))[None].cuda()
+        cache1 = zoo.init_cache(model, 1, engine.max_ctx, "cuda")
+        logits, cache1 = zoo.prefill(model, params, {"tokens": toks,
+                                                     "embeds": embeds},
+                                     cache1)
+        first.append(logits[0, plen - 1, :vocab].float().clone())
+        del logits
+        if i < MAX_BATCH:
+            for key, t in cache1.items():
+                if key != "len":
+                    cache[key][:, i] = t[:, 0]
+            cache["len"][i] = plen
+    return first, cache
+
+
+def profile_whisper(model, params, engine, reqs):
+    """One decode step of all MAX_BATCH slots and one prefill of a
+    448-token prompt (bucket 512, the encoder included), as the engine
+    runs them: eager, then graphed."""
+    rng = np.random.RandomState(3)
+    hi = WHISPER_PROMPTS[1]
+    cache = zoo.init_cache(model, MAX_BATCH, engine.max_ctx, "cuda")
+    cache["len"].copy_(torch.from_numpy(rng.randint(
+        WHISPER_PROMPTS[0], hi + 1, size=MAX_BATCH).astype(np.int32)))
+    toks = torch.from_numpy(rng.randint(0, model.cfg.vocab_size,
+                                        size=MAX_BATCH)).cuda()
+    prompt = torch.zeros((1, ServingEngine._bucket(hi)), dtype=torch.long,
+                         device="cuda")
+    prompt[0, :hi] = torch.from_numpy(rng.randint(0, model.cfg.vocab_size,
+                                                  size=hi))
+    embeds = torch.from_numpy(engine._enc_embeds(reqs[0]))[None].cuda()
+    graphs = StepGraphs("cuda")
+
+    def decode():
+        return zoo.decode_step(model, params, cache, toks)[0]
+
+    def prefill():
+        cache1 = zoo.init_cache(model, 1, engine.max_ctx, "cuda")
+        logits, cache1 = zoo.prefill(model, params, {"tokens": prompt,
+                                                     "embeds": embeds},
+                                     cache1)
+        return logits, cache1
+
+    for suffix, dec, pre in (
+            ("", decode, prefill),
+            ("_graphed", lambda: graphs.run("decode", decode),
+             lambda: graphs.run("prefill", prefill))):
+        profile(f"whisper-base_decode_step{suffix}", dec, 5)
+        profile(f"whisper-base_prefill_{hi}{suffix}", pre, 3,
+                shares={"flash_attention": FLASH_KERNELS})
+
+
 def ptxas_entries(lib):
     """Each kernel of ``csrc/<lib>.cu``: registers, stack, spills and
     static shared memory as ``ptxas -v`` reported them at the build."""
@@ -1798,14 +2060,19 @@ def main():
             free_memory()
         mamba = check_mamba2()
         free_memory()
+        whisper = check_whisper()
+        free_memory()
         check_blocked_prefill()
         free_memory()
     check_simulator()
 
     kernels = []
-    # the main paths' runs: each paged model's, and mamba2-130m's
+    # the main paths' runs: each paged model's, mamba2-130m's and
+    # whisper-base's
     by_path = {name: {arch: n[name] for arch, n in served.items()}
                for name in ("paged_attention", "flash_attention")}
+    by_path["flash_attention"][WHISPER_ARCH] = \
+        whisper["launches"]["flash_attention"]
     by_path["ssd_scan"] = {"mamba2-130m": mamba["launches"]["ssd_scan"]}
     launches = {name: sum(n.values()) for name, n in by_path.items()}
     for name, rec, src, replaces in (

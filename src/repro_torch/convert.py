@@ -10,12 +10,16 @@ weights (among them the Mamba2 ``in_proj``/``out_proj`` and the MoE
 experts' ``up``/``gate``/``down``) and an untied
 embedding table to the compute dtype here is exact, because every reader
 in the reference casts them so before use; so do the qkv and MLP
-biases and a learned position table (``pos``), which the reference casts
-to the activations' dtype before the add.  The leaves the reference
-reads in fp32 (norm scales, qk-norm's among them, the MoE router, the
-Mamba2 mixer's
-``A_log``, ``D``, ``dt_bias``, ``norm_scale``, ``conv_w``, ``conv_b``, a
-tied or fp32-logit table) stay fp32.
+biases and the learned position tables (``pos``; an encoder-decoder
+model's ``enc_pos`` and ``dec_pos``), which the reference casts to the
+activations' dtype before the add.  The leaves the reference reads in
+fp32 (norm scales, qk-norm's and the encoder-decoder's ``ln_x`` and
+``enc_norm`` among them, the MoE router, the Mamba2 mixer's ``A_log``,
+``D``, ``dt_bias``, ``norm_scale``, ``conv_w``, ``conv_b``, a tied or
+fp32-logit table, and an encoder-decoder model's embedding table, which
+is its unembedding too) stay fp32.  An encoder-decoder tree
+(``enc_layers``; ``dec_layers`` with ``ln_x`` and ``xattn``) goes
+across as any other: the rule is the leaf's path.
 """
 from __future__ import annotations
 

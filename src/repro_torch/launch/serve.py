@@ -5,10 +5,13 @@
 The dense, MoE and VLM archs of the port's registry (llama2-7b,
 opt-13b, qwen3-14b, qwen2-0.5b, internlm2-1.8b, stablelm-3b,
 granite-moe-1b-a400m, granite-moe-3b-a800m, chameleon-34b) run the
-paged path, SSM models (mamba2-130m) the slot path; the hybrid and
-audio archs are not ported and raise.  ``--attn pallas`` takes the
-paged kernel in the decode; the prefill attention is the reference's
-default, ``auto``.  On the card
+paged path; SSM models (mamba2-130m) and the encoder-decoder
+whisper-base (its encoder over the engine's random frame embeddings,
+1500 frames) the slot path; the hybrid arch (zamba2-2.7b) is not
+ported and raises.  ``--attn pallas`` takes the paged kernel in the
+decode (the slot path decodes with the plain attention, as the
+reference does); the prefill attention is the reference's default,
+``auto``.  On the card
 the engine runs its steps as CUDA graphs, as the reference runs them as
 ``jax.jit`` programs (``serving.graphs``); on the CPU it runs them
 eagerly.  Examples:
@@ -21,6 +24,7 @@ eagerly.  Examples:
       --smoke --device cpu
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch granite-moe-3b-a800m --attn pallas
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base
 
 Weights are random, from ``--seed`` (``init_params``).  Prints the
 summary of ``Results`` and the number of engine iterations as JSON.

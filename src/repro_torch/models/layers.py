@@ -115,6 +115,19 @@ def apply_rope(x, positions, theta: float):
     return out.to(x.dtype)
 
 
+def sinusoidal_positions(max_len: int, d_model: int, device=None):
+    """(max_len, d_model) fp32 table: sines of every position at the
+    frequencies 10000^(-2i/d) in the first half, cosines in the second
+    (reference layers.py:103-108).  No config of the repo reads it, and
+    ``model_zoo.build`` refuses ``pos_emb="sinusoidal"``."""
+    pos = torch.arange(max_len, dtype=torch.float32, device=device)[:, None]
+    dim = torch.arange(d_model // 2, dtype=torch.float32,
+                       device=device)[None, :]
+    angle = pos / torch.pow(torch.tensor(10000.0, device=device),
+                            2 * dim / d_model)
+    return torch.cat([torch.sin(angle), torch.cos(angle)], dim=-1)
+
+
 # ---------------------------------------------------------------------------
 # MLPs
 # ---------------------------------------------------------------------------

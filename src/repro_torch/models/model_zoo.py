@@ -1,7 +1,10 @@
-"""Model zoo, dense, MoE, VLM and SSM families: the port of
-``repro.models.model_zoo``.  VLM (chameleon) runs the dense code, as in
-the reference, its images being tokens of the same vocabulary; MoE
-(granite) runs it with ``models.moe`` in place of the MLP.
+"""Model zoo, dense, MoE, VLM, SSM and encoder-decoder families: the port
+of ``repro.models.model_zoo``.  VLM (chameleon) runs the dense code, as
+in the reference, its images being tokens of the same vocabulary; MoE
+(granite) runs it with ``models.moe`` in place of the MLP.  AUDIO and
+ENCDEC (whisper) run an encoder of non-causal blocks over precomputed
+frame embeddings (``batch["embeds"]``, the reference's frontend stub)
+and a decoder whose blocks add cross-attention to the encoder output.
 
 ``Model`` is a frozen bundle of (ArchConfig, PadPlan, RunSettings), as in
 the reference.  Parameters are a dict tree with the reference's keys and
@@ -15,10 +18,13 @@ compute dtype, because every reader casts them to it first; norm scales
 ``dt_bias``, ``norm_scale``, ``conv_w`` and ``conv_b``, and the
 unembedding table when ``logits_fp32``, in fp32, because their readers
 compute in fp32.  A tied embedding table is therefore fp32 and its rows
-are cast at the lookup.  A learned position table (``pos``) is in the
-compute dtype, because the reference casts it to the activations' dtype
-before the add.  At llama2-7b that is about 13 GB of bf16 weights plus a 0.5 GB fp32
-unembedding table.
+are cast at the lookup; so is an encoder-decoder model's, which has no
+``unembed`` and is always its own unembedding (the reference's
+``_lm_head`` reads ``params.get("unembed", params["embed"])``).  Learned
+position tables (``pos``; ``enc_pos`` and ``dec_pos``) are in the
+compute dtype, because the reference casts them to the activations'
+dtype before the add.  At llama2-7b that is about 13 GB of bf16 weights
+plus a 0.5 GB fp32 unembedding table.
 
 Entry points
 ------------
@@ -26,7 +32,10 @@ Entry points
 * ``forward(model, params, batch)``   — full-seq logits.
 * ``init_cache / prefill / decode_step`` — decode cache, updated in
   place: dense ``{k,v: (L,B,Smax,Hkv,hd), len: (B,)}``; SSM
-  ``{conv: (L,B,W-1,C), ssd: (L,B,H,N,P) fp32, len: (B,)}``.
+  ``{conv: (L,B,W-1,C), ssd: (L,B,H,N,P) fp32, len: (B,)}``;
+  encoder-decoder ``{k,v: (Ld,B,Smax,Hkv,hd), xk,xv: (Ld,B,Senc,Hkv,hd),
+  len: (B,)}``, the cross-attention's K/V written whole by ``prefill``
+  and read-only in ``decode_step``.
 """
 from __future__ import annotations
 
@@ -51,8 +60,10 @@ from repro_torch.models.layers import (apply_rope, dense_apply, dense_init,
                                        unembed_apply)
 from repro_torch.models.moe import moe_apply, moe_init
 
-#: families this slice ports; the others raise
-PORTED_FAMILIES = (DENSE, MOE, VLM, SSM)
+#: encoder-decoder families (whisper), with ``enc_layers``/``dec_layers``
+ENCDEC_FAMILIES = (AUDIO, ENCDEC)
+#: families the port builds; the others (HYBRID) raise
+PORTED_FAMILIES = (DENSE, MOE, VLM, SSM) + ENCDEC_FAMILIES
 #: position encodings the port builds
 POS_EMBS = ("rope", "learned", "none")
 #: learned position tables are capped (reference model_zoo.py:48)
@@ -97,7 +108,8 @@ def param_dtype(model: Model, path: Tuple[str, ...]) -> torch.dtype:
     if path[-2:] == ("unembed", "table") and fp32_logits:
         return torch.float32
     if path[-2:] == ("embed", "table") and fp32_logits \
-            and model.cfg.tie_embeddings:
+            and (model.cfg.tie_embeddings
+                 or model.cfg.family in ENCDEC_FAMILIES):
         return torch.float32
     if path[-1] in ("scale", "bias"):
         return torch.float32
@@ -167,14 +179,20 @@ def _attn_out(p, ctx, model: Model):
     return dense_apply(p["wo"], ctx, model.compute_dtype)
 
 
-def _attn_full(p, x, model: Model, positions, *, causal: bool):
-    """Full-sequence attention. Returns (out, (k, v))."""
+def _attn_full(p, x, model: Model, positions, *, causal: bool, kv_x=None,
+               logit_softcap=None):
+    """Full-sequence attention, K/V projected from ``kv_x`` where given
+    (cross-attention to the encoder output, ``positions`` None), else
+    from ``x``.  ``logit_softcap`` None means the config's.  Returns
+    (out, (k, v))."""
     q = _q_proj(p, x, model, positions)
-    k, v = _kv_proj(p, x, model, positions)
+    k, v = _kv_proj(p, x if kv_x is None else kv_x, model, positions)
     st = model.settings
+    if logit_softcap is None:
+        logit_softcap = model.cfg.attn_logit_softcap
     ctx = attend(q, k, v, causal=causal, impl=st.resolve_attn(q.shape[1]),
                  block_q=st.attn_block_q, block_kv=st.attn_block_kv,
-                 logit_softcap=model.cfg.attn_logit_softcap)
+                 logit_softcap=logit_softcap)
     return _attn_out(p, ctx, model), (k, v)
 
 
@@ -190,13 +208,24 @@ def _ffn_apply(p, x, model: Model):
     return mlp_apply(p["mlp"], x, cfg.act, model.compute_dtype), None
 
 
-def _block_apply(p, x, model: Model, positions):
-    """Pre-norm causal transformer block (full-seq). Returns
-    (x, (k, v), aux)."""
+def _block_apply(p, x, model: Model, positions, *, causal=True, enc_out=None,
+                 cross_softcap=None):
+    """Pre-norm transformer block (full-seq): self-attention, then, in a
+    decoder block of an encoder-decoder model (``xattn``), non-causal
+    cross-attention to ``enc_out`` with logit softcap ``cross_softcap``
+    (None: the config's), then the MLP or MoE.  Returns (x, kv, aux): kv
+    is the self-attention's (k, v), followed by the cross-attention's
+    (xk, xv) in a decoder block."""
     cfg = model.cfg
     h = norm_apply(p["ln1"], x, cfg.norm)
-    attn, kv = _attn_full(p["attn"], h, model, positions, causal=True)
+    attn, kv = _attn_full(p["attn"], h, model, positions, causal=causal)
     x = x + attn
+    if "xattn" in p:
+        h = norm_apply(p["ln_x"], x, cfg.norm)
+        attn, xkv = _attn_full(p["xattn"], h, model, None, causal=False,
+                               kv_x=enc_out, logit_softcap=cross_softcap)
+        x = x + attn
+        kv = kv + xkv
     h = norm_apply(p["ln2"], x, cfg.norm)
     y, aux = _ffn_apply(p, h, model)
     return x + y, kv, aux
@@ -207,30 +236,30 @@ def _block_apply(p, x, model: Model, positions):
 # ---------------------------------------------------------------------------
 def init_params(model: Model, seed: int = 0, device=None) -> Dict[str, Any]:
     """Random parameters with the reference's shapes and scales
-    (model_zoo.py:266-293), drawn from a ``torch.Generator`` on
+    (model_zoo.py:266-323), drawn from a ``torch.Generator`` on
     ``device`` (not the reference's random stream).  ``device=None``
     means the CUDA card."""
     device = resolve_device(device)
     cfg, plan = model.cfg, model.plan
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
-    d, hd, L = cfg.d_model, cfg.head_dim, cfg.num_layers
+    d, hd = cfg.d_model, cfg.head_dim
     nq, nkv = plan.n_q, plan.n_kv // plan.kv_rep
     cd = model.compute_dtype
     kw = dict(generator=gen, device=device)
 
-    def stacked(make):
-        """Stack L per-layer trees, drawn one layer at a time into
-        preallocated (L, ...) tensors (peak: the stack plus one layer)."""
+    def stacked(make, n=cfg.num_layers):
+        """Stack n per-layer trees, drawn one layer at a time into
+        preallocated (n, ...) tensors (peak: the stack plus one layer)."""
         first = make()
-        out = _tree_map(lambda a: torch.empty((L,) + a.shape, dtype=a.dtype,
+        out = _tree_map(lambda a: torch.empty((n,) + a.shape, dtype=a.dtype,
                                               device=a.device), first)
-        for i in range(L):
+        for i in range(n):
             tree = first if i == 0 else make()
             _tree_map(lambda dst, src: dst[i].copy_(src), out, tree)
         return out
 
-    def block():
+    def attention(cross=False):
         dense = dict(dtype=cd, bias=cfg.qkv_bias, **kw)
         attn = {
             "wq": dense_init(d, nq * hd, **dense),
@@ -239,12 +268,18 @@ def init_params(model: Model, seed: int = 0, device=None) -> Dict[str, Any]:
             "wo": dense_init(nq * hd, d, dtype=cd, scale=(nq * hd) ** -0.5,
                              **kw),
         }
-        if cfg.qk_norm:
+        if cfg.qk_norm and not cross:
             attn["q_norm"] = norm_init(hd, "rmsnorm", device=device)
             attn["k_norm"] = norm_init(hd, "rmsnorm", device=device)
+        return attn
+
+    def block(cross=False):
         p = {"ln1": norm_init(d, cfg.norm, device=device),
-             "attn": attn,
+             "attn": attention(),
              "ln2": norm_init(d, cfg.norm, device=device)}
+        if cross:
+            p["ln_x"] = norm_init(d, cfg.norm, device=device)
+            p["xattn"] = attention(cross=True)
         if cfg.family == MOE:
             p["moe"] = moe_init(d, plan.n_experts, cfg.moe.d_expert,
                                 cfg.act, dtype=cd, **kw)
@@ -259,19 +294,32 @@ def init_params(model: Model, seed: int = 0, device=None) -> Dict[str, Any]:
                                              n_heads_phys=plan.ssm_heads,
                                              **kw)}
 
+    def positions(name, n):
+        return normal((n, d), 0.02, dtype=param_dtype(model, (name,)), **kw)
+
     params: Dict[str, Any] = {
         "embed": embed_init(plan.vocab, d, dtype=param_dtype(
-            model, ("embed", "table")), **kw),
-        "layers": stacked(ssm_layer if cfg.family == SSM else block),
-        "final_norm": norm_init(d, cfg.norm, device=device),
-    }
+            model, ("embed", "table")), **kw)}
+    if cfg.family in ENCDEC_FAMILIES:
+        # no unembedding: the embedding table is the decoder's output
+        # table, whatever tie_embeddings says (reference model_zoo.py:418)
+        params.update(
+            enc_pos=positions("enc_pos", cfg.enc_seq_len),
+            dec_pos=positions("dec_pos", min(cfg.max_seq_len,
+                                             LEARNED_POS_CAP)),
+            enc_layers=stacked(block, cfg.n_enc_layers),
+            dec_layers=stacked(lambda: block(cross=True), cfg.n_dec_layers),
+            enc_norm=norm_init(d, cfg.norm, device=device),
+            final_norm=norm_init(d, cfg.norm, device=device))
+        return params
+    params["layers"] = stacked(ssm_layer if cfg.family == SSM else block)
+    params["final_norm"] = norm_init(d, cfg.norm, device=device)
     if not cfg.tie_embeddings:
         params["unembed"] = embed_init(plan.vocab, d, dtype=param_dtype(
             model, ("unembed", "table")), **kw)
     if cfg.pos_emb == "learned":
-        n_pos = min(cfg.max_seq_len, LEARNED_POS_CAP)
-        params["pos"] = normal((n_pos, d), 0.02, dtype=param_dtype(
-            model, ("pos",)), **kw)
+        params["pos"] = positions("pos", min(cfg.max_seq_len,
+                                             LEARNED_POS_CAP))
     return params
 
 
@@ -297,16 +345,25 @@ def _embed_tokens(model: Model, params, tokens):
     return embed_apply(params["embed"], tokens, model.compute_dtype)
 
 
-def _add_positions(model: Model, params, x, lens=None):
-    """``x`` plus its learned position rows, where the model has them:
-    rows 0..S-1 for a full sequence (``lens`` None), else row ``lens[b]``
-    for the one token of each row b (x: (B,1,d)).  A decode index past
-    the table's end reads its last row, as the reference's gather does
-    (JAX clamps the index); the clamp reads ``lens`` on the device, so a
-    CUDA graph replays it."""
-    if model.cfg.pos_emb != "learned":
+def _position_table(model: Model, params):
+    """The learned position table the decoder tokens read: ``dec_pos`` of
+    an encoder-decoder model, which the reference adds whatever
+    ``pos_emb`` says, ``pos`` of a model with learned positions; None
+    for the others."""
+    if model.cfg.family in ENCDEC_FAMILIES:
+        return params["dec_pos"]
+    return params["pos"] if model.cfg.pos_emb == "learned" else None
+
+
+def _add_positions(table, x, lens=None):
+    """``x`` plus its rows of the learned position ``table`` (None: ``x``
+    as it is): rows 0..S-1 for a full sequence (``lens`` None), else row
+    ``lens[b]`` for the one token of each row b (x: (B,1,d)).  A decode
+    index past the table's end reads its last row, as the reference's
+    gather does (JAX clamps the index); the clamp reads ``lens`` on the
+    device, so a CUDA graph replays it."""
+    if table is None:
         return x
-    table = params["pos"]
     if lens is None:
         return x + table[:x.shape[1]][None].to(x.dtype)
     idx = lens.clamp(max=table.shape[0] - 1).long()
@@ -320,17 +377,43 @@ def _lm_head(model: Model, params, x):
                          fp32=model.settings.logits_fp32)
 
 
-def _run_blocks(model: Model, params, tokens, on_kv=None):
-    """Embed, run every block, and hand each layer's (k, v) to on_kv.
+def _encode(model: Model, params, embeds):
+    """The encoder over precomputed frame embeddings (B, Senc, d), the
+    reference's frontend stub: cast to the compute dtype, plus
+    ``enc_pos``, non-causal blocks, ``enc_norm``."""
+    cfg = model.cfg
+    s = embeds.shape[1]
+    x = embeds.to(model.compute_dtype)
+    x = _add_positions(params["enc_pos"], x)
+    positions = torch.arange(s, device=x.device)
+    for i in range(cfg.n_enc_layers):
+        x, _, _ = _block_apply(layer(params["enc_layers"], i), x, model,
+                               positions, causal=False)
+    return norm_apply(params["enc_norm"], x, cfg.norm)
+
+
+def _run_blocks(model: Model, params, batch, on_kv=None, cross_softcap=None):
+    """Embed ``batch["tokens"]``, run every (decoder) block, and hand each
+    layer's kv (``_block_apply``'s) to on_kv.  An encoder-decoder model
+    first encodes ``batch["embeds"]``, which its decoder blocks attend
+    to with logit softcap ``cross_softcap`` (None: the config's).
     Returns (x, aux): the MoE's aux values summed over layers, as the
     reference's ``_collect_aux`` sums them; empty for an MLP."""
-    s = tokens.shape[1]
-    positions = torch.arange(s, device=tokens.device)
-    x = _add_positions(model, params, _embed_tokens(model, params, tokens))
+    cfg = model.cfg
+    tokens = batch["tokens"]
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    enc_out = None
+    layers, n_layers = params.get("layers"), cfg.num_layers
+    if cfg.family in ENCDEC_FAMILIES:
+        enc_out = _encode(model, params, batch["embeds"])
+        layers, n_layers = params["dec_layers"], cfg.n_dec_layers
+    x = _add_positions(_position_table(model, params),
+                       _embed_tokens(model, params, tokens))
     total: Dict[str, torch.Tensor] = {}
-    for i in range(model.cfg.num_layers):
-        x, kv, aux = _block_apply(layer(params["layers"], i), x, model,
-                                  positions)
+    for i in range(n_layers):
+        x, kv, aux = _block_apply(layer(layers, i), x, model, positions,
+                                  enc_out=enc_out,
+                                  cross_softcap=cross_softcap)
         for k, v in (aux or {}).items():
             total[k] = total[k] + v if k in total else v
         if on_kv is not None:
@@ -339,13 +422,14 @@ def _run_blocks(model: Model, params, tokens, on_kv=None):
 
 
 def forward(model: Model, params, batch) -> Tuple[torch.Tensor, Dict]:
-    """Full-sequence logits.  batch: {"tokens": (B,S)}.
+    """Full-sequence logits.  batch: {"tokens": (B,S)}, and for an
+    encoder-decoder model "embeds" (B,Senc,d), the encoder's input.
 
     Returns (logits (B,S,V_phys), aux dict with the MoE losses if any)."""
     if model.cfg.family == SSM:
         x, aux = _run_ssm_blocks(model, params, batch["tokens"]), {}
     else:
-        x, aux = _run_blocks(model, params, batch["tokens"])
+        x, aux = _run_blocks(model, params, batch)
     return _lm_head(model, params, x), aux
 
 
@@ -388,17 +472,27 @@ def init_cache(model: Model, batch: int, max_len: int, device=None):
                     (cfg.num_layers, batch, plan.ssm_heads, s.d_state,
                      s.head_dim), dtype=torch.float32, device=device),
                 "len": lens}
-    kv = (cfg.num_layers, batch, max_len, plan.n_kv, cfg.head_dim)
+    n_layers = cfg.num_layers
+    cache = {}
+    if cfg.family in ENCDEC_FAMILIES:
+        n_layers = cfg.n_dec_layers
+        xkv = (n_layers, batch, cfg.enc_seq_len, plan.n_kv, cfg.head_dim)
+        cache = {key: torch.zeros(xkv, dtype=model.compute_dtype,
+                                  device=device) for key in ("xk", "xv")}
+    kv = (n_layers, batch, max_len, plan.n_kv, cfg.head_dim)
     return {"k": torch.zeros(kv, dtype=model.compute_dtype, device=device),
             "v": torch.zeros(kv, dtype=model.compute_dtype, device=device),
-            "len": lens}
+            **cache, "len": lens}
 
 
 def prefill(model: Model, params, batch, cache, prompt_lens=None):
     """Full-prompt forward that also fills the decode cache in place.
 
-    batch: {"tokens": (B,S)}.  ``prompt_lens`` (B,) defaults to S for
-    every row.  Returns (logits (B,S,V), cache)."""
+    batch: {"tokens": (B,S)} (and "embeds" for an encoder-decoder model,
+    whose cross-attention K/V are written whole and, as in the reference
+    (model_zoo.py:693-695), computed without the logit softcap).
+    ``prompt_lens`` (B,) defaults to S for every row.  Returns (logits
+    (B,S,V), cache)."""
     tokens = batch["tokens"]
     b, s = tokens.shape
     if prompt_lens is None:
@@ -417,8 +511,11 @@ def prefill(model: Model, params, batch, cache, prompt_lens=None):
     def write(i, kv):
         cache["k"][i, :, :s] = kv[0]
         cache["v"][i, :, :s] = kv[1]
+        if len(kv) == 4:
+            cache["xk"][i] = kv[2]
+            cache["xv"][i] = kv[3]
 
-    x, _ = _run_blocks(model, params, tokens, on_kv=write)
+    x, _ = _run_blocks(model, params, batch, on_kv=write, cross_softcap=0.0)
     cache["len"].copy_(prompt_lens)
     return _lm_head(model, params, x), cache
 
@@ -426,40 +523,75 @@ def prefill(model: Model, params, batch, cache, prompt_lens=None):
 # ---------------------------------------------------------------------------
 # Decode step
 # ---------------------------------------------------------------------------
-def _attn_decode(p, x_t, model: Model, k_cache, v_cache, cache_len):
-    """One-token self-attention against a contiguous cache, written in
-    place at ``cache_len``.  x_t: (B,1,d). Returns out (B,1,d)."""
+def _write_rows(cache, lens, new):
+    """``cache[b, lens[b]] = new[b]`` for every row b, in place; a row
+    whose index is past the cache's end writes nothing, as the reference's
+    ``.at[].set`` drops it (an empty slot's length keeps advancing)."""
+    n = cache.shape[1]
+    bidx = torch.arange(cache.shape[0], device=cache.device)
+    idx = lens.long().clamp(max=n - 1)
+    keep = (lens < n)[:, None, None]
+    cache[bidx, idx] = torch.where(keep, new.to(cache.dtype),
+                                   cache[bidx, idx])
+
+
+def _attn_decode(p, x_t, model: Model, k_cache, v_cache, cache_len, *,
+                 cross: bool = False):
+    """One-token attention against a contiguous cache.  Self-attention
+    writes the new token's K/V at ``cache_len`` first; cross-attention
+    reads the cache only, every one of its positions valid.  x_t:
+    (B,1,d). Returns out (B,1,d)."""
     bsz = x_t.shape[0]
     positions = cache_len[:, None].long()
     q = _q_proj(p, x_t, model, positions)
-    k_t, v_t = _kv_proj(p, x_t, model, positions)
-    bidx = torch.arange(bsz, device=x_t.device)
-    k_cache[bidx, cache_len.long()] = k_t[:, 0].to(k_cache.dtype)
-    v_cache[bidx, cache_len.long()] = v_t[:, 0].to(v_cache.dtype)
-    ctx = decode_attention(q, k_cache, v_cache, cache_len + 1,
+    if cross:
+        valid_len = torch.full((bsz,), k_cache.shape[1], dtype=torch.int32,
+                               device=x_t.device)
+    else:
+        k_t, v_t = _kv_proj(p, x_t, model, positions)
+        _write_rows(k_cache, cache_len, k_t[:, 0])
+        _write_rows(v_cache, cache_len, v_t[:, 0])
+        valid_len = cache_len + 1
+    ctx = decode_attention(q, k_cache, v_cache, valid_len,
                            logit_softcap=model.cfg.attn_logit_softcap)
     return _attn_out(p, ctx, model)
+
+
+def _block_decode(p, x_t, model: Model, k, v, cache_len, *, xk=None,
+                  xv=None):
+    """Pre-norm block, one token: self-attention on (k, v), written in
+    place; in a decoder block, cross-attention on (xk, xv)."""
+    cfg = model.cfg
+    h = norm_apply(p["ln1"], x_t, cfg.norm)
+    x_t = x_t + _attn_decode(p["attn"], h, model, k, v, cache_len)
+    if "xattn" in p:
+        h = norm_apply(p["ln_x"], x_t, cfg.norm)
+        x_t = x_t + _attn_decode(p["xattn"], h, model, xk, xv, cache_len,
+                                 cross=True)
+    h = norm_apply(p["ln2"], x_t, cfg.norm)
+    return x_t + _ffn_apply(p, h, model)[0]
 
 
 def decode_step(model: Model, params, cache, tokens):
     """One autoregressive step.  tokens: (B,) int (the current token).
 
-    Returns (logits (B,V_phys), cache with the new token's K/V (dense)
-    or states (SSM) written in place and ``len`` advanced)."""
+    Returns (logits (B,V_phys), cache with the new token's K/V (dense,
+    encoder-decoder) or states (SSM) written in place and ``len``
+    advanced)."""
     cfg = model.cfg
     if cfg.family == SSM:
         return _ssm_decode_step(model, params, cache, tokens)
     cache_len = cache["len"]
-    x = _add_positions(model, params,
+    x = _add_positions(_position_table(model, params),
                        _embed_tokens(model, params, tokens[:, None]),
                        cache_len)
-    for i in range(cfg.num_layers):
-        lp = layer(params["layers"], i)
-        h = norm_apply(lp["ln1"], x, cfg.norm)
-        x = x + _attn_decode(lp["attn"], h, model, cache["k"][i],
-                             cache["v"][i], cache_len)
-        h = norm_apply(lp["ln2"], x, cfg.norm)
-        x = x + _ffn_apply(lp, h, model)[0]
+    encdec = cfg.family in ENCDEC_FAMILIES
+    layers = params["dec_layers"] if encdec else params["layers"]
+    for i in range(cfg.n_dec_layers if encdec else cfg.num_layers):
+        cross = {"xk": cache["xk"][i], "xv": cache["xv"][i]} if encdec \
+            else {}
+        x = _block_decode(layer(layers, i), x, model, cache["k"][i],
+                          cache["v"][i], cache_len, **cross)
     cache_len.add_(1)
     return _lm_head(model, params, x)[:, 0], cache
 

@@ -10,16 +10,19 @@ traces are exact, and its iteration walls calibrate the simulator's
 (``repro_torch.core``); tests/test_torch_engine.py holds it to the
 reference engine's greedy tokens and iteration records, one by one.
 
-Attention families run the paged path.  SSM models run the slot path:
-one contiguous cache of ``max_batch`` rows (``model_zoo.init_cache``), a
-row ("slot") held by each running request, taken on admission and given
-back on preemption and on finish.  A prefill runs ``model_zoo.prefill``
-on the prompt padded to its power-of-two bucket with no mask, as the
-reference does, so the states written to the slot have absorbed the
-padding's zero tokens; only the first token is read at the last real
-position.  A decode step runs every slot, empty ones included.  The
-slot path of hybrid and encoder-decoder models is not ported and raises
-``NotImplementedError``.
+Attention families run the paged path.  SSM and encoder-decoder models
+run the slot path: one contiguous cache of ``max_batch`` rows
+(``model_zoo.init_cache``), a row ("slot") held by each running request,
+taken on admission and given back on preemption and on finish.  A
+prefill runs ``model_zoo.prefill`` on the prompt padded to its
+power-of-two bucket with no mask, as the reference does, so the states
+written to the slot have absorbed the padding's zero tokens; only the
+first token is read at the last real position.  An encoder-decoder
+prefill also encodes the request's frame embeddings (``_enc_embeds``,
+the reference's stand-in for an audio frontend, drawn from the request
+id) and writes the cross-attention K/V whole into the slot.  A decode
+step runs every slot, empty ones included.  The slot path of hybrid
+models is not ported and raises ``NotImplementedError``.
 
 ``device=None`` means the CUDA card; without one the engine raises.
 Each iteration wall ends with a device synchronisation.
@@ -27,7 +30,8 @@ Each iteration wall ends with a device synchronisation.
 On the card the engine runs its steps as CUDA graphs (``serving.graphs``),
 as the reference runs them as ``jax.jit`` programs: the decode step, of
 fixed shape (``max_batch`` rows, full-width tables), and the prefill
-forward of each power-of-two bucket, each captured at its first use.
+forward of each power-of-two bucket (an encoder-decoder model's encoder
+included), each captured at its first use.
 ``graphs=False`` runs the same steps eagerly; the CPU always does, and
 ``graphs=True`` on the CPU raises.  What depends on a request's real
 length stays eager, outside the graphs: picking the last real row of the
@@ -66,7 +70,7 @@ from repro_torch.serving.sampling import sample_token
 
 
 #: families served on the slot path
-SLOT_FAMILIES = (SSM,)
+SLOT_FAMILIES = (SSM,) + zoo.ENCDEC_FAMILIES
 
 
 @dataclass
@@ -150,8 +154,9 @@ class ServingEngine:
             self.slot_len = np.zeros((ec.max_batch,), np.int32)
 
         # static inputs: the decode step's tokens, the prefill's tokens
-        # (a bucket takes the first columns) and (paged) the prefill's
-        # table row, each with a host buffer it is filled from
+        # (a bucket takes the first columns), (paged) the prefill's table
+        # row and (encoder-decoder) the prefill's frame embeddings, each
+        # with a host buffer it is filled from
         def static(shape, dtype):
             return torch.zeros(shape, dtype=dtype, device=self.device)
 
@@ -169,6 +174,12 @@ class ServingEngine:
         self._tokens = static((bsz,), torch.int64)
         self._table_row = static((mp,), torch.int64)
         self._prompt = static((1, self.max_ctx), torch.int64)
+        self._embeds = None
+        if model.cfg.family in zoo.ENCDEC_FAMILIES:
+            frames = (1, model.cfg.enc_seq_len, model.cfg.d_model)
+            self._host["embeds"] = torch.zeros(frames, dtype=torch.float32,
+                                               pin_memory=pin)
+            self._embeds = static(frames, torch.float32)
 
         self.tokens_by_req: Dict[int, List[int]] = {}
         self.prompt_tokens: Dict[int, np.ndarray] = {}
@@ -330,21 +341,34 @@ class ServingEngine:
                 paged_model.scatter_prefill(self.model, self.pages, k, v,
                                             self._table_row, plen)
             else:
-                logits, conv, ssd = self._step(
+                if self._embeds is not None:
+                    self._host["embeds"].numpy()[0] = self._enc_embeds(req)
+                    self._upload(self._embeds, self._host["embeds"])
+                logits, cache1 = self._step(
                     ("prefill", spad), lambda: self._prefill_slot(toks))
-                self._write_slot(self.slot_of[req.id],
-                                 {"conv": conv, "ssd": ssd})
+                self._write_slot(self.slot_of[req.id], cache1)
             self.tokens_by_req[req.id].append(
                 self._sample(logits[0, plen - 1]))
             self._slot_write_len(req, plen)
 
     def _prefill_slot(self, toks):
-        """The slot path's prefill forward on the bucket's static tokens:
-        logits (1,S,V) and the single-request cache's states."""
+        """The slot path's prefill forward on the bucket's static tokens
+        (and frame embeddings): logits (1,S,V) and the single-request
+        cache but its ``len`` (``conv``/``ssd``; ``k``/``v``/``xk``/
+        ``xv``)."""
         cache1 = zoo.init_cache(self.model, 1, self.max_ctx, self.device)
-        logits, cache1 = zoo.prefill(self.model, self.params,
-                                     {"tokens": toks}, cache1)
-        return logits, cache1["conv"], cache1["ssd"]
+        batch = {"tokens": toks}
+        if self._embeds is not None:
+            batch["embeds"] = self._embeds
+        logits, cache1 = zoo.prefill(self.model, self.params, batch, cache1)
+        return logits, {k: v for k, v in cache1.items() if k != "len"}
+
+    def _enc_embeds(self, req: Request) -> np.ndarray:
+        """The request's frame embeddings (enc_seq_len, d_model), fp32:
+        the reference's draw (engine.py:266-270), bit for bit."""
+        rng = np.random.RandomState((req.id + 7919) % (2 ** 31))
+        return rng.randn(self.model.cfg.enc_seq_len,
+                         self.model.cfg.d_model).astype(np.float32)
 
     def _write_slot(self, slot: int, cache1) -> None:
         """Copy a single-request cache into row ``slot`` of every cache

@@ -149,7 +149,7 @@ def paged_decode_step(model: zoo.Model, params, pages, tokens,
     cfg = model.cfg
     lens = pages["len"]
     tables = pages["tables"]
-    x = zoo._add_positions(model, params,
+    x = zoo._add_positions(zoo._position_table(model, params),
                            zoo._embed_tokens(model, params, tokens[:, None]),
                            lens)
     for i in range(cfg.num_layers):

@@ -25,10 +25,13 @@ enough that nothing is preempted (a recompute would prefill past the
 table, which the reference's ``pos[:S]`` does not take).  The decode
 reads the table's last row there, as the reference's gather does.
 
-The slot path (mamba2-130m smoke model, fp32) is held to the same
-standard: greedy tokens and iteration records exactly, with preemption
-forced and prompts whose buckets reach both SSD branches, and the slot
-caches (``conv``, ``ssd``) after the run to 1e-5.
+The slot path (mamba2-130m smoke model, fp32; whisper-base's smoke
+model as AUDIO and as ENCDEC) is held to the same standard: greedy
+tokens and iteration records exactly, with preemption forced and
+prompts whose buckets reach both SSD branches, and the slot caches
+(``conv``, ``ssd``; ``k``, ``v``, ``xk``, ``xv``) after the run to
+1e-5.  Each whisper prefill encodes the request's frame embeddings,
+which the port's engine draws as the reference's does, bit for bit.
 """
 import dataclasses
 
@@ -37,19 +40,15 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-import jax  # noqa: E402
-
-from repro.configs import get_smoke_config as jax_smoke  # noqa: E402
 from repro.core.request import Request as JaxRequest  # noqa: E402
-from repro.models import model_zoo as jzoo  # noqa: E402
 from repro.serving import engine as jeng  # noqa: E402
 from repro_torch.configs import get_smoke_config  # noqa: E402
-from repro_torch.convert import params_from_jax  # noqa: E402
 from repro_torch.core.request import Request  # noqa: E402
 from repro_torch.models import model_zoo as tzoo  # noqa: E402
 from repro_torch.serving import engine as teng  # noqa: E402
 from repro_torch.serving.sampling import sample_token  # noqa: E402
-from test_torch_model import arch_cases, model_pair  # noqa: E402
+from test_torch_model import (ENCDEC_ARCHS, arch_cases,  # noqa: E402
+                              case_pair, model_pair)
 
 PROMPTS = [5, 12, 20, 9, 30, 16]
 OUTPUTS = [8, 6, 10, 12, 5, 9]
@@ -165,15 +164,9 @@ SSM_ENGINE = dict(num_blocks=11, block_size=8, max_batch=3,
                   max_pages_per_seq=16)
 
 
-def test_slot_engine_matches_reference():
-    jcfg = dataclasses.replace(jax_smoke("mamba2-130m"), dtype="float32")
-    tcfg = dataclasses.replace(get_smoke_config("mamba2-130m"),
-                               dtype="float32")
-    jm = jzoo.build(jcfg)
-    params = jzoo.init_params(jm, jax.random.key(0))
-    tm = tzoo.build(tcfg)
-    tparams = params_from_jax(tm, jax.tree.map(np.asarray, params),
-                              device="cpu")
+@pytest.mark.parametrize("arch", ["mamba2-130m"] + ENCDEC_ARCHS)
+def test_slot_engine_matches_reference(arch):
+    jm, params, tm, tparams = case_pair(arch)
 
     def requests(cls):
         return [cls(id=i, arrival_time=0.01 * i, prompt_len=p, output_len=o)
@@ -202,12 +195,20 @@ def test_slot_engine_matches_reference():
         assert t.kind == j.kind
         assert t.batch_ids == j.batch_ids
         assert dataclasses.asdict(t.mix) == dataclasses.asdict(j.mix)
-    for key in ("conv", "ssd"):
+    assert set(te.cache) == set(je.cache)
+    for key in sorted(set(te.cache) - {"len"}):
         np.testing.assert_allclose(te.cache[key].numpy(),
                                    np.asarray(je.cache[key]),
                                    rtol=1e-5, atol=1e-5)
     assert te.cache["len"].tolist() == np.asarray(je.cache["len"]).tolist()
     assert sorted(te.free_slots) == list(range(SSM_ENGINE["max_batch"]))
+    if arch in ENCDEC_ARCHS:
+        assert set(te.cache) == {"k", "v", "xk", "xv", "len"}
+        for r in treqs:
+            want = np.asarray(je._enc_embeds(r))
+            got = te._enc_embeds(r)
+            assert got.dtype == want.dtype == np.float32
+            assert np.array_equal(got, want)
 
 
 def test_slot_path_refuses_unported_families():

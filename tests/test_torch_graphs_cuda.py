@@ -23,9 +23,14 @@ group 3, head_dim 64) on each MoE route, so the router's top-k, the
 expert products and (``sort``) the argsort and grouped GEMM run inside
 the prefill and decode graphs; mamba2-130m the slot path with
 buckets of 256 and 512, so the SSD scan's kernels run inside the prefill
-graphs.  ``test_stale_tables_are_caught`` plants a fault (the decode
-step's static block tables left unrefreshed before replay) and shows
-that the same comparison catches it.
+graphs; whisper-base at full width and depth (6 encoder and 6 decoder
+layers, 1500 frames) the slot path on the kernel route, so each prefill
+graph holds the encoder's non-causal flash launches and the decoder's
+causal and cross-attention ones, and the slot cache's cross-attention
+K/V (``xk``, ``xv``) must be identical too.
+``test_stale_tables_are_caught`` plants a fault (the decode step's
+static block tables left unrefreshed before replay) and shows that the
+same comparison catches it.
 """
 import dataclasses
 
@@ -214,6 +219,31 @@ def test_graphed_slot_engine_matches_eager(mamba):
     # whose bucket takes it
     assert graphed[2]["ssd_scan"] > 0
     assert graphed[2]["ssd_scan"] % LAYERS == 0
+    assert g.cache["len"].tolist() == g.slot_len.tolist()
+
+
+def test_graphed_whisper_engine_matches_eager(cuda):
+    cfg = get_config("whisper-base")
+    model = zoo.build(cfg, settings=RunSettings(attn_impl="pallas"))
+    params = zoo.init_params(model, seed=0, device=cuda)
+    ec = EngineConfig(**MAMBA_ENGINE)
+    eager = _serve(model, params, ec, MAMBA_PROMPTS, MAMBA_OUTPUTS, False)
+    graphed = _serve(model, params, ec, MAMBA_PROMPTS, MAMBA_OUTPUTS, None)
+    g = graphed[0]
+    assert sum(r.preempt_count for r in graphed[1]) > 0, \
+        "no preemption forced"
+    assert _differences(eager, graphed) == []
+    assert set(g.cache) == {"k", "v", "xk", "xv", "len"}
+    assert g.graphs.graphs[("decode",)].replays > 0
+    # flash once a layer in the encoder, twice a layer in the decoder,
+    # every prefill; nothing else launched
+    prefills = sum(len(r.batch_ids) for r in g.records
+                   if r.kind == "prefill")
+    per_prefill = cfg.n_enc_layers + 2 * cfg.n_dec_layers
+    assert graphed[2].get("flash_attention", 0) == per_prefill * prefills
+    assert graphed[2].get(("flash_attention", cfg.enc_seq_len), 0) == \
+        cfg.n_enc_layers * prefills
+    assert graphed[2].get("paged_attention", 0) == 0
     assert g.cache["len"].tolist() == g.slot_len.tolist()
 
 

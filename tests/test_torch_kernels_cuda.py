@@ -15,7 +15,10 @@ and softcap case runs in bf16.
 of each kernel's source (a mask or length off by one, the stage of the
 flash kernel's K/V ring, the end of a paged split, the paged merge's
 rescale) and shows that the limit catches it on long rows; ``-s``
-prints both readings.
+prints both readings.  ``test_relative_limit_catches_a_kv_tail_fault``
+plants one in the non-causal tail (the key at position Skv, a row past
+the end that TMA fills with zeros, joins the softmax) and shows that the
+limit catches it at whisper-base's Skv of 1500.
 
 The ``blocked``/``blocked_causal`` attention routes launch no kernel (they
 are plain PyTorch, as the reference's are plain JAX): they are held to
@@ -214,6 +217,14 @@ FLASH = [
     (1, 1024, 1024, 40, 8, 128, True, 0.0, torch.bfloat16),
     (1, 300, 300, 40, 8, 128, True, 0.0, torch.bfloat16),
     (1, 500, 500, 14, 2, 64, True, 0.0, torch.bfloat16),
+    # whisper-base (8/8, d 64): the encoder (non-causal, 11 full q tiles
+    # and 92 rows against as many kv tiles), the cross-attention of the
+    # shortest and longest buckets against the 1500 frames, and the
+    # decoder's causal self-attention
+    (1, 1500, 1500, 8, 8, 64, False, 0.0, torch.bfloat16),
+    (1, 8, 1500, 8, 8, 64, False, 0.0, torch.bfloat16),
+    (1, 512, 1500, 8, 8, 64, False, 0.0, torch.bfloat16),
+    (1, 512, 512, 8, 8, 64, True, 0.0, torch.bfloat16),
 ]
 
 
@@ -303,6 +314,51 @@ def test_relative_limit_catches_an_off_by_one(cuda, fault, tmp_path,
     planted = float(_row_rel_err(got, want)[rows].max())
     print(f"\n{fault}: long-row relative error, sound {sound:.3e}, "
           f"planted {planted:.3e}, limit {REL_TOL[torch.bfloat16]:.0e}")
+    assert sound <= REL_TOL[torch.bfloat16] < planted
+
+
+#: the non-causal tail: the key at position Skv joins the softmax
+KV_TAIL_FAULT = ("flash_attention", "kpos < skv && (!causal || qpos >= kpos)",
+                 "kpos <= skv && (!causal || qpos >= kpos)")
+#: whisper-base's encoder length, the cross-attention's Skv
+WHISPER_FRAMES = 1500
+
+
+def _kv_tail_case(sq, device):
+    """Flash at whisper-base's shapes (8 heads of 64, Skv 1500,
+    non-causal), q drawn around +1 and k around -1, so every real key
+    scores about -8 +- 1.7 and a zero-score key past the end would take
+    about a third of a row's weight.  With centred inputs it would take
+    about 1/2500 of it, which no bf16 limit can tell from rounding."""
+    rng = np.random.RandomState(5)
+    q = rng.randn(1, sq, 8, 64) + 1
+    k = rng.randn(1, WHISPER_FRAMES, 8, 64) - 1
+    v = rng.randn(1, WHISPER_FRAMES, 8, 64)
+    q, k, v = (torch.from_numpy(a.astype(np.float32)).to(device,
+                                                         torch.bfloat16)
+               for a in (q, k, v))
+    return (flash.flash_attention(q, k, v, causal=False),
+            _flash_plain(q, k, v, causal=False))
+
+
+@pytest.mark.parametrize("sq", [8, WHISPER_FRAMES])
+def test_relative_limit_catches_a_kv_tail_fault(cuda, sq, tmp_path,
+                                                monkeypatch):
+    """The sound kernel reads within the bf16 limit at the
+    cross-attention (Sq 8) and encoder (Sq 1500) shapes; a copy whose
+    KV mask admits ``kpos <= Skv`` reads past it."""
+    name, old, new = KV_TAIL_FAULT
+    sound = float(_row_rel_err(*_kv_tail_case(sq, cuda)).max())
+    src = (build.CSRC / f"{name}.cu").read_text()
+    assert src.count(old) == 1
+    (tmp_path / f"{name}.cu").write_text(src.replace(old, new))
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "lib")
+    monkeypatch.setattr(build, "_loaded", {})
+    planted = float(_row_rel_err(*_kv_tail_case(sq, cuda)).max())
+    print(f"\nflash-reads-past-the-kv-end at Sq {sq}, Skv {WHISPER_FRAMES}: "
+          f"relative error, sound {sound:.3e}, planted {planted:.3e}, "
+          f"limit {REL_TOL[torch.bfloat16]:.0e}")
     assert sound <= REL_TOL[torch.bfloat16] < planted
 
 

@@ -126,3 +126,13 @@ def test_embed_gathers_rows_then_casts():
         torch.from_numpy(ids)])
     np.testing.assert_array_equal(got.float().numpy(),
                                   np.asarray(want.astype(jnp.float32)))
+
+
+def test_sinusoidal_positions():
+    """The table no config reads (``build`` refuses ``sinusoidal``), at
+    an odd width, where the reference drops the last column."""
+    for max_len, d in ((64, 32), (50, 33)):
+        want = jl.sinusoidal_positions(max_len, d)
+        got = tl.sinusoidal_positions(max_len, d)
+        assert got.dtype == torch.float32 and got.shape == want.shape
+        _close(got, want)

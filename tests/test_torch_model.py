@@ -25,6 +25,14 @@ tests/test_torch_engine.py):
   runs them (one compile per model and shape instead of one per
   operation).
 
+The encoder-decoder family runs the same comparisons on whisper-base's
+smoke config, as AUDIO and as ENCDEC (``ENCDEC_ARCHS``): ``forward``
+with frame embeddings, ``prefill`` logits and the self- and
+cross-attention caches (``k``, ``v``, ``xk``, ``xv``), three
+``decode_step``s, on both attention routes, and the parameter tree (no
+``unembed``; the embedding table, the decoder's output table too, in
+fp32).
+
 A decode past the end of opt's learned position table reads the table's
 last row, as the reference's gather does (JAX clamps the index; torch
 indexing would raise): held on the contiguous decode step, at a
@@ -55,6 +63,9 @@ from repro_torch.models import model_zoo as tzoo  # noqa: E402
 ARCHS = sorted(name for name, cfg in JAX_SMOKE.items()
                if cfg.family in (DENSE, MOE, VLM))
 MOE_ARCHS = [name for name in ARCHS if JAX_SMOKE[name].family == MOE]
+#: whisper-base as its own family (AUDIO), and the same config as ENCDEC
+AS_ENCDEC = "-as-encdec"
+ENCDEC_ARCHS = ["whisper-base", "whisper-base" + AS_ENCDEC]
 FORWARD = jax.jit(jzoo.forward, static_argnums=0)
 PREFILL = jax.jit(jzoo.prefill, static_argnums=0)
 DECODE = jax.jit(jzoo.decode_step, static_argnums=0)
@@ -62,12 +73,38 @@ TOL = 1e-4
 S = 24
 
 
-def arch_cases(impls):
+def arch_cases(impls, archs=ARCHS):
     """(arch, impl) cases of every arch; llama2-7b's ids are the impl
     alone, as they were when it was the only arch."""
     return [pytest.param(arch, impl,
                          id=impl if arch == "llama2-7b" else f"{arch}-{impl}")
-            for arch in ARCHS for impl in impls]
+            for arch in archs for impl in impls]
+
+
+def _overrides(arch):
+    """(registry name, config overrides) of a case's arch."""
+    if arch.endswith(AS_ENCDEC):
+        return arch[:-len(AS_ENCDEC)], {"family": ENCDEC}
+    return arch, {}
+
+
+def case_pair(arch, seed=0):
+    """``model_pair`` of an arch of ``ARCHS``, ``ENCDEC_ARCHS`` or the
+    slot path's mamba2-130m."""
+    name, overrides = _overrides(arch)
+    return model_pair(name, seed, **overrides)
+
+
+def case_config(arch):
+    """The port's smoke config of a case's arch (bf16, as registered)."""
+    name, overrides = _overrides(arch)
+    return dataclasses.replace(get_smoke_config(name), **overrides)
+
+
+def frame_embeds(cfg, batch, seed=0):
+    """Encoder input of an encoder-decoder model, (B, Senc, d) fp32."""
+    return np.random.RandomState(seed).randn(
+        batch, cfg.enc_seq_len, cfg.d_model).astype(np.float32)
 
 
 @functools.lru_cache(maxsize=None)
@@ -126,29 +163,26 @@ def test_registry_holds_all_twelve_archs():
 
 
 #: archs whose families the port registers for the simulator's cost model
-#: but does not serve (hybrid, audio), and an encoder-decoder
-UNSERVED = ["zamba2-2.7b", "whisper-base", "whisper-base-as-encdec"]
+#: but does not serve (hybrid)
+UNSERVED = ["zamba2-2.7b"]
 
 
 @pytest.mark.parametrize("arch", UNSERVED)
 def test_build_raises_for_families_not_served(arch):
-    if arch.endswith("-as-encdec"):
-        cfg = dataclasses.replace(get_config("whisper-base"), family=ENCDEC)
-    else:
-        cfg = get_config(arch)
+    cfg = get_config(arch)
     assert cfg.family not in tzoo.PORTED_FAMILIES
     with pytest.raises(NotImplementedError, match="is not ported"):
         tzoo.build(cfg)
 
 
-@pytest.mark.parametrize("arch", ARCHS)
+@pytest.mark.parametrize("arch", ARCHS + ENCDEC_ARCHS)
 def test_param_tree_matches_reference(arch):
     """``init_params`` draws the reference's tree: same keys, same
     shapes; the loaded tree has the same leaves in the same dtypes
     (the reference's fp32 tree is loaded into the bf16 model)."""
-    jparams = model_pair(arch, seed=1)[1]
+    jparams = case_pair(arch, seed=1)[1]
     want = {p: tuple(a.shape) for p, a in _leaves(jparams)}
-    model = tzoo.build(get_smoke_config(arch))
+    model = tzoo.build(case_config(arch))
     drawn = dict(_leaves(tzoo.init_params(model, seed=0, device="cpu")))
     assert {p: tuple(t.shape) for p, t in drawn.items()} == want
     loaded = dict(_leaves(params_from_jax(
@@ -156,7 +190,19 @@ def test_param_tree_matches_reference(arch):
     assert {p: t.dtype for p, t in loaded.items()} == \
         {p: t.dtype for p, t in drawn.items()}
     cfg = model.cfg
-    if cfg.pos_emb == "learned":
+    if arch in ENCDEC_ARCHS:
+        # the embedding table is the unembedding too: fp32, no unembed
+        assert ("unembed", "table") not in drawn
+        assert drawn[("embed", "table")].dtype == torch.float32
+        assert drawn[("enc_pos",)].shape == (cfg.enc_seq_len, cfg.d_model)
+        assert drawn[("dec_pos",)].shape == (cfg.max_seq_len, cfg.d_model)
+        assert drawn[("dec_pos",)].dtype == torch.bfloat16
+        assert drawn[("dec_layers", "ln_x", "scale")].dtype == torch.float32
+        assert ("dec_layers", "xattn", "wk", "b") in drawn
+        assert not any("q_norm" in p for p in drawn)
+        assert drawn[("enc_layers", "mlp", "up", "b")].shape == \
+            (cfg.n_enc_layers, cfg.d_ff)
+    elif cfg.pos_emb == "learned":
         assert drawn[("pos",)].shape == (cfg.max_seq_len, cfg.d_model)
         assert drawn[("pos",)].dtype == torch.bfloat16
         for name in ("up", "down"):
@@ -166,7 +212,8 @@ def test_param_tree_matches_reference(arch):
             torch.float32
 
 
-@pytest.mark.parametrize("arch,impl", arch_cases(["naive", "pallas"]))
+@pytest.mark.parametrize("arch,impl", arch_cases(["naive", "pallas"])
+                         + arch_cases(["naive", "pallas"], ENCDEC_ARCHS))
 def test_forward_prefill_decode(arch, impl):
     _forward_prefill_decode(arch, attn_impl=impl)
 
@@ -179,15 +226,22 @@ def test_forward_prefill_decode_moe_sort(arch, impl):
 
 
 def _forward_prefill_decode(arch, **settings):
-    jmodel, params, tmodel, tparams = model_pair(arch, seed=1)
+    jmodel, params, tmodel, tparams = case_pair(arch, seed=1)
     jm = jmodel.with_settings(attn_block_q=8, attn_block_kv=8, **settings)
     tm = tmodel.with_settings(**settings)
     tokens = np.random.RandomState(0).randint(0, tm.cfg.vocab_size,
                                               size=(2, S))
+    jbatch = {"tokens": jnp.asarray(tokens)}
+    tbatch = {"tokens": torch.from_numpy(tokens)}
+    cache_keys = ("k", "v")
+    if arch in ENCDEC_ARCHS:
+        embeds = frame_embeds(tm.cfg, 2)
+        jbatch["embeds"] = jnp.asarray(embeds)
+        tbatch["embeds"] = torch.from_numpy(embeds)
+        cache_keys = ("k", "v", "xk", "xv")
 
-    want, want_aux = FORWARD(jm, params, {"tokens": jnp.asarray(tokens)})
-    got, got_aux = tzoo.forward(tm, tparams,
-                                {"tokens": torch.from_numpy(tokens)})
+    want, want_aux = FORWARD(jm, params, jbatch)
+    got, got_aux = tzoo.forward(tm, tparams, tbatch)
     _close(got, want)
     assert set(got_aux) == set(want_aux) == \
         ({"aux", "zloss"} if tm.cfg.family == MOE else set())
@@ -197,12 +251,11 @@ def _forward_prefill_decode(arch, **settings):
     max_len = S + 4
     jcache = jzoo.init_cache(jm, 2, max_len)
     tcache = tzoo.init_cache(tm, 2, max_len, device="cpu")
-    want, jcache = PREFILL(jm, params, {"tokens": jnp.asarray(tokens)},
-                           jcache)
-    got, tcache = tzoo.prefill(tm, tparams,
-                               {"tokens": torch.from_numpy(tokens)}, tcache)
+    want, jcache = PREFILL(jm, params, jbatch, jcache)
+    got, tcache = tzoo.prefill(tm, tparams, tbatch, tcache)
     _close(got, want)
-    for key in ("k", "v"):
+    assert set(tcache) == set(jcache) == set(cache_keys) | {"len"}
+    for key in cache_keys:
         _close(tcache[key], jcache[key])
     assert tcache["len"].tolist() == np.asarray(jcache["len"]).tolist()
 
@@ -213,8 +266,41 @@ def _forward_prefill_decode(arch, **settings):
                                        torch.from_numpy(tok.astype(np.int64)))
         _close(got, want)
         tok = np.asarray(jnp.argmax(want, -1), np.int32)
-    for key in ("k", "v"):
+    for key in cache_keys:
         _close(tcache[key], jcache[key])
+
+
+@pytest.mark.parametrize("arch", ["llama2-7b", "whisper-base"])
+def test_decode_past_the_cache_end_drops_the_write(arch):
+    """A row whose length is the cache's (as an empty slot's comes to be,
+    advancing every decode step) writes no K/V, as the reference's
+    ``.at[].set`` drops an index past the end (torch indexing would
+    raise), and attends to the whole cache; the other row decodes as
+    usual."""
+    jm, params, tm, tparams = case_pair(arch, seed=3)
+    tokens = np.random.RandomState(4).randint(0, tm.cfg.vocab_size,
+                                              size=(2, S))
+    jbatch = {"tokens": jnp.asarray(tokens)}
+    tbatch = {"tokens": torch.from_numpy(tokens)}
+    if arch in ENCDEC_ARCHS:
+        embeds = frame_embeds(tm.cfg, 2, seed=5)
+        jbatch["embeds"] = jnp.asarray(embeds)
+        tbatch["embeds"] = torch.from_numpy(embeds)
+    jcache = jzoo.init_cache(jm, 2, S + 1)
+    tcache = tzoo.init_cache(tm, 2, S + 1, device="cpu")
+    _, jcache = PREFILL(jm, params, jbatch, jcache)
+    tzoo.prefill(tm, tparams, tbatch, tcache)
+    lens = np.array([S, S + 1], np.int32)     # row 1: past the end
+    jcache["len"] = jnp.asarray(lens)
+    tcache["len"].copy_(torch.from_numpy(lens))
+    tok = np.array([3, 5], np.int32)
+    want, jcache = DECODE(jm, params, jcache, jnp.asarray(tok))
+    got, tcache = tzoo.decode_step(tm, tparams, tcache,
+                                   torch.from_numpy(tok.astype(np.int64)))
+    _close(got, want)
+    for key in set(tcache) - {"len"}:
+        _close(tcache[key], jcache[key])
+    assert tcache["len"].tolist() == [S + 1, S + 2]
 
 
 #: opt with a position table of 24 rows, prefilled with 20 tokens and
