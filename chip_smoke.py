@@ -22,8 +22,11 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    its grid, its working blocks and the time of one contiguous read of
    as many bytes, at the decode shapes of llama2-7b, opt-13b, qwen3-14b
    (GQA 5), qwen2-0.5b (GQA 7, head_dim 64), granite-moe-1b (GQA 2,
-   head_dim 64) and granite-moe-3b (GQA 3, head_dim 64, bf16 and fp32);
-   flash also at the 1024-token prefills of the two granite models;
+   head_dim 64), granite-moe-3b (GQA 3, head_dim 64, bf16 and fp32) and
+   stablelm-3b (head_dim 80, bf16 and fp32); flash also at the 1024-token
+   prefills of the two granite models and at head_dim 80 in every bucket
+   (stablelm-3b's prefills and zamba2-2.7b's shared block, 32/32); the
+   SSD scan also at zamba2-2.7b's prefill (80 heads, N 64);
 4. serving: llama2-7b at full width and depth (random weights from
    ``init_params(seed=0)``) behind ``ServingEngine``, 16 requests of
    64-1024 prompt tokens and 32 output tokens, on the kernel path; the
@@ -44,13 +47,13 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    decode step (with the paged kernel's share of its device time) and
    of a 1024-token prefill, eager and graphed; the same requests on the
    plain path.  opt-13b (learned positions, LayerNorm, GELU; MHA 40/40)
-   runs the same phase set at full width and depth; qwen3-14b (qk-norm,
-   GQA 40/8) at full width and depth runs the main path (one graphed
-   engine on the kernel routes), the two logit comparisons and the
-   profiles.  granite-moe-3b (MoE, 40 experts top 8, GQA 24/8, head_dim
-   64) runs llama2-7b's phase set, granite-moe-1b (32 experts top 8,
-   GQA 16/8) qwen3-14b's and one more request set on the ``sort`` MoE
-   route (greedy tokens against ``dense_onehot``'s, walls).  For the MoE
+   and qwen3-14b (qk-norm, GQA 40/8) at full width and depth run the
+   main path (one graphed engine on the kernel routes), the two logit
+   comparisons and the profiles; so do granite-moe-3b (MoE, 40 experts
+   top 8, GQA 24/8, head_dim 64), granite-moe-1b (32 experts top 8, GQA
+   16/8; and one more request set on the ``sort`` MoE route: greedy
+   tokens against ``dense_onehot``'s, walls) and stablelm-3b (32 heads
+   of 80, LayerNorm; both kernels at head_dim 80).  For the MoE
    models the logit comparisons record each route's expert sets per
    layer (a hook on ``models.moe._router``), report the share of
    (token, layer) pairs whose set differs, and hold the limits on the
@@ -88,20 +91,31 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    1500, causal 512, D 64) against its plain version, with its bound and
    SDPA's time; a profile of a decode step at batch 8 and of a 448-token
    prefill (with flash's share of its device time), eager and graphed;
-7. the repaired ``blocked`` attention route at full width on the card:
-   stablelm-3b at full width and depth (32 layers, 32 heads of 80, bf16,
-   random weights from ``init_params(seed=0)``), one 4096-token prompt
-   through ``model_zoo.forward`` with the default ``RunSettings()``
-   (``auto`` resolves to ``blocked``, 4 x 4 blocks of 1024; the flash
-   kernel takes no head_dim 80), against ``attn_impl="naive"``: the last
-   position's logits within LOGIT_REL_MAX of the naive route's largest
-   logit, the greedy tokens, both walls and the peak memory;
-8. the simulator (``repro_torch.launch.simulate``, llama2-7b on A100,
+7. the repaired ``blocked`` attention route at full width on the card,
+   right after stablelm-3b's paged-path phases and on the same weights
+   (32 layers, 32 heads of 80, bf16, ``init_params(seed=0)``): one
+   4096-token prompt through ``model_zoo.forward`` with the default
+   ``RunSettings()`` (``auto`` resolves to ``blocked``, 4 x 4 blocks of
+   1024), against ``attn_impl="naive"``: the last position's logits
+   within LOGIT_REL_MAX of the naive route's largest logit, the greedy
+   tokens, both walls and the peak memory;
+8. serving: zamba2-2.7b at full width and depth (54 Mamba2 layers of 80
+   SSD heads, d 2560, and after every 6 the shared block, 32 heads of
+   80; random weights from ``init_params(seed=0)``) through
+   ``launch/serve.py``'s engine sizes with ``attn_impl="pallas"`` on the
+   slot path (graphed on the card), mamba2-130m's 16 requests: flash
+   must launch 9 times a prefill and the SSD scan 54 times a prefill
+   whose bucket is a multiple of 256; eager against graphed as for
+   llama2-7b (the slot cache's ``conv``, ``ssd``, ``k``, ``v`` identical);
+   first-token and decode-step logits of the kernel route against
+   ``naive``; a profile of a decode step at batch 8 and of a 1024-token
+   prefill (flash's and the SSD scans' shares), eager and graphed;
+9. the simulator (``repro_torch.launch.simulate``, llama2-7b on A100,
    1000 requests at 8 QPS) twice, each in its own process: the two
    summaries must be equal apart from the host's wall time; a third
    process imports the port's simulator, sweep and CLI and must load
    nothing of jax or of the reference package;
-9. the ``kernels`` JSON line (each kernel's launches summed over the
+10. the ``kernels`` JSON line (each kernel's launches summed over the
    main paths that run it, with ``launches_by_path``; its times at the
    llama2-7b case), then the result line.
 
@@ -219,8 +233,14 @@ FLASH_BUCKETS = (64, 128, 256, 512, 1024, 2048)
 SEED = 0
 
 
+#: the script's start on the host's clock; every phase line carries its
+#: end as ``t_s``, seconds after it
+T0 = time.perf_counter()
+
+
 def phase(name, **fields):
-    print(json.dumps({"phase": name, **fields}), flush=True)
+    print(json.dumps({"phase": name, **fields,
+                      "t_s": time.perf_counter() - T0}), flush=True)
 
 
 def time_ms(fn, reps, queue_ahead=False):
@@ -429,6 +449,11 @@ def check_kernels():
                    d=64, dtype=bf16, seed=9),
         paged_case("fp32 granite-moe-3b decode", batch=MAX_BATCH, hq=24,
                    hkv=8, d=64, dtype=f32, seed=10),
+        # head_dim 80 (stablelm-3b, 32/32): 16 lanes a row, 6 of them dead
+        paged_case("stablelm-3b decode", batch=MAX_BATCH, hq=32, hkv=32,
+                   d=80, dtype=bf16, seed=11),
+        paged_case("fp32 stablelm-3b decode", batch=MAX_BATCH, hq=32,
+                   hkv=32, d=80, dtype=f32, seed=12),
     ]
     # every prefill bucket of the serving path (64 ... max_ctx 2048)
     flash = {s: flash_case(f"causal S={s}", sq=s, skv=s, h=32, hkv=32,
@@ -454,6 +479,12 @@ def check_kernels():
                hkv=8, d=64, causal=True, dtype=bf16, seed=8)
     flash_case("granite-moe-3b causal S=1024", sq=1024, skv=1024, h=24,
                hkv=8, d=64, causal=True, dtype=bf16, seed=9)
+    # head_dim 80 in the D-128 tiles, every prefill bucket: stablelm-3b's
+    # prefills and zamba2-2.7b's shared block (both 32/32)
+    for s in FLASH_BUCKETS:
+        flash_case(f"head_dim 80 causal S={s} (stablelm-3b, zamba2-2.7b)",
+                   sq=s, skv=s, h=32, hkv=32, d=80, causal=True, dtype=bf16,
+                   seed=20 + s)
     # the rows of the kernels line: the serving path's shapes
     return paged[0], flash[PROMPT_RANGE[1]]
 
@@ -775,8 +806,9 @@ def routing_agreement(got, want):
             "agree": [not bool(f[:, -1].any()) for f in flips]}
 
 
-def check_serving(arch):
-    """``arch`` at full width and depth on the paged path.  The main
+def check_serving(arch, params=None):
+    """``arch`` at full width and depth on the paged path (``params``: its
+    weights, else drawn here).  The main
     path: the engine on the kernel routes (``attn_impl="pallas"``,
     ``attn_path="pallas"``), graphed, with one paged launch a layer a
     decode iteration and one flash launch a layer a prefill; then
@@ -795,7 +827,9 @@ def check_serving(arch):
     kernel_model = zoo.build(cfg, settings=RunSettings(attn_impl="pallas"))
     plain_model = kernel_model.with_settings(attn_impl="naive")
     t0 = time.perf_counter()
-    params = zoo.init_params(kernel_model, seed=SEED)
+    drawn = params is None
+    if drawn:
+        params = zoo.init_params(kernel_model, seed=SEED)
     torch.cuda.synchronize()
     n_bytes = sum(t.numel() * t.element_size()
                   for t in _leaves(params))
@@ -810,7 +844,7 @@ def check_serving(arch):
           d_ff=cfg.d_ff, vocab=cfg.vocab_size, vocab_padded=plan.vocab,
           norm=cfg.norm, act=cfg.act, pos_emb=cfg.pos_emb,
           qk_norm=cfg.qk_norm, **moe_fields, param_gb=n_bytes / 1e9,
-          seconds=time.perf_counter() - t0)
+          seconds=time.perf_counter() - t0 if drawn else None)
 
     # the main path: the engine as a user builds it, graphed on the card
     torch.cuda.reset_peak_memory_stats()
@@ -1385,6 +1419,8 @@ def check_ssd_kernel():
     ssd_case("B=2 S=4096 initial state", 2, 4096, 24, 64, 1, 128, 256,
              bc_dtype=bf16, strided=True, with_state=True, model_decay=True,
              seed=5)
+    ssd_case("zamba2-2.7b prefill S=1024", 1, 1024, 80, 64, 1, 64, 256,
+             bc_dtype=bf16, strided=True, model_decay=True, seed=6)
     return full
 
 
@@ -1468,7 +1504,8 @@ def check_mamba2():
     del eager
     free_memory()
     compare_ssm_routes(model, params, route_prompts(engine), engine.max_ctx)
-    profile_mamba2(model, params, engine.max_ctx)
+    profile_slot_model("mamba2", model, params, engine.max_ctx,
+                       {"ssd_scan": SSD_KERNELS})
     del engine
     free_memory()
     return stats
@@ -1555,9 +1592,10 @@ def compare_ssm_routes(model, params, prompts, max_ctx):
         raise AssertionError(f"mamba2 first-token logits differ: {rel}")
 
 
-def profile_mamba2(model, params, max_ctx):
+def profile_slot_model(label, model, params, max_ctx, prefill_shares):
     """One decode step of all MAX_BATCH slots and one prefill of a
-    1024-token prompt, as the engine runs them: eager, then graphed."""
+    1024-token prompt, as the engine runs them: eager, then graphed (a
+    model of the SSM families; ``prefill_shares`` as ``profile``'s)."""
     rng = np.random.RandomState(3)
     cache = zoo.init_cache(model, MAX_BATCH, max_ctx, "cuda")
     toks = torch.from_numpy(rng.randint(0, model.cfg.vocab_size,
@@ -1573,15 +1611,15 @@ def profile_mamba2(model, params, max_ctx):
         cache1 = zoo.init_cache(model, 1, max_ctx, "cuda")
         logits, cache1 = zoo.prefill(model, params, {"tokens": prompt},
                                      cache1)
-        return logits, cache1["conv"], cache1["ssd"]
+        return logits, cache1
 
     for suffix, dec, pre in (
             ("", decode, prefill),
             ("_graphed", lambda: graphs.run("decode", decode),
              lambda: graphs.run("prefill", prefill))):
-        profile(f"mamba2_decode_step{suffix}", dec, 5)
-        profile(f"mamba2_prefill_1024{suffix}", pre, 3,
-                shares={"ssd_scan": SSD_KERNELS})
+        profile(f"{label}_decode_step{suffix}", dec, 5)
+        profile(f"{label}_prefill_1024{suffix}", pre, 3,
+                shares=prefill_shares)
 
 
 # ---------------------------------------------------------------------------
@@ -1724,10 +1762,8 @@ def check_whisper():
 
     vocab = model.plan.vocab_logical
     plain = model.with_settings(attn_impl="naive")
-    got, got_cache = whisper_slot_states(model, params, engine, reqs,
-                                         prompts)
-    want, want_cache = whisper_slot_states(plain, params, engine, reqs,
-                                           prompts)
+    got, got_cache = slot_states(model, params, engine, reqs, prompts)
+    want, want_cache = slot_states(plain, params, engine, reqs, prompts)
     compare_logits("whisper-base_first_token_logits", got, want,
                    cfg.vocab_size)
     # one decode step on the slots each route prefilled (the decode
@@ -1759,11 +1795,11 @@ def check_whisper():
     return stats
 
 
-def whisper_slot_states(model, params, engine, reqs, prompts):
+def slot_states(model, params, engine, reqs, prompts):
     """Each request prefilled as the engine prefills it (its prompt in its
-    bucket, its frame embeddings): the first token's logits over the
-    logical vocabulary, and a slot cache holding the first MAX_BATCH
-    requests."""
+    bucket; an encoder-decoder model's frame embeddings): the first
+    token's logits over the logical vocabulary, and a slot cache holding
+    the first MAX_BATCH requests."""
     vocab = model.plan.vocab_logical
     cache = zoo.init_cache(model, MAX_BATCH, engine.max_ctx, "cuda")
     first = []
@@ -1774,11 +1810,12 @@ def whisper_slot_states(model, params, engine, reqs, prompts):
                                    engine.max_ctx)),
                            dtype=torch.long, device="cuda")
         toks[0, :plen] = torch.from_numpy(p.astype(np.int64))
-        embeds = torch.from_numpy(engine._enc_embeds(r))[None].cuda()
+        batch = {"tokens": toks}
+        if engine._embeds is not None:
+            batch["embeds"] = torch.from_numpy(engine._enc_embeds(r))[None] \
+                .cuda()
         cache1 = zoo.init_cache(model, 1, engine.max_ctx, "cuda")
-        logits, cache1 = zoo.prefill(model, params, {"tokens": toks,
-                                                     "embeds": embeds},
-                                     cache1)
+        logits, cache1 = zoo.prefill(model, params, batch, cache1)
         first.append(logits[0, plen - 1, :vocab].float().clone())
         del logits
         if i < MAX_BATCH:
@@ -1826,6 +1863,134 @@ def profile_whisper(model, params, engine, reqs):
                 shares={"flash_attention": FLASH_KERNELS})
 
 
+# ---------------------------------------------------------------------------
+# zamba2-2.7b: the hybrid family on the slot path
+# ---------------------------------------------------------------------------
+HYBRID_ARCH = "zamba2-2.7b"
+
+
+def check_zamba2():
+    """zamba2-2.7b at full width and depth (54 Mamba2 layers in 9 groups,
+    each followed by the shared block, 32 heads of 80) on the slot path:
+    the engine ``launch/serve.py`` builds (its sizes: 512 blocks of 16, a
+    context of 1024), but with ``attn_impl="pallas"``, graphed, serving
+    mamba2-130m's 16 requests of 20-990 prompt tokens (buckets on both
+    SSD branches); every prefill launches flash once a group (9 times,
+    head_dim 80) and, where its bucket is a multiple of the chunk (256),
+    the SSD scan once a layer (54 times).  Then eager against graphed
+    (the slot cache's ``conv``, ``ssd``, ``k``, ``v`` identical),
+    first-token and decode-step logits of the kernel route against
+    ``naive``, and the profiles of a decode step and a 1024-token
+    prefill with flash's and the SSD scans' shares."""
+    cfg = get_config(HYBRID_ARCH)
+    args = serve_cli.parse_args(["--arch", HYBRID_ARCH, "--max-batch",
+                                 str(MAX_BATCH), "--seed", str(SEED)])
+    t0 = time.perf_counter()
+    model = zoo.build(cfg, settings=RunSettings(attn_impl="pallas"))
+    params = zoo.init_params(model, seed=SEED)
+    torch.cuda.synchronize()
+    engine = ServingEngine(model, params, EngineConfig(
+        num_blocks=args.num_blocks, block_size=args.block_size,
+        max_batch=args.max_batch,
+        max_pages_per_seq=args.num_blocks // max(4, args.max_batch),
+        seed=args.seed))
+    groups = cfg.num_layers // cfg.attn_period
+    shared = sum(t.numel() * t.element_size()
+                 for t in _leaves(params["shared_attn"]))
+    phase(f"{HYBRID_ARCH}_init_params", model=cfg.name,
+          layers=cfg.num_layers, groups=groups, attn_period=cfg.attn_period,
+          n_shared_attn=cfg.n_shared_attn, d_model=cfg.d_model,
+          n_heads=cfg.n_heads, n_kv_heads=cfg.n_kv_heads,
+          head_dim=cfg.head_dim, d_ff=cfg.d_ff,
+          ssd_heads=model.plan.ssm_heads, ssd_head_dim=cfg.ssm.head_dim,
+          d_state=cfg.ssm.d_state, chunk=cfg.ssm.chunk_size,
+          vocab=cfg.vocab_size, vocab_padded=model.plan.vocab,
+          param_gb=sum(t.numel() * t.element_size()
+                       for t in _leaves(params)) / 1e9,
+          shared_block_gb=shared / 1e9,
+          slot_cache_gb=sum(t.numel() * t.element_size()
+                            for t in engine.cache.values()) / 1e9,
+          seconds=time.perf_counter() - t0)
+
+    chunk = cfg.ssm.chunk_size
+
+    def chunked(run):
+        return sum(1 for s in run["buckets"] if s % chunk == 0)
+
+    def expect_launches(run):
+        n = run["launches"]
+        want = {"flash_attention": groups * len(run["buckets"]),
+                "ssd_scan": cfg.num_layers * chunked(run),
+                "paged_attention": 0}
+        if any(n[k] != v for k, v in want.items()):
+            raise AssertionError(f"{HYBRID_ARCH}: launches {n}, expected "
+                                 f"{want}")
+
+    # the main path: the engine, graphed on the card
+    log = instrument(engine)
+    reqs = mamba_requests()
+    torch.cuda.reset_peak_memory_stats()
+    summary = {}
+    main = serve_set(engine, reqs, {}, log, serve_fn=lambda e, rs:
+                     summary.update(serve_cli.serve(e, rs)))
+    spads = main["buckets"]
+    launches = main["launches"]
+    stats = {"model": cfg.name, "attn_impl": model.settings.attn_impl,
+             "max_ctx": engine.max_ctx, "requests": len(reqs),
+             "prompt_lens": [r.prompt_len for r in reqs],
+             "finished": summary["n_finished"], **main["stats"],
+             "prefill_calls": len(spads),
+             "prefill_buckets": sorted(set(spads)),
+             "chunked_prefill_calls": chunked(main),
+             "launches": {k: launches[k] for k in
+                          ("flash_attention", "ssd_scan", "paged_attention")},
+             "flash_launches_by_sq": launches["flash_attention_by_sq"],
+             "expected_flash_launches": groups * len(spads),
+             "expected_ssd_launches": cfg.num_layers * chunked(main),
+             "graphs": len(engine.graphs),
+             "capture_s": engine.graphs.capture_seconds,
+             "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
+    phase(f"{HYBRID_ARCH}_serve_slot_path", **stats)
+    if summary["n_finished"] != len(reqs):
+        raise AssertionError(f"{HYBRID_ARCH}: not every request finished")
+    if chunked(main) == 0 or chunked(main) == len(spads):
+        raise AssertionError(f"{HYBRID_ARCH}: prefill buckets "
+                             f"{sorted(set(spads))} do not reach both SSD "
+                             f"branches")
+    expect_launches(main)
+    prompts = dict(engine.prompt_tokens)
+
+    eager = ServingEngine(model, params, engine.ec, graphs=False)
+    eager_vs_graphed(cfg.name, engine, log, eager, mamba_requests, prompts,
+                     main, ("conv", "ssd", "k", "v", "len"), expect_launches)
+    del eager
+    free_memory()
+
+    vocab = model.plan.vocab_logical
+    plain = model.with_settings(attn_impl="naive")
+    got, got_cache = slot_states(model, params, engine, reqs, prompts)
+    want, want_cache = slot_states(plain, params, engine, reqs, prompts)
+    compare_logits(f"{HYBRID_ARCH}_first_token_logits", got, want,
+                   cfg.vocab_size)
+    # one decode step on the slots each route prefilled (the decode
+    # attention is the plain one on both, as in the reference)
+    toks = torch.from_numpy(np.random.RandomState(1).randint(
+        0, cfg.vocab_size, size=MAX_BATCH)).cuda()
+    got = zoo.decode_step(model, params, got_cache, toks)[0]
+    want = zoo.decode_step(plain, params, want_cache, toks)[0]
+    compare_logits(f"{HYBRID_ARCH}_decode_logits",
+                   list(got[:, :vocab].float()),
+                   list(want[:, :vocab].float()), cfg.vocab_size)
+    del got_cache, want_cache
+    free_memory()
+    profile_slot_model(HYBRID_ARCH, model, params, engine.max_ctx,
+                       {"flash_attention": FLASH_KERNELS,
+                        "ssd_scan": SSD_KERNELS})
+    del engine
+    free_memory()
+    return stats
+
+
 def ptxas_entries(lib):
     """Each kernel of ``csrc/<lib>.cu``: registers, stack, spills and
     static shared memory as ``ptxas -v`` reported them at the build."""
@@ -1848,16 +2013,18 @@ def ptxas_entries(lib):
 
 
 def flash_resources():
-    """Per head_dim instance of the flash kernel: ``ptxas_entries`` and
-    the dynamic shared memory a block takes."""
+    """Per head_dim instance of the flash kernel (and the tile width it
+    runs in: 128 for head_dim 80): ``ptxas_entries`` and the dynamic
+    shared memory a block takes."""
     lib = build.load("flash_attention")
     out = []
     for e in ptxas_entries("flash_attention"):
         name = e.pop("entry")
         if "flash_kernel" not in name:
             continue
-        d = int(re.search(r"flash_kernelILi(\d+)E", name).group(1))
-        out.append({"head_dim": d, **e,
+        tile, d = map(int, re.search(r"flash_kernelILi(\d+)ELi(\d+)E",
+                                     name).groups())
+        out.append({"head_dim": d, "tile_d": tile, **e,
                     "dynamic_smem_bytes": lib.flash_attention_smem_bytes(d)})
     if not out:
         raise AssertionError("no flash kernel in the ptxas report")
@@ -1894,10 +2061,11 @@ BLOCKED_ARCH = "stablelm-3b"
 BLOCKED_PROMPT = 4096
 
 
-def check_blocked_prefill():
+def check_blocked_prefill(params):
     """One ``BLOCKED_PROMPT``-token prompt through the full-size
-    ``BLOCKED_ARCH`` with the default settings (``auto``, which resolves
-    to ``blocked`` past ``naive_attn_max_seq``) and with ``naive``: the
+    ``BLOCKED_ARCH`` (weights ``params``, those its paged-path phases
+    served) with the default settings (``auto``, which resolves to
+    ``blocked`` past ``naive_attn_max_seq``) and with ``naive``: the
     last position's logits, and the greedy token of every position."""
     cfg = get_config(BLOCKED_ARCH)
     model = zoo.build(cfg)
@@ -1905,11 +2073,7 @@ def check_blocked_prefill():
         raise AssertionError("auto does not resolve to blocked at "
                              f"{BLOCKED_PROMPT} tokens")
     naive = model.with_settings(attn_impl="naive")
-    t0 = time.perf_counter()
-    params = zoo.init_params(model, seed=SEED)
-    torch.cuda.synchronize()
     n_bytes = sum(t.numel() * t.element_size() for t in _leaves(params))
-    load_s = time.perf_counter() - t0
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     toks = torch.randint(0, cfg.vocab_size, (1, BLOCKED_PROMPT),
                          generator=gen, device="cuda")
@@ -1940,8 +2104,7 @@ def check_blocked_prefill():
     rec = {"model": cfg.name, "layers": cfg.num_layers,
            "d_model": cfg.d_model, "n_heads": cfg.n_heads,
            "head_dim": cfg.head_dim, "dtype": cfg.dtype,
-           "param_gb": n_bytes / 1e9, "init_s": load_s,
-           "prompt": BLOCKED_PROMPT,
+           "param_gb": n_bytes / 1e9, "prompt": BLOCKED_PROMPT,
            "attn_impl": model.settings.attn_impl,
            "resolved": model.settings.resolve_attn(BLOCKED_PROMPT),
            "blocks": [model.settings.attn_block_q,
@@ -2022,7 +2185,7 @@ def check_simulator():
 PAGED_MODELS = ("llama2-7b", "opt-13b", "qwen3-14b", "granite-moe-3b-a800m",
                 "granite-moe-1b-a400m")
 #: those that also run eager against graphed engines and the plain path
-FULL_PHASE_SET = {"llama2-7b", "opt-13b", "granite-moe-3b-a800m"}
+FULL_PHASE_SET = {"llama2-7b"}
 #: the MoE model that also serves one request set on the ``sort`` route
 SORT_ROUTE_ARCH = "granite-moe-1b-a400m"
 
@@ -2058,22 +2221,33 @@ def main():
         for arch in PAGED_MODELS:
             served[arch] = check_serving(arch)["launches"]
             free_memory()
+        # stablelm-3b (head_dim 80) on the paged path, then its 4096-token
+        # prefill on the blocked route, on the same weights
+        params = zoo.init_params(zoo.build(get_config(BLOCKED_ARCH)),
+                                 seed=SEED)
+        served[BLOCKED_ARCH] = check_serving(BLOCKED_ARCH, params)["launches"]
+        check_blocked_prefill(params)
+        del params
+        free_memory()
         mamba = check_mamba2()
         free_memory()
         whisper = check_whisper()
         free_memory()
-        check_blocked_prefill()
+        zamba = check_zamba2()
         free_memory()
     check_simulator()
 
     kernels = []
-    # the main paths' runs: each paged model's, mamba2-130m's and
-    # whisper-base's
+    # the main paths' runs: each paged model's, mamba2-130m's,
+    # whisper-base's and zamba2-2.7b's
     by_path = {name: {arch: n[name] for arch, n in served.items()}
                for name in ("paged_attention", "flash_attention")}
     by_path["flash_attention"][WHISPER_ARCH] = \
         whisper["launches"]["flash_attention"]
-    by_path["ssd_scan"] = {"mamba2-130m": mamba["launches"]["ssd_scan"]}
+    by_path["flash_attention"][HYBRID_ARCH] = \
+        zamba["launches"]["flash_attention"]
+    by_path["ssd_scan"] = {"mamba2-130m": mamba["launches"]["ssd_scan"],
+                           HYBRID_ARCH: zamba["launches"]["ssd_scan"]}
     launches = {name: sum(n.values()) for name, n in by_path.items()}
     for name, rec, src, replaces in (
             ("paged_attention", paged,

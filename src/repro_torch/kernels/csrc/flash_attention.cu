@@ -10,7 +10,12 @@
 // optionally soft-capped (tanh(s/c)*c) before masking.  Causal masking is
 // top-left aligned, qpos >= kpos, as in the Pallas kernel; positions
 // kpos >= Skv are always masked, so ragged lengths need no padding by the
-// caller.  bf16 only, D in {64,128}.
+// caller.  bf16 only, D in {64,80,128}.  D 80 (stablelm-3b, zamba2-2.7b)
+// runs the D-128 tiles: the TMA maps span the real 80 columns, so the
+// second box of each row reads columns 64-79 and fills 80-127 with zeros,
+// which change neither Q·K^T (its last three 16-column steps are skipped)
+// nor the 80 live columns of P·V; the epilogue stores those 80 at a row
+// stride of 80.
 //
 // What bounds it on this card: at the serving path's prefill shapes
 // (B 1, Sq = Skv = 64 ... 2048, H 32, D 128, causal) the least time is
@@ -283,7 +288,9 @@ __device__ __forceinline__ int kv_tiles(int q0, int skv, int causal) {
   return n;
 }
 
-template <int D>
+// D: the tile width (64 or 128); DV: the tensors' head_dim (D, or 80 in
+// D-128 tiles), the row stride of out and the columns stored.
+template <int D, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_kernel(const __grid_constant__ CUtensorMap tq,
              const __grid_constant__ CUtensorMap tk,
@@ -366,13 +373,14 @@ flash_kernel(const __grid_constant__ CUtensorMap tq,
     mbar_wait(full + 8 * stage, (t / kStages) & 1);
 
     // S = Q K^T: K-major operands; a 16-column step moves 32 bytes
-    // inside a box, and every fourth step moves to the next box.
+    // inside a box, and every fourth step moves to the next box.  Steps
+    // past DV would add only the zero-filled columns.
     float s[kBN / 2];
 #pragma unroll
     for (int i = 0; i < kBN / 2; ++i) s[i] = 0.f;
     wgmma_fence();
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
+    for (int kk = 0; kk < (DV + 15) / 16; ++kk) {
       const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
       wgmma_ss_n128(s, sw128_desc(q_tile + off, 16, 1024),
                     sw128_desc(k_tile + off, 16, 1024), kk > 0);
@@ -449,7 +457,8 @@ flash_kernel(const __grid_constant__ CUtensorMap tq,
     if (lane == 0) mbar_arrive(empty + 8 * stage);   // the stage is free
   }
 
-  // Epilogue: O / l in bf16, rows past Sq not stored.
+  // Epilogue: O / l in bf16, rows past Sq and columns past DV not
+  // stored; rows DV apart.
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
@@ -461,9 +470,9 @@ flash_kernel(const __grid_constant__ CUtensorMap tq,
     if (qpos >= sq) continue;
     const float inv = 1.f / l[i];
     __nv_bfloat16* dst = out + (((size_t)blockIdx.y * sq + qpos) * h + head)
-                         * D + cq;
+                         * DV + cq;
 #pragma unroll
-    for (int j = 0; j < D / 8; ++j)
+    for (int j = 0; j < DV / 8; ++j)
       *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) = __floats2bfloat162_rn(
           o[4 * j + 2 * i] * inv, o[4 * j + 2 * i + 1] * inv);
   }
@@ -509,21 +518,23 @@ bool tensor_map(CUtensorMap* map, const void* ptr, int batch, int s,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D>
+template <int D, int DV = D>
 int launch(const void* q, const void* k, const void* v, void* out, int batch,
            int sq, int skv, int h, int hkv, int causal, float scale,
            float softcap, cudaStream_t stream) {
+  static_assert(DV % 16 == 0 && DV <= D && D - DV < kBoxCols,
+                "the last box holds the last live column");
   CUtensorMap tq, tk, tv;
-  if (!tensor_map(&tq, q, batch, sq, h, D) ||
-      !tensor_map(&tk, k, batch, skv, hkv, D) ||
-      !tensor_map(&tv, v, batch, skv, hkv, D))
+  if (!tensor_map(&tq, q, batch, sq, h, DV) ||
+      !tensor_map(&tk, k, batch, skv, hkv, DV) ||
+      !tensor_map(&tv, v, batch, skv, hkv, DV))
     return -2;
   constexpr int smem = Smem<D>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_kernel<D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(h, batch, (sq + kBM - 1) / kBM);
-  flash_kernel<D><<<grid, kThreads, smem, stream>>>(
+  flash_kernel<D, DV><<<grid, kThreads, smem, stream>>>(
       tq, tk, tv, static_cast<__nv_bfloat16*>(out), sq, skv, h, hkv, causal,
       scale, softcap);
   return static_cast<int>(cudaGetLastError());
@@ -532,10 +543,10 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch,
 }  // namespace
 
 // Dynamic shared memory of one block at this head_dim, in bytes (0 for a
-// head_dim the kernel does not take).
+// head_dim the kernel does not take); head_dim 80 runs the D-128 tiles.
 extern "C" int flash_attention_smem_bytes(int head_dim) {
   return head_dim == 64 ? Smem<64>::BYTES
-                        : head_dim == 128 ? Smem<128>::BYTES : 0;
+         : head_dim == 80 || head_dim == 128 ? Smem<128>::BYTES : 0;
 }
 
 // dtype: 1 = bfloat16, the only type taken.  Returns cudaGetLastError()
@@ -553,6 +564,9 @@ extern "C" int flash_attention_launch(int dtype, const void* q, const void* k,
   if (head_dim == 64)
     return launch<64>(q, k, v, out, batch, sq, skv, h, hkv, causal, scale,
                       softcap, s);
+  if (head_dim == 80)
+    return launch<128, 80>(q, k, v, out, batch, sq, skv, h, hkv, causal,
+                           scale, softcap, s);
   if (head_dim == 128)
     return launch<128>(q, k, v, out, batch, sq, skv, h, hkv, causal, scale,
                        softcap, s);

@@ -15,7 +15,7 @@
 // Layout: q (B,Hq,D); k/v pages (NP,P,Hkv,D) token-major, read in place
 // (a row of one kv head is D contiguous elements, rows Hkv*D apart);
 // tables (B,MP) int32; lens (B,) int32; out (B,Hq,D).  bf16 or fp32,
-// D in {64,128}, G in {1,2,3,4,5,7,8} (3: granite-moe-3b's 24/8, 5:
+// D in {64,80,128}, G in {1,2,3,4,5,7,8} (3: granite-moe-3b's 24/8, 5:
 // qwen3-14b's 40/8, 7: qwen2-0.5b's 14/2), any page size.  Scratch from the
 // wrapper: ws, fp32, one record of G*(D+2) floats per (sequence, kv
 // head, split); tickets, B*Hkv zeroed counters that the kernel leaves
@@ -37,7 +37,11 @@
 //   many SMs; a block whose split starts at or past len returns at once.
 // - 128 threads.  A thread owns 8 elements of a row, D/8 threads cover a
 //   row, and the block's 1024/D row groups each take 2 rows of every
-//   step of 1024/D*2 positions.
+//   step of 1024/D*2 positions.  At D 80 a row takes 16 lanes, the power
+//   of two above its 10, so the shuffles stay inside a row: lanes 10-15
+//   copy nothing (a zero-size cp.async fills their slots with zeros) and
+//   add zeros, and 8 row groups take a step of 16 positions, as at
+//   D 128.
 // - The ring: every thread copies, with 16-byte cp.async, exactly the K
 //   and V pieces it will read, STAGES steps ahead, into its own slots of
 //   a 32 KB ring in shared memory (4 steps in bf16, the whole split; 2
@@ -51,8 +55,8 @@
 //   with G (ptxas, bf16 D 128: 74 at G 1, 128 at G 5, 168 at G 7, no
 //   spills), and from G 5 on they, not shared memory, cap the blocks an
 //   SM holds (4 at G 5, 3 at G 7).
-// - Scores: 8 products per thread, summed over D/8 lanes (4 xor
-//   shuffles at D 128, 3 at D 64).  Each row group keeps its own online
+// - Scores: 8 products per thread, summed over a row's lanes (4 xor
+//   shuffles at D 128 and D 80, 3 at D 64).  Each row group keeps its own online
 //   softmax (log2 domain) in registers, rescaled at most once a step
 //   and only when its max grows.
 // - Merge: the groups' states merge through shared memory at the end of
@@ -81,7 +85,9 @@ constexpr float kLog2e = 1.4426950408889634f;
 
 template <typename T, int D>
 struct Shape {
-  static constexpr int LANES = D / kVec;             // threads per row
+  static constexpr int LIVE = D / kVec;              // lanes holding a row
+  static constexpr int LANES =                       // threads per row
+      LIVE <= 8 ? 8 : LIVE <= 16 ? 16 : 32;
   static constexpr int GROUPS = kThreads / LANES;    // row groups
   static constexpr int STEP = GROUPS * kRows;        // positions a step
   static constexpr int SPLIT = STEP * kStepsPerSplit;
@@ -90,6 +96,8 @@ struct Shape {
       kRingBytesPerThread / (16 * 2 * kRows * COPIES);
   static constexpr int RING = STAGES * 2 * kRows * COPIES * kThreads;
   static_assert(STAGES >= 2, "the ring needs two steps");
+  static_assert(D % kVec == 0 && LIVE <= LANES && LANES <= 32,
+                "a row's lanes: a power of two, at most one warp");
 };
 
 __device__ __forceinline__ void cp_async16(void* dst, const void* src,
@@ -163,6 +171,7 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   const int tid = threadIdx.x;
   const int lane = tid % S::LANES;          // which kVec elements of a row
   const int grp = tid / S::LANES;
+  const bool live_lane = lane < S::LIVE;    // false: lanes past a row's end
   const int hq = hkv * G;
 
   __shared__ __align__(16) uint4 ring[S::RING];
@@ -180,10 +189,16 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
 
   float qr[G][kVec];
 #pragma unroll
-  for (int g = 0; g < G; ++g)
-    unpack<T>(reinterpret_cast<const uint4*>(
-                  q + ((size_t)b * hq + kvh * G + g) * D + lane * kVec),
-              1, qr[g]);
+  for (int g = 0; g < G; ++g) {
+    if (live_lane) {
+      unpack<T>(reinterpret_cast<const uint4*>(
+                    q + ((size_t)b * hq + kvh * G + g) * D + lane * kVec),
+                1, qr[g]);
+    } else {
+#pragma unroll
+      for (int i = 0; i < kVec; ++i) qr[g][i] = 0.f;
+    }
+  }
   float m[G], l[G], acc[G][kVec];
 #pragma unroll
   for (int g = 0; g < G; ++g) {
@@ -204,7 +219,7 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
 #pragma unroll
     for (int r = 0; r < kRows; ++r) {
       const int pos = s0 + st * S::STEP + grp * kRows + r;
-      const bool live = pos < s1;
+      const bool live = pos < s1 && live_lane;
       size_t off = 0;
       if (live)
         off = (((size_t)pages[pos / page - p0] * page + pos % page) * hkv +
@@ -294,9 +309,11 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
       grp_m[grp][g] = m[g];
       grp_l[grp][g] = l[g];
     }
+    if (live_lane) {
 #pragma unroll
-    for (int i = 0; i < kVec; ++i)
-      grp_acc[(grp * G + g) * D + lane * kVec + i] = acc[g][i];
+      for (int i = 0; i < kVec; ++i)
+        grp_acc[(grp * G + g) * D + lane * kVec + i] = acc[g][i];
+    }
   }
   __syncthreads();
   float* rec = n_splits == 1 ? nullptr
@@ -428,8 +445,10 @@ int launch_group(int group, const void* q, const void* k, const void* v,
 // ceil(max_pages * page / split_len); ws holds B*Hkv*x*G*(D+2) floats.
 extern "C" int paged_attention_split_len(int dtype, int head_dim) {
   if (dtype == 0 && head_dim == 64) return Shape<float, 64>::SPLIT;
+  if (dtype == 0 && head_dim == 80) return Shape<float, 80>::SPLIT;
   if (dtype == 0 && head_dim == 128) return Shape<float, 128>::SPLIT;
   if (dtype == 1 && head_dim == 64) return Shape<__nv_bfloat16, 64>::SPLIT;
+  if (dtype == 1 && head_dim == 80) return Shape<__nv_bfloat16, 80>::SPLIT;
   if (dtype == 1 && head_dim == 128) return Shape<__nv_bfloat16, 128>::SPLIT;
   return -1;
 }
@@ -450,12 +469,20 @@ extern "C" int paged_attention_launch(int dtype, const void* q, const void* k,
     return launch_group<float, 64>(group, q, k, v, tables, lens, out, ws,
                                    tickets, batch, hkv, page, max_pages,
                                    scale, softcap, s);
+  if (dtype == 0 && head_dim == 80)
+    return launch_group<float, 80>(group, q, k, v, tables, lens, out, ws,
+                                   tickets, batch, hkv, page, max_pages,
+                                   scale, softcap, s);
   if (dtype == 0 && head_dim == 128)
     return launch_group<float, 128>(group, q, k, v, tables, lens, out, ws,
                                     tickets, batch, hkv, page, max_pages,
                                     scale, softcap, s);
   if (dtype == 1 && head_dim == 64)
     return launch_group<__nv_bfloat16, 64>(group, q, k, v, tables, lens,
+                                           out, ws, tickets, batch, hkv, page,
+                                           max_pages, scale, softcap, s);
+  if (dtype == 1 && head_dim == 80)
+    return launch_group<__nv_bfloat16, 80>(group, q, k, v, tables, lens,
                                            out, ws, tickets, batch, hkv, page,
                                            max_pages, scale, softcap, s);
   if (dtype == 1 && head_dim == 128)

@@ -15,7 +15,8 @@ ops.py:53-60) is carried over.
 
 The kernel is written for Hopper (TMA loads into a ring of K/V tiles,
 ``wgmma`` products, the softmax in registers) and takes bf16 alone, as
-the models compute; the fp32 plain version serves the CPU and the
+the models compute, at head_dim 64, 80 (in its 128-wide tiles, the
+columns past 80 read as zeros) or 128; the fp32 plain version serves the CPU and the
 comparisons.  ``flash_attention`` runs ``flash_attention_ref`` for CPU
 tensors and the kernel for CUDA tensors; on a CUDA tensor it launches or
 raises (``TypeError`` for any dtype but bf16).  Each launch counts as
@@ -32,7 +33,7 @@ from repro_torch.kernels import build, counts
 
 NEG_INF = -1e30
 DTYPES = {torch.bfloat16: 1}   # dtype -> the C interface's dtype code
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 80, 128)
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True,

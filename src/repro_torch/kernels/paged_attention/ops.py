@@ -20,8 +20,10 @@ the last block of each (sequence, kv head) can merge the splits.  A
 CUDA graph takes the set of the stream it was captured on with it
 (``take_ticket_counters``), so no later stream shares the graph's.
 
-``paged_attention`` runs ``paged_attention_ref`` for CPU tensors and the
-kernel for CUDA tensors; on a CUDA tensor it launches or raises.
+The kernel takes head_dim 64, 80 (a row on 16 lanes, 10 of them live)
+and 128.  ``paged_attention`` runs ``paged_attention_ref`` for CPU
+tensors and the kernel for CUDA tensors; on a CUDA tensor it launches
+or raises.
 Each launch counts as ``paged_attention`` in ``kernels.counts`` (one a
 call: the merge is inside the kernel).
 """
@@ -35,7 +37,7 @@ from repro_torch.kernels import build, counts
 
 NEG_INF = -1e30
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 128)
+HEAD_DIMS = (64, 80, 128)
 #: q heads per kv head: llama2-7b and opt-13b 1, granite-moe-1b 2,
 #: granite-moe-3b 3, qwen3-14b 5, qwen2-0.5b 7
 GROUPS = (1, 2, 3, 4, 5, 7, 8)

@@ -5,13 +5,15 @@
 The dense, MoE and VLM archs of the port's registry (llama2-7b,
 opt-13b, qwen3-14b, qwen2-0.5b, internlm2-1.8b, stablelm-3b,
 granite-moe-1b-a400m, granite-moe-3b-a800m, chameleon-34b) run the
-paged path; SSM models (mamba2-130m) and the encoder-decoder
-whisper-base (its encoder over the engine's random frame embeddings,
-1500 frames) the slot path; the hybrid arch (zamba2-2.7b) is not
-ported and raises.  ``--attn pallas`` takes the paged kernel in the
-decode (the slot path decodes with the plain attention, as the
-reference does); the prefill attention is the reference's default,
-``auto``.  On the card
+paged path; SSM models (mamba2-130m), the hybrid zamba2-2.7b (54
+Mamba2 layers and a shared attention block after every 6) and the
+encoder-decoder whisper-base (its encoder over the engine's random frame
+embeddings, 1500 frames) the slot path.  ``--attn pallas`` takes the
+paged kernel in the decode (the slot path decodes with the plain
+attention, as the reference does); the prefill attention is the
+reference's default, ``auto``.  Both attention kernels take head_dim
+64, 80 and 128, so stablelm-3b (heads of 80) serves on ``--attn
+pallas`` too.  On the card
 the engine runs its steps as CUDA graphs, as the reference runs them as
 ``jax.jit`` programs (``serving.graphs``); on the CPU it runs them
 eagerly.  Examples:
@@ -25,6 +27,10 @@ eagerly.  Examples:
   PYTHONPATH=src python -m repro_torch.launch.serve \\
       --arch granite-moe-3b-a800m --attn pallas
   PYTHONPATH=src python -m repro_torch.launch.serve --arch whisper-base
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch zamba2-2.7b \\
+      --requests 16 --prompt-len 600 --output-len 32
+  PYTHONPATH=src python -m repro_torch.launch.serve --arch stablelm-3b \\
+      --attn pallas
 
 Weights are random, from ``--seed`` (``init_params``).  Prints the
 summary of ``Results`` and the number of engine iterations as JSON.

@@ -1,10 +1,13 @@
-"""Model zoo, dense, MoE, VLM, SSM and encoder-decoder families: the port
-of ``repro.models.model_zoo``.  VLM (chameleon) runs the dense code, as
-in the reference, its images being tokens of the same vocabulary; MoE
-(granite) runs it with ``models.moe`` in place of the MLP.  AUDIO and
-ENCDEC (whisper) run an encoder of non-causal blocks over precomputed
-frame embeddings (``batch["embeds"]``, the reference's frontend stub)
-and a decoder whose blocks add cross-attention to the encoder output.
+"""Model zoo, dense, MoE, VLM, SSM, hybrid and encoder-decoder families:
+the port of ``repro.models.model_zoo``.  VLM (chameleon) runs the dense
+code, as in the reference, its images being tokens of the same
+vocabulary; MoE (granite) runs it with ``models.moe`` in place of the
+MLP.  HYBRID (zamba2) runs groups of ``attn_period`` Mamba2 layers, each
+group followed by a transformer block whose weights every application
+shares (``shared_attn``).  AUDIO and ENCDEC (whisper) run an encoder of
+non-causal blocks over precomputed frame embeddings (``batch["embeds"]``,
+the reference's frontend stub) and a decoder whose blocks add
+cross-attention to the encoder output.
 
 ``Model`` is a frozen bundle of (ArchConfig, PadPlan, RunSettings), as in
 the reference.  Parameters are a dict tree with the reference's keys and
@@ -32,7 +35,9 @@ Entry points
 * ``forward(model, params, batch)``   — full-seq logits.
 * ``init_cache / prefill / decode_step`` — decode cache, updated in
   place: dense ``{k,v: (L,B,Smax,Hkv,hd), len: (B,)}``; SSM
-  ``{conv: (L,B,W-1,C), ssd: (L,B,H,N,P) fp32, len: (B,)}``;
+  ``{conv: (L,B,W-1,C), ssd: (L,B,H,N,P) fp32, len: (B,)}``; hybrid the
+  SSM arrays of every layer and ``{k,v: (G,B,Smax,Hkv,hd)}``, one K/V
+  cache for each of the G applications of the shared block;
   encoder-decoder ``{k,v: (Ld,B,Smax,Hkv,hd), xk,xv: (Ld,B,Senc,Hkv,hd),
   len: (B,)}``, the cross-attention's K/V written whole by ``prefill``
   and read-only in ``decode_step``.
@@ -47,7 +52,7 @@ from typing import Any, Dict, Tuple
 import torch
 
 from repro_torch.configs.base import (ArchConfig, AUDIO, DENSE, ENCDEC,
-                                      MOE, SSM, VLM)
+                                      HYBRID, MOE, SSM, VLM)
 from repro_torch.distributed.padding import PadPlan, make_pad_plan
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention_impl import attend, decode_attention
@@ -62,8 +67,10 @@ from repro_torch.models.moe import moe_apply, moe_init
 
 #: encoder-decoder families (whisper), with ``enc_layers``/``dec_layers``
 ENCDEC_FAMILIES = (AUDIO, ENCDEC)
-#: families the port builds; the others (HYBRID) raise
-PORTED_FAMILIES = (DENSE, MOE, VLM, SSM) + ENCDEC_FAMILIES
+#: families the port builds; any other raises
+PORTED_FAMILIES = (DENSE, MOE, VLM, SSM, HYBRID) + ENCDEC_FAMILIES
+#: families whose layers are Mamba2 blocks (HYBRID: all of ``layers``)
+SSM_FAMILIES = (SSM, HYBRID)
 #: position encodings the port builds
 POS_EMBS = ("rope", "learned", "none")
 #: learned position tables are capped (reference model_zoo.py:48)
@@ -312,7 +319,10 @@ def init_params(model: Model, seed: int = 0, device=None) -> Dict[str, Any]:
             enc_norm=norm_init(d, cfg.norm, device=device),
             final_norm=norm_init(d, cfg.norm, device=device))
         return params
-    params["layers"] = stacked(ssm_layer if cfg.family == SSM else block)
+    params["layers"] = stacked(ssm_layer if cfg.family in SSM_FAMILIES
+                               else block)
+    if cfg.family == HYBRID:
+        params["shared_attn"] = stacked(block, cfg.n_shared_attn)
     params["final_norm"] = norm_init(d, cfg.norm, device=device)
     if not cfg.tie_embeddings:
         params["unembed"] = embed_init(plan.vocab, d, dtype=param_dtype(
@@ -426,8 +436,16 @@ def forward(model: Model, params, batch) -> Tuple[torch.Tensor, Dict]:
     encoder-decoder model "embeds" (B,Senc,d), the encoder's input.
 
     Returns (logits (B,S,V_phys), aux dict with the MoE losses if any)."""
-    if model.cfg.family == SSM:
+    cfg = model.cfg
+    if cfg.family == SSM:
         x, aux = _run_ssm_blocks(model, params, batch["tokens"]), {}
+    elif cfg.family == HYBRID:
+        # the reference's forward takes the copies in turn (model_zoo.py:
+        # 537-538); its scanned branch for a single copy (:542-549) takes
+        # copy 0, which is the same
+        x = _run_hybrid_blocks(model, params, batch["tokens"],
+                               lambda g: g % cfg.n_shared_attn)
+        aux = {}
     else:
         x, aux = _run_blocks(model, params, batch)
     return _lm_head(model, params, x), aux
@@ -440,21 +458,58 @@ def _ssm_head_mask(model: Model, device):
     return _head_mask(plan, "ssm", torch.float32, torch.device(device))
 
 
+def _ssm_block(model: Model, params, i, x, hm):
+    """Mamba2 layer ``i`` (pre-norm, residual) over a full sequence:
+    (x, (conv_state, ssd_state))."""
+    lp = layer(params["layers"], i)
+    h = norm_apply(lp["ln"], x, model.cfg.norm)
+    y, states = ssm_mod.mamba2_apply(
+        lp["mixer"], h, model.cfg.ssm, compute_dtype=model.compute_dtype,
+        head_mask=hm)
+    return x + y, states
+
+
 def _run_ssm_blocks(model: Model, params, tokens, on_states=None):
-    """Embed and run every Mamba2 block (pre-norm, residual), handing each
-    layer's (conv_state, ssd_state) to on_states."""
-    cfg = model.cfg
+    """Embed and run every Mamba2 block, handing each layer's
+    (conv_state, ssd_state) to on_states."""
     x = _embed_tokens(model, params, tokens)
     hm = _ssm_head_mask(model, tokens.device)
-    for i in range(cfg.num_layers):
-        lp = layer(params["layers"], i)
-        h = norm_apply(lp["ln"], x, cfg.norm)
-        y, states = ssm_mod.mamba2_apply(
-            lp["mixer"], h, cfg.ssm, compute_dtype=model.compute_dtype,
-            head_mask=hm)
-        x = x + y
+    for i in range(model.cfg.num_layers):
+        x, states = _ssm_block(model, params, i, x, hm)
         if on_states is not None:
             on_states(i, states)
+    return x
+
+
+def _hybrid_groups(model: Model) -> Tuple[int, int]:
+    """(groups, Mamba2 layers a group): one application of the shared
+    block follows each group."""
+    cfg = model.cfg
+    period = cfg.attn_period or cfg.num_layers
+    if cfg.num_layers % period:
+        raise ValueError(f"{cfg.name}: {cfg.num_layers} layers do not split "
+                         f"into groups of {period}")
+    return cfg.num_layers // period, period
+
+
+def _run_hybrid_blocks(model: Model, params, tokens, copy, on_states=None,
+                       on_kv=None):
+    """Embed, then each group's Mamba2 blocks followed by copy ``copy(g)``
+    of the shared block (causal); hands each layer's states to on_states
+    and each application's (k, v) to on_kv."""
+    n_groups, period = _hybrid_groups(model)
+    x = _embed_tokens(model, params, tokens)
+    hm = _ssm_head_mask(model, tokens.device)
+    positions = torch.arange(tokens.shape[1], device=tokens.device)
+    for g in range(n_groups):
+        for i in range(g * period, (g + 1) * period):
+            x, states = _ssm_block(model, params, i, x, hm)
+            if on_states is not None:
+                on_states(i, states)
+        x, kv, _ = _block_apply(layer(params["shared_attn"], copy(g)), x,
+                                model, positions, causal=True)
+        if on_kv is not None:
+            on_kv(g, kv)
     return x
 
 
@@ -462,18 +517,20 @@ def init_cache(model: Model, batch: int, max_len: int, device=None):
     device = resolve_device(device)
     cfg, plan = model.cfg, model.plan
     lens = torch.zeros((batch,), dtype=torch.int32, device=device)
-    if cfg.family == SSM:
-        s = cfg.ssm
-        conv_dim = plan.ssm_heads * s.head_dim + 2 * s.n_groups * s.d_state
-        return {"conv": torch.zeros(
-                    (cfg.num_layers, batch, s.conv_width - 1, conv_dim),
-                    dtype=model.compute_dtype, device=device),
-                "ssd": torch.zeros(
-                    (cfg.num_layers, batch, plan.ssm_heads, s.d_state,
-                     s.head_dim), dtype=torch.float32, device=device),
-                "len": lens}
     n_layers = cfg.num_layers
     cache = {}
+    if cfg.family in SSM_FAMILIES:
+        s = cfg.ssm
+        conv_dim = plan.ssm_heads * s.head_dim + 2 * s.n_groups * s.d_state
+        cache = {"conv": torch.zeros(
+                     (cfg.num_layers, batch, s.conv_width - 1, conv_dim),
+                     dtype=model.compute_dtype, device=device),
+                 "ssd": torch.zeros(
+                     (cfg.num_layers, batch, plan.ssm_heads, s.d_state,
+                      s.head_dim), dtype=torch.float32, device=device)}
+        if cfg.family == SSM:
+            return {**cache, "len": lens}
+        n_layers = _hybrid_groups(model)[0]
     if cfg.family in ENCDEC_FAMILIES:
         n_layers = cfg.n_dec_layers
         xkv = (n_layers, batch, cfg.enc_seq_len, plan.n_kv, cfg.head_dim)
@@ -499,14 +556,9 @@ def prefill(model: Model, params, batch, cache, prompt_lens=None):
         prompt_lens = torch.full((b,), s, dtype=torch.int32,
                                  device=tokens.device)
 
-    if model.cfg.family == SSM:
-        def write_states(i, states):
-            cache["conv"][i] = states[0]
-            cache["ssd"][i] = states[1]
-
-        x = _run_ssm_blocks(model, params, tokens, on_states=write_states)
-        cache["len"].copy_(prompt_lens)
-        return _lm_head(model, params, x), cache
+    def write_states(i, states):
+        cache["conv"][i] = states[0]
+        cache["ssd"][i] = states[1]
 
     def write(i, kv):
         cache["k"][i, :, :s] = kv[0]
@@ -515,7 +567,17 @@ def prefill(model: Model, params, batch, cache, prompt_lens=None):
             cache["xk"][i] = kv[2]
             cache["xv"][i] = kv[3]
 
-    x, _ = _run_blocks(model, params, batch, on_kv=write, cross_softcap=0.0)
+    family = model.cfg.family
+    if family == SSM:
+        x = _run_ssm_blocks(model, params, tokens, on_states=write_states)
+    elif family == HYBRID:
+        # every application takes copy 0 of the shared block, as the
+        # reference's prefill does (model_zoo.py:726)
+        x = _run_hybrid_blocks(model, params, tokens, lambda g: 0,
+                               on_states=write_states, on_kv=write)
+    else:
+        x, _ = _run_blocks(model, params, batch, on_kv=write,
+                           cross_softcap=0.0)
     cache["len"].copy_(prompt_lens)
     return _lm_head(model, params, x), cache
 
@@ -576,11 +638,13 @@ def decode_step(model: Model, params, cache, tokens):
     """One autoregressive step.  tokens: (B,) int (the current token).
 
     Returns (logits (B,V_phys), cache with the new token's K/V (dense,
-    encoder-decoder) or states (SSM) written in place and ``len``
-    advanced)."""
+    encoder-decoder, hybrid) and states (SSM, hybrid) written in place and
+    ``len`` advanced)."""
     cfg = model.cfg
     if cfg.family == SSM:
         return _ssm_decode_step(model, params, cache, tokens)
+    if cfg.family == HYBRID:
+        return _hybrid_decode_step(model, params, cache, tokens)
     cache_len = cache["len"]
     x = _add_positions(_position_table(model, params),
                        _embed_tokens(model, params, tokens[:, None]),
@@ -596,21 +660,45 @@ def decode_step(model: Model, params, cache, tokens):
     return _lm_head(model, params, x)[:, 0], cache
 
 
+def _ssm_decode_block(model: Model, params, cache, i, x, hm):
+    """One step of Mamba2 layer ``i`` (pre-norm, residual) over every row
+    of the cache, its states written in place.  x: (B,d)."""
+    cfg = model.cfg
+    lp = layer(params["layers"], i)
+    h = norm_apply(lp["ln"], x, cfg.norm)
+    y, (cs, ss) = ssm_mod.mamba2_decode(
+        lp["mixer"], h, cfg.ssm, compute_dtype=model.compute_dtype,
+        conv_state=cache["conv"][i], ssd_state=cache["ssd"][i],
+        head_mask=hm)
+    cache["conv"][i] = cs
+    cache["ssd"][i] = ss
+    return x + y
+
+
 def _ssm_decode_step(model: Model, params, cache, tokens):
     """One Mamba2 step over every row of the cache, states written in
     place."""
-    cfg = model.cfg
     x = _embed_tokens(model, params, tokens[:, None])[:, 0]
     hm = _ssm_head_mask(model, tokens.device)
-    for i in range(cfg.num_layers):
-        lp = layer(params["layers"], i)
-        h = norm_apply(lp["ln"], x, cfg.norm)
-        y, (cs, ss) = ssm_mod.mamba2_decode(
-            lp["mixer"], h, cfg.ssm, compute_dtype=model.compute_dtype,
-            conv_state=cache["conv"][i], ssd_state=cache["ssd"][i],
-            head_mask=hm)
-        cache["conv"][i] = cs
-        cache["ssd"][i] = ss
-        x = x + y
+    for i in range(model.cfg.num_layers):
+        x = _ssm_decode_block(model, params, cache, i, x, hm)
     cache["len"].add_(1)
+    return _lm_head(model, params, x[:, None])[:, 0], cache
+
+
+def _hybrid_decode_step(model: Model, params, cache, tokens):
+    """One step of every row: each group's Mamba2 layers, then copy 0 of
+    the shared block (as the reference's decode takes it,
+    model_zoo.py:814) on the group's contiguous K/V cache."""
+    n_groups, period = _hybrid_groups(model)
+    cache_len = cache["len"]
+    x = _embed_tokens(model, params, tokens[:, None])[:, 0]
+    hm = _ssm_head_mask(model, tokens.device)
+    blk = layer(params["shared_attn"], 0)
+    for g in range(n_groups):
+        for i in range(g * period, (g + 1) * period):
+            x = _ssm_decode_block(model, params, cache, i, x, hm)
+        x = _block_decode(blk, x[:, None], model, cache["k"][g],
+                          cache["v"][g], cache_len)[:, 0]
+    cache_len.add_(1)
     return _lm_head(model, params, x[:, None])[:, 0], cache

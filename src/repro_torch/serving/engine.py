@@ -10,8 +10,8 @@ traces are exact, and its iteration walls calibrate the simulator's
 (``repro_torch.core``); tests/test_torch_engine.py holds it to the
 reference engine's greedy tokens and iteration records, one by one.
 
-Attention families run the paged path.  SSM and encoder-decoder models
-run the slot path: one contiguous cache of ``max_batch`` rows
+Attention families run the paged path.  SSM, hybrid and
+encoder-decoder models run the slot path: one contiguous cache of ``max_batch`` rows
 (``model_zoo.init_cache``), a row ("slot") held by each running request,
 taken on admission and given back on preemption and on finish.  A
 prefill runs ``model_zoo.prefill`` on the prompt padded to its
@@ -20,9 +20,11 @@ written to the slot have absorbed the padding's zero tokens; only the
 first token is read at the last real position.  An encoder-decoder
 prefill also encodes the request's frame embeddings (``_enc_embeds``,
 the reference's stand-in for an audio frontend, drawn from the request
-id) and writes the cross-attention K/V whole into the slot.  A decode
-step runs every slot, empty ones included.  The slot path of hybrid
-models is not ported and raises ``NotImplementedError``.
+id) and writes the cross-attention K/V whole into the slot.  A hybrid
+prefill writes every layer's states and each shared-block application's
+K/V; the slot write copies every batch-major cache array alike.  A
+decode step runs every slot, empty ones included.  A family of neither
+path raises ``NotImplementedError``.
 
 ``device=None`` means the CUDA card; without one the engine raises.
 Each iteration wall ends with a device synchronisation.
@@ -57,7 +59,7 @@ from typing import Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
-from repro_torch.configs.base import SSM
+from repro_torch.configs.base import HYBRID, SSM
 from repro_torch.core.costmodel.operators import BatchMix
 from repro_torch.core.mem.block_manager import BlockManager, MemoryConfig
 from repro_torch.core.request import Request, State
@@ -70,7 +72,7 @@ from repro_torch.serving.sampling import sample_token
 
 
 #: families served on the slot path
-SLOT_FAMILIES = (SSM,) + zoo.ENCDEC_FAMILIES
+SLOT_FAMILIES = (SSM, HYBRID) + zoo.ENCDEC_FAMILIES
 
 
 @dataclass

@@ -3,8 +3,9 @@
 On the CPU the wrapper runs the kernel's plain version; it is held to
 the JAX wrapper ``repro.kernels.flash_attention.ops.flash_attention``
 (the Pallas kernel in interpret mode, as tests/test_kernels.py runs it)
-on the reference's FLASH_CASES, its softcap case, and shapes at the CUDA
-kernel's tile edges.  Tolerances: 2e-5 in fp32, 3e-2 in bf16.  The CUDA kernel is held to the plain version on
+on the reference's FLASH_CASES, its softcap case, shapes at the CUDA
+kernel's tile edges, and head_dim 80 (with test_kernels.py's
+tolerances).  Tolerances: 2e-5 in fp32, 3e-2 in bf16.  The CUDA kernel is held to the plain version on
 the card in tests/test_torch_kernels_cuda.py.
 
 The ``blocked`` and ``blocked_causal`` routes of ``attend`` are plain
@@ -79,6 +80,33 @@ def test_plain_vs_jax(case):
     got = _torch(q, k, v, dtype, causal=causal)
     assert got.dtype == getattr(torch, dtype)
     tol = _tol(dtype)
+    np.testing.assert_allclose(
+        got.float().numpy(),
+        _jax(q, k, v, dtype, causal=causal, block_q=64, block_kv=64),
+        rtol=tol, atol=tol)
+
+
+#: head_dim 80 (stablelm-3b, zamba2-2.7b's shared block), which the CUDA
+#: kernel runs in its D-128 tiles; the reference wrapper pads nothing in
+#: interpret mode (ops.py:53)
+HEAD_DIM_80_CASES = [
+    (1, 128, 128, 4, 4, 80, True, "bfloat16"),
+    (1, 100, 100, 2, 2, 80, True, "float32"),     # ragged
+    (2, 64, 192, 4, 2, 80, False, "float32"),     # non-causal, GQA
+    (1, 256, 256, 4, 1, 80, True, "float32"),     # GQA 4, two kv blocks
+]
+#: tests/test_kernels.py's FLASH_CASES tolerances
+KERNEL_TOL = {"bfloat16": 2.5e-2, "float32": 2e-5}
+
+
+@pytest.mark.parametrize("case", HEAD_DIM_80_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_plain_vs_jax_at_head_dim_80(case):
+    b, sq, skv, h, hkv, d, causal, dtype = case
+    q, k, v = _inputs(b, sq, skv, h, hkv, d, seed=7)
+    got = _torch(q, k, v, dtype, causal=causal)
+    assert got.dtype == getattr(torch, dtype) and got.shape == (b, sq, h, d)
+    tol = KERNEL_TOL[dtype]
     np.testing.assert_allclose(
         got.float().numpy(),
         _jax(q, k, v, dtype, causal=causal, block_q=64, block_kv=64),

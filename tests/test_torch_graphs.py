@@ -6,7 +6,8 @@ on the same static inputs: tensors made once at construction and
 refilled in place every step, with persistent state (the page store, the
 slot cache) written in place.  Here the port's engine serves requests
 whose decodes cross page boundaries, with preemption forced, on both
-attention paths and on the slot path, and must reproduce the JAX
+attention paths and on the slot path (mamba2-130m, and zamba2-2.7b on
+the flash route), and must reproduce the JAX
 engine's greedy tokens and iteration records exactly, while no static
 input or persistent tensor is ever replaced (same storage before and
 after the run), and the slot engine's host copy of its lengths matches
@@ -70,15 +71,19 @@ def _static_tensors(eng):
     return out
 
 
-@pytest.mark.parametrize("path", ["gather", "pallas", "slot"])
+@pytest.mark.parametrize("path", ["gather", "pallas", "slot", "hybrid"])
 def test_static_step_matches_reference(path):
-    arch = "mamba2-130m" if path == "slot" else "llama2-7b"
-    prompts, outputs = (SSM_PROMPTS, SSM_OUTPUTS) if path == "slot" \
+    """``slot``: mamba2-130m; ``hybrid``: zamba2-2.7b on the slot path
+    with the flash kernel's route in its prefills, as the card serves
+    it."""
+    slot = path in ("slot", "hybrid")
+    arch = {"slot": "mamba2-130m", "hybrid": "zamba2-2.7b"}.get(
+        path, "llama2-7b")
+    prompts, outputs = (SSM_PROMPTS, SSM_OUTPUTS) if slot \
         else (PROMPTS, OUTPUTS)
-    ecfg = SSM_ENGINE if path == "slot" \
-        else dict(attn_path=path, **ENGINE)
+    ecfg = SSM_ENGINE if slot else dict(attn_path=path, **ENGINE)
     jmodel, params, tmodel, tparams = _models(arch)
-    if path == "pallas":
+    if path in ("pallas", "hybrid"):
         jmodel = jmodel.with_settings(attn_impl="pallas", attn_block_q=8,
                                       attn_block_kv=8)
         tmodel = tmodel.with_settings(attn_impl="pallas")

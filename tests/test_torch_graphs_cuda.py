@@ -27,7 +27,13 @@ graphs; whisper-base at full width and depth (6 encoder and 6 decoder
 layers, 1500 frames) the slot path on the kernel route, so each prefill
 graph holds the encoder's non-causal flash launches and the decoder's
 causal and cross-attention ones, and the slot cache's cross-attention
-K/V (``xk``, ``xv``) must be identical too.
+K/V (``xk``, ``xv``) must be identical too; zamba2-2.7b at full width
+cut to 12 layers (two groups of 6 Mamba2 layers, each followed by the
+shared block's 32 heads of 80) the slot path on the kernel route, so
+each prefill graph holds flash at head_dim 80 and, at buckets of 256 and
+512, the SSD scans, and every slot-cache array (``conv``, ``ssd``,
+``k``, ``v``) must be identical; stablelm-3b (32 heads of 80) the paged
+kernel path, so both kernels run at head_dim 80 inside the graphs.
 ``test_stale_tables_are_caught`` plants a fault (the decode step's
 static block tables left unrefreshed before replay) and shows that the
 same comparison catches it.
@@ -77,8 +83,8 @@ def cuda():
 
 
 def _model(arch, cuda, overrides=None, **settings):
-    cfg = dataclasses.replace(get_config(arch), num_layers=LAYERS,
-                              **(overrides or {}))
+    cfg = dataclasses.replace(get_config(arch),
+                              **{"num_layers": LAYERS, **(overrides or {})})
     model = zoo.build(cfg, settings=RunSettings(**settings))
     return model, zoo.init_params(model, seed=0, device=cuda)
 
@@ -243,6 +249,58 @@ def test_graphed_whisper_engine_matches_eager(cuda):
     assert graphed[2].get("flash_attention", 0) == per_prefill * prefills
     assert graphed[2].get(("flash_attention", cfg.enc_seq_len), 0) == \
         cfg.n_enc_layers * prefills
+    assert graphed[2].get("paged_attention", 0) == 0
+    assert g.cache["len"].tolist() == g.slot_len.tolist()
+
+
+def test_graphed_stablelm_engine_matches_eager(cuda):
+    """head_dim 80 on the paged path: the paged kernel (16 lanes a row)
+    in the decode graph, flash (D-128 tiles) in the prefill graphs."""
+    model, params = _model("stablelm-3b", cuda, attn_impl="pallas")
+    assert model.cfg.head_dim == 80
+    ec = EngineConfig(attn_path="pallas", **LLAMA_ENGINE)
+    eager = _serve(model, params, ec, LLAMA_PROMPTS, LLAMA_OUTPUTS, False)
+    graphed = _serve(model, params, ec, LLAMA_PROMPTS, LLAMA_OUTPUTS, None)
+    g = graphed[0]
+    assert sum(r.preempt_count for r in graphed[1]) > 0, \
+        "no preemption forced"
+    assert _differences(eager, graphed) == []
+    decodes = sum(r.kind == "decode" for r in g.records)
+    prefills = sum(len(r.batch_ids) for r in g.records
+                   if r.kind == "prefill")
+    assert graphed[2].get("paged_attention", 0) == LAYERS * decodes
+    assert graphed[2].get("flash_attention", 0) == LAYERS * prefills
+
+
+#: zamba2-2.7b cut to two groups of its 6 Mamba2 layers
+HYBRID_LAYERS = 12
+
+
+def test_graphed_hybrid_engine_matches_eager(cuda):
+    model, params = _model("zamba2-2.7b", cuda,
+                           {"num_layers": HYBRID_LAYERS}, attn_impl="pallas")
+    groups = HYBRID_LAYERS // model.cfg.attn_period
+    assert groups == 2 and model.cfg.head_dim == 80
+    ec = EngineConfig(**MAMBA_ENGINE)
+    eager = _serve(model, params, ec, MAMBA_PROMPTS, MAMBA_OUTPUTS, False)
+    graphed = _serve(model, params, ec, MAMBA_PROMPTS, MAMBA_OUTPUTS, None)
+    g = graphed[0]
+    assert sum(r.preempt_count for r in graphed[1]) > 0, \
+        "no preemption forced"
+    assert _differences(eager, graphed) == []
+    assert set(g.cache) == {"conv", "ssd", "k", "v", "len"}
+    assert {("prefill", 256), ("prefill", 512)} <= set(g.graphs.graphs)
+    assert g.graphs.graphs[("decode",)].replays > 0
+    # flash once an application of the shared block, every prefill; the
+    # SSD scan once a layer, every prefill whose bucket is a multiple of
+    # the chunk; no paged launch (the decode attention is the plain one)
+    buckets = [ServingEngine._bucket(r.prompt_len) for r in graphed[1]]
+    prefills = sum(len(r.batch_ids) for r in g.records
+                   if r.kind == "prefill")
+    assert graphed[2].get("flash_attention", 0) == groups * prefills
+    assert graphed[2]["ssd_scan"] > 0
+    assert graphed[2]["ssd_scan"] % HYBRID_LAYERS == 0
+    assert any(b % model.cfg.ssm.chunk_size for b in buckets)
     assert graphed[2].get("paged_attention", 0) == 0
     assert g.cache["len"].tolist() == g.slot_len.tolist()
 

@@ -20,12 +20,21 @@ plants one in the non-causal tail (the key at position Skv, a row past
 the end that TMA fills with zeros, joins the softmax) and shows that the
 limit catches it at whisper-base's Skv of 1500.
 
+Both attention kernels take head_dim 80 (stablelm-3b, zamba2-2.7b's
+shared block) in padded tiles and lanes: flash in its D-128 tiles, paged
+with 16 lanes a row, 6 of them dead.  Their cases cover every prefill
+bucket and contexts up to 1056, and
+``test_relative_limit_catches_a_head_dim_80_fault`` plants a fault of the
+padding in each (the flash epilogue storing 128 columns, the paged dead
+lanes writing into the merge buffer) and shows that the limit, read on
+every row of every head, catches it.
+
 The ``blocked``/``blocked_causal`` attention routes launch no kernel (they
 are plain PyTorch, as the reference's are plain JAX): they are held to
-the naive route on the card, with the same row limits, at the shapes
-the flash kernel refuses (head_dim 80 in bf16, head_dim 128 in fp32, S
-4096 in blocks of 1024, and a ragged S 3000), and one of them is
-captured in a CUDA graph and replayed, equal to eager.
+the naive route on the card, with the same row limits, at stablelm-3b's
+long prompts (head_dim 80 in bf16, and head_dim 128 in fp32, which the
+flash kernel refuses; S 4096 in blocks of 1024, and a ragged S 3000),
+and one of them is captured in a CUDA graph and replayed, equal to eager.
 
 The SSD scan (three kernels: chunk state, state passing, chunk scan) is
 held to its plain version (run on the CPU, in fp32, on the same values;
@@ -153,6 +162,18 @@ PAGED = [
      {"lens": [2048, 3, 17, 40, 64, 5, 100, 1]}),
     (6, 24, 8, 64, 40, 16, 32, torch.float32, {"shared_pages": True}),
     (3, 3, 1, 128, 33, 8, 8, torch.bfloat16, {}),
+    # head_dim 80 (stablelm-3b, 32/32), bf16 and fp32: a row takes 16
+    # lanes, 6 of them dead; contexts up to 1056 in the serving store
+    (8, 32, 32, 80, 129, 16, 16, torch.bfloat16, {}),
+    (8, 32, 32, 80, 129, 16, 16, torch.float32, {}),
+    (7, 32, 32, 80, 129, 16, 16, torch.bfloat16, {"lens": "split-boundary"}),
+    (7, 32, 32, 80, 129, 16, 16, torch.float32, {"lens": "split-boundary"}),
+    (8, 32, 32, 80, 1025, 16, 128, torch.bfloat16,
+     {"lens": [1056, 1, 64, 300, 1024, 17, 640, 1]}),
+    (8, 32, 32, 80, 1025, 16, 128, torch.float32,
+     {"lens": [1056, 1, 64, 300, 1024, 17, 640, 1]}),
+    (4, 16, 4, 80, 65, 16, 16, torch.bfloat16, {}),
+    (6, 8, 2, 80, 40, 16, 32, torch.float32, {"shared_pages": True}),
 ]
 
 
@@ -225,6 +246,15 @@ FLASH = [
     (1, 8, 1500, 8, 8, 64, False, 0.0, torch.bfloat16),
     (1, 512, 1500, 8, 8, 64, False, 0.0, torch.bfloat16),
     (1, 512, 512, 8, 8, 64, True, 0.0, torch.bfloat16),
+    # head_dim 80 (stablelm-3b and zamba2-2.7b's shared block, 32/32) in
+    # the D-128 tiles: every prefill bucket, GQA 32/8, a ragged Sq,
+    # non-causal with Sq != Skv, and a softcap
+    *((1, s, s, 32, 32, 80, True, 0.0, torch.bfloat16)
+      for s in (64, 128, 256, 512, 1024, 2048)),
+    (1, 1024, 1024, 32, 8, 80, True, 0.0, torch.bfloat16),
+    (1, 1000, 1000, 32, 32, 80, True, 0.0, torch.bfloat16),
+    (2, 200, 333, 8, 8, 80, False, 0.0, torch.bfloat16),
+    (1, 256, 256, 4, 4, 80, True, 30.0, torch.bfloat16),
 ]
 
 
@@ -402,23 +432,103 @@ def test_relative_limit_catches_an_off_by_one_at_group_3(
     assert sound <= REL_TOL[torch.bfloat16] < planted
 
 
+#: planted faults of head_dim 80: the flash epilogue stores all 128
+#: columns of its D-128 tile at the row stride of 80, over the first 48
+#: columns of the next head; the paged kernel's dead lanes (10-15 of a
+#: row's 16) write their zero accumulators into the row groups' merge
+#: buffer, over the first 48 columns of the next (group, q head) record
+HEAD_DIM_80_FAULTS = {
+    "flash-epilogue-stores-128-columns": (
+        "flash_attention", "for (int j = 0; j < DV / 8; ++j)",
+        "for (int j = 0; j < D / 8; ++j)"),
+    "paged-dead-lanes-write-the-merge": (
+        "paged_attention",
+        "    if (live_lane) {\n#pragma unroll\n"
+        "      for (int i = 0; i < kVec; ++i)\n        grp_acc",
+        "    if (true) {\n#pragma unroll\n"
+        "      for (int i = 0; i < kVec; ++i)\n        grp_acc"),
+}
+
+
+def _head_dim_80_case(name, device):
+    """Kernel ``name`` once at stablelm-3b's shapes (32/32 heads of 80,
+    bf16): paged, the serving store's decode (contexts up to 2048, the
+    last row padded); flash, a causal 2048-token prefill.  Returns
+    (kernel output, fp32 plain output): every row of every head."""
+    dtype = torch.bfloat16
+    if name == "paged_attention":
+        args = _paged_inputs(8, 32, 32, 80, 1025, 16, 128, dtype, device)
+        return paged.paged_attention(*args), _paged_plain(args)
+    rng = np.random.RandomState(3)
+    q, k, v = (torch.from_numpy(rng.randn(1, 2048, 32, 80)
+                                .astype(np.float32)).to(device, dtype)
+               for _ in range(3))
+    return flash.flash_attention(q, k, v), _flash_plain(q, k, v)
+
+
+@pytest.mark.parametrize("fault", sorted(HEAD_DIM_80_FAULTS))
+def test_relative_limit_catches_a_head_dim_80_fault(cuda, fault, tmp_path,
+                                                    monkeypatch):
+    """The sound kernels read within the bf16 limit on every row of every
+    head at head_dim 80; a copy of the source with a fault of the padded
+    columns or lanes planted reads past it."""
+    name, old, new = HEAD_DIM_80_FAULTS[fault]
+    sound = float(_row_rel_err(*_head_dim_80_case(name, cuda)).max())
+    src = (build.CSRC / f"{name}.cu").read_text()
+    assert src.count(old) == 1
+    (tmp_path / f"{name}.cu").write_text(src.replace(old, new))
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "lib")
+    monkeypatch.setattr(build, "_loaded", {})
+    planted = float(_row_rel_err(*_head_dim_80_case(name, cuda)).max())
+    print(f"\n{fault}: relative error, sound {sound:.3e}, planted "
+          f"{planted:.3e}, limit {REL_TOL[torch.bfloat16]:.0e}")
+    assert sound <= REL_TOL[torch.bfloat16] < planted
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_head_dim_80_reads_pages_where_the_table_says(cuda, dtype):
+    """The same K/V content through two permutations of the pages gives
+    the same bits at head_dim 80: each position is read where the block
+    table puts it, and the merge order does not depend on page numbers."""
+    b, h, d, page, mp, npages = 2, 32, 80, 16, 66, 140
+    rng = np.random.RandomState(4)
+    q = torch.from_numpy(rng.randn(b, h, d).astype(np.float32)).to(cuda,
+                                                                  dtype)
+    seq = [torch.from_numpy(rng.randn(b * mp, page, h, d).astype(np.float32))
+           .to(cuda, dtype) for _ in range(2)]
+    lens = torch.tensor([1056, 700], dtype=torch.int32, device=cuda)
+    outs = []
+    for seed in (5, 6):
+        perm = np.random.RandomState(seed).permutation(npages)[:b * mp]
+        kp, vp = (torch.zeros(npages, page, h, d, device=cuda, dtype=dtype)
+                  for _ in range(2))
+        kp[torch.from_numpy(perm).to(cuda)] = seq[0]
+        vp[torch.from_numpy(perm).to(cuda)] = seq[1]
+        bt = torch.from_numpy(perm.reshape(b, mp).astype(np.int32)).to(cuda)
+        outs.append(paged.paged_attention(q, kp, vp, bt, lens))
+        want = _paged_plain((q, kp, vp, bt, lens))
+        assert _row_rel_err(outs[-1], want).max() <= REL_TOL[dtype]
+    assert torch.equal(outs[0], outs[1])
+
+
 def test_head_dim_80_raises(cuda):
-    """stablelm-3b's head_dim (2560/32 = 80): neither kernel takes it, so
-    its kernel routes raise on the card; its served routes are the plain
-    defaults (``gather``, and ``auto`` prefill attention)."""
+    """Both kernels take stablelm-3b's head_dim (2560/32 = 80) since they
+    run it in padded tiles and lanes; the refusal this test pinned when
+    they did not moves to head_dim 96, which neither takes: a CUDA
+    tensor launches the kernel or raises, nothing falls back."""
     from repro_torch.configs import get_config
-    cfg = get_config("stablelm-3b")
-    d, h = cfg.head_dim, cfg.n_heads
-    assert d == 80
+    assert get_config("stablelm-3b").head_dim == 80
+    assert 80 in paged.HEAD_DIMS and 80 in flash.HEAD_DIMS
+    d, h = 96, 32
     q = torch.zeros(2, h, d, device=cuda, dtype=torch.bfloat16)
-    kp = torch.zeros(9, 16, cfg.n_kv_heads, d, device=cuda,
-                     dtype=torch.bfloat16)
+    kp = torch.zeros(9, 16, h, d, device=cuda, dtype=torch.bfloat16)
     bt = torch.zeros(2, 4, dtype=torch.int32, device=cuda)
     cl = torch.ones(2, dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="head_dim 80"):
+    with pytest.raises(ValueError, match="head_dim 96"):
         paged.paged_attention(q, kp, kp, bt, cl)
     x = torch.zeros(1, 64, h, d, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head_dim 80"):
+    with pytest.raises(ValueError, match="head_dim 96"):
         flash.flash_attention(x, x, x)
 
 
@@ -459,7 +569,7 @@ def test_cpu_tensors_take_the_plain_version():
 # ---------------------------------------------------------------------------
 # the blocked attention routes (plain PyTorch, no kernel)
 # ---------------------------------------------------------------------------
-#: (impl, s, h, hkv, d, dtype): stablelm-3b's head_dim 80 in bf16 and
+#: (impl, s, h, hkv, d, dtype): stablelm-3b's head_dim 80 in bf16, and
 #: head_dim 128 in fp32 (GQA 4), which the flash kernel refuses; S 4096
 #: is 4 x 4 blocks of 1024, S 3000 takes the reference's ragged fallback
 BLOCKED = [
@@ -479,7 +589,7 @@ def _blocked_inputs(s, h, hkv, d, dtype, device, seed=0):
 @pytest.mark.parametrize("case", BLOCKED, ids=lambda c: "-".join(
     map(str, c[:5])) + "-" + str(c[5]).split(".")[-1])
 def test_blocked_route_vs_naive(cuda, case):
-    """The repaired route serves what the flash kernel refuses, and
+    """The repaired route serves stablelm-3b's long prompts, and
     launches no kernel: each output row (one q head of one token) is
     within ``REL_TOL`` of the naive route on the same card."""
     impl, s, h, hkv, d, dtype = case
@@ -594,6 +704,12 @@ SSD = [
     (2, 90, 4, 8, 2, 10, 64, {}),
     (1, 150, 2, 20, 1, 70, 100,
      {"bc_dtype": torch.bfloat16, "strided": True, "with_state": True}),
+    # zamba2-2.7b's prefills: 80 heads of 64, N 64, the shortest and the
+    # longest chunked bucket
+    (1, 256, 80, 64, 1, 64, 256,
+     {"bc_dtype": torch.bfloat16, "strided": True, "model_decay": True}),
+    (1, 1024, 80, 64, 1, 64, 256,
+     {"bc_dtype": torch.bfloat16, "strided": True, "model_decay": True}),
 ]
 
 

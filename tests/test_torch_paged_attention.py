@@ -3,7 +3,7 @@
 On the CPU the wrapper runs the kernel's plain version; it is held to
 the JAX wrapper ``repro.kernels.paged_attention.ops.paged_attention``
 (the Pallas kernel in interpret mode, as tests/test_kernels.py runs it)
-on the reference's PAGED_CASES.  Tolerances as there: 2e-5 in fp32,
+on the reference's PAGED_CASES and at head_dim 80.  Tolerances as there: 2e-5 in fp32,
 3e-2 in bf16.  The CUDA kernel is held to the plain version on
 the card in tests/test_torch_kernels_cuda.py.
 """
@@ -63,6 +63,28 @@ def test_plain_vs_jax(case):
     q, kp, vp, bt, cl = _inputs(case)
     got = _torch(q, kp, vp, bt, cl, dtype)
     assert got.dtype == getattr(torch, dtype)
+    tol = _tol(dtype)
+    np.testing.assert_allclose(got.float().numpy(),
+                               _jax(q, kp, vp, bt, cl, dtype),
+                               rtol=tol, atol=tol)
+
+
+#: head_dim 80 (stablelm-3b's decode, 32/32, and GQA), which the CUDA
+#: kernel runs with 16 lanes a row
+HEAD_DIM_80_CASES = [
+    (2, 4, 4, 80, 16, 16, 4, "bfloat16"),
+    (2, 4, 4, 80, 16, 16, 4, "float32"),
+    (3, 8, 2, 80, 32, 8, 6, "float32"),
+]
+
+
+@pytest.mark.parametrize("case", HEAD_DIM_80_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_plain_vs_jax_at_head_dim_80(case):
+    dtype = case[-1]
+    q, kp, vp, bt, cl = _inputs(case, seed=6)
+    got = _torch(q, kp, vp, bt, cl, dtype)
+    assert got.dtype == getattr(torch, dtype) and got.shape == q.shape
     tol = _tol(dtype)
     np.testing.assert_allclose(got.float().numpy(),
                                _jax(q, kp, vp, bt, cl, dtype),

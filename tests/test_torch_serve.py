@@ -1,7 +1,7 @@
 """The port's ``launch/serve.py`` against the reference's, on the CPU.
 
 For llama2-7b, opt-13b and the two granite MoE models on the paged path
-and mamba2-130m and whisper-base on the slot path, ``python -m repro.launch.serve --smoke`` and the port's
+and mamba2-130m, zamba2-2.7b and whisper-base on the slot path, ``python -m repro.launch.serve --smoke`` and the port's
 ``--smoke --device cpu`` with the same arguments must draw the same
 request stream and report the same counts: finished requests,
 preemption rate and engine iterations.  Walls and rates are host times
@@ -33,7 +33,8 @@ def _recording(generate, into):
 
 @pytest.mark.parametrize("arch", ["llama2-7b", "mamba2-130m", "opt-13b",
                                   "granite-moe-1b-a400m",
-                                  "granite-moe-3b-a800m", "whisper-base"])
+                                  "granite-moe-3b-a800m", "whisper-base",
+                                  "zamba2-2.7b"])
 def test_serve_matches_reference(arch, monkeypatch, capsys):
     argv = ["--arch", arch] + ARGS
     jstream, tstream = [], []
