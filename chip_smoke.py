@@ -110,12 +110,31 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    first-token and decode-step logits of the kernel route against
    ``naive``; a profile of a decode step at batch 8 and of a 1024-token
    prefill (flash's and the SSD scans' shares), eager and graphed;
-9. the simulator (``repro_torch.launch.simulate``, llama2-7b on A100,
+9. training, with autograd on: llama2-7b at full width cut to 8 of its
+   32 layers (fp32 master weights, gradients and AdamW state of the
+   whole model take 108 GB) through ``Trainer``, B 8, S 512,
+   ``remat="full"``, 10 steps: step walls, tokens/s, MFU (6 N tokens /
+   wall / the bf16 peak), the optimizer's share of a step's device time
+   (CUDA events), peak memory and the loss at each step, which must be
+   finite and end below where it began, then a profile of one step
+   (GEMMs' share, top kernels); mamba2-130m whole through the training
+   CLI's trainer (``--steps 10 --seq-len 1024 --batch 4``): the SSD scan
+   must launch 24 times in each step's forward and 24 more in remat's
+   recompute, then a profile of one step (the SSD kernels' share); the
+   SSD wrapper's gradients (kernel forward, the
+   plain version recomputed for the backward) against the plain
+   version's at mamba2-130m's and zamba2-2.7b's prefill shapes; the
+   100M example (12 layers, d 768) for 20 steps, saving every 10, then a
+   new ``Trainer`` on its directory, which must restore step 20 bit for
+   bit and take the next 5 steps as the first run took them, and 3
+   steps with int8 gradient compression; flash, paged and
+   ``attend(impl="pallas")`` must refuse a call autograd would record;
+10. the simulator (``repro_torch.launch.simulate``, llama2-7b on A100,
    1000 requests at 8 QPS) twice, each in its own process: the two
    summaries must be equal apart from the host's wall time; a third
    process imports the port's simulator, sweep and CLI and must load
    nothing of jax or of the reference package;
-10. the ``kernels`` JSON line (each kernel's launches summed over the
+11. the ``kernels`` JSON line (each kernel's launches summed over the
    main paths that run it, with ``launches_by_path``; its times at the
    llama2-7b case), then the result line.
 
@@ -129,6 +148,7 @@ import gc
 import json
 import os
 import re
+import shutil
 import subprocess
 import sys
 import time
@@ -147,15 +167,22 @@ from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as paged_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
+from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.configs.base import MOE  # noqa: E402
+from repro_torch.examples import train_100m as ex100m  # noqa: E402
+from repro_torch.models import attention_impl  # noqa: E402
 from repro_torch.models import model_zoo as zoo  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models import ssm  # noqa: E402
-from repro_torch.models.common import RunSettings  # noqa: E402
+from repro_torch.models.common import RunSettings, tree_leaves  # noqa: E402
 from repro_torch.models.layers import norm_apply  # noqa: E402
 from repro_torch.serving import paged_model  # noqa: E402
 from repro_torch.serving.engine import EngineConfig, ServingEngine  # noqa: E402
 from repro_torch.serving.graphs import StepGraphs  # noqa: E402
+from repro_torch.training import trainer as train_step_mod  # noqa: E402
+from repro_torch.training.data import DataConfig  # noqa: E402
+from repro_torch.training.optimizer import AdamWConfig  # noqa: E402
+from repro_torch.training.trainer import TrainConfig, Trainer  # noqa: E402
 
 # H100 SXM published peaks (NVIDIA data sheet, dense)
 PEAK_BYTES_S = 3.35e12
@@ -2129,6 +2156,319 @@ def check_blocked_prefill(params):
 
 
 #: the simulator check: the reference CLI's arguments
+# ---------------------------------------------------------------------------
+# Training
+# ---------------------------------------------------------------------------
+TRAIN_ARCH = "llama2-7b"
+#: depth of the llama2-7b training phase, of 32 layers: fp32 master
+#: weights, gradients, mu and nu take 16 bytes a parameter, 108 GB for
+#: the whole model; at 8 layers (1.88 B parameters) they take 30 GB
+TRAIN_LAYERS = 8
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS = 8, 512, 10
+MAMBA_TRAIN_ARGS = ("--arch", "mamba2-130m", "--steps", "10", "--seq-len",
+                    "1024", "--batch", "4")
+#: substrings of cuBLAS's GEMM kernel names on Hopper
+GEMM_KERNELS = ("gemm", "nvjet", "xmma", "cutlass")
+#: the SSD wrapper's gradients against the plain version's, each input's
+#: largest error over its largest gradient
+SSD_GRAD_REL = 1e-4
+LM100M_STEPS, LM100M_SAVE_EVERY, LM100M_MORE = 20, 10, 5
+
+
+def _finite(history, key):
+    return all(np.isfinite(h[key]) for h in history)
+
+
+def timed_steps(trainer, steps):
+    """Run ``steps`` steps one at a time: each step's wall (host clock;
+    the step ends on the host reading its metrics) and its device time
+    and the optimizer's (``adamw_update``) from CUDA events, and the
+    kernel launches each step made."""
+    records = []
+    real_update = train_step_mod.adamw_update
+
+    def timed_update(*args, **kw):
+        ev[1].record()
+        out = real_update(*args, **kw)
+        ev[2].record()
+        return out
+
+    train_step_mod.adamw_update = timed_update
+    try:
+        for _ in range(steps):
+            ev = [torch.cuda.Event(enable_timing=True) for _ in range(4)]
+            before = launch_counts.snapshot()
+            t0 = time.perf_counter()
+            ev[0].record()
+            trainer.run(1, log=None)
+            ev[3].record()
+            wall = time.perf_counter() - t0
+            torch.cuda.synchronize()
+            after = launch_counts.snapshot()
+            records.append({
+                "wall_s": wall, "device_ms": ev[0].elapsed_time(ev[3]),
+                "optimizer_ms": ev[1].elapsed_time(ev[2]),
+                "launches": {k: n - before.get(k, 0)
+                             for k, n in after.items()
+                             if isinstance(k, str)},
+                **trainer.history[-1]})
+    finally:
+        train_step_mod.adamw_update = real_update
+    return records
+
+
+def train_summary(trainer, records, tokens_per_step):
+    """Step wall (mean and median), tokens/s and MFU (6 N tokens / mean
+    wall / the bf16 peak) over the steps after the first, the
+    optimizer's share of their device time, peak memory and the loss
+    curve."""
+    n = zoo.param_count(trainer.params)
+    warm = records[1:] or records
+    wall = sum(r["wall_s"] for r in warm) / len(warm)
+    opt = sum(r["optimizer_ms"] for r in warm)
+    return {"params": n, "tokens_per_step": tokens_per_step,
+            "step_wall_s": [r["wall_s"] for r in records],
+            "mean_step_wall_s": wall,
+            "median_step_wall_s": float(np.median(
+                [r["wall_s"] for r in warm])),
+            "tokens_per_s": tokens_per_step / wall,
+            "mfu": 6 * n * tokens_per_step / wall
+            / PEAK_FLOPS_S[torch.bfloat16],
+            "step_device_ms": [r["device_ms"] for r in records],
+            "optimizer_ms": [r["optimizer_ms"] for r in records],
+            "optimizer_share": opt / sum(r["device_ms"] for r in warm),
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "loss": [r["loss"] for r in records],
+            "grad_norm": [r["grad_norm"] for r in records],
+            "lr": [r["lr"] for r in records]}
+
+
+def require_learning(label, history):
+    if not (_finite(history, "loss") and _finite(history, "grad_norm")):
+        raise AssertionError(f"{label}: a loss or grad norm is not finite")
+    if not history[-1]["loss"] < history[0]["loss"]:
+        raise AssertionError(f"{label}: the loss went from "
+                             f"{history[0]['loss']} to {history[-1]['loss']}")
+
+
+def check_llama_training():
+    """llama2-7b at full width, cut to TRAIN_LAYERS layers, through
+    ``Trainer`` (B 8, S 512, remat full, lr 3e-4, warmup 2)."""
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                              num_layers=TRAIN_LAYERS)
+    model = zoo.build(cfg, settings=RunSettings(remat="full"))
+    tc = TrainConfig(opt=AdamWConfig(lr=3e-4, warmup_steps=2,
+                                     total_steps=TRAIN_STEPS))
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                    global_batch=TRAIN_BATCH, seed=SEED)
+    torch.cuda.reset_peak_memory_stats()
+    trainer = Trainer(model, tc, dc, seed=SEED)
+    records = timed_steps(trainer, TRAIN_STEPS)
+    rec = train_summary(trainer, records, TRAIN_BATCH * TRAIN_SEQ)
+    phase(f"{TRAIN_ARCH}_train_{TRAIN_LAYERS}_layers", model=cfg.name,
+          layers=f"{TRAIN_LAYERS} of {get_config(TRAIN_ARCH).num_layers}",
+          d_model=cfg.d_model, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+          remat="full", attn=model.settings.resolve_attn(TRAIN_SEQ),
+          master_dtype=cfg.param_dtype, **rec)
+    require_learning(TRAIN_ARCH, trainer.history)
+    profile(f"{TRAIN_ARCH}_train_step", lambda: trainer.run(1, log=None), 2,
+            shares={"gemm": GEMM_KERNELS})
+    del trainer
+    free_memory()
+
+
+def check_mamba_training():
+    """mamba2-130m whole through the training CLI's ``build_trainer``:
+    every step must launch the SSD scan once a layer in the forward and
+    once more a layer in remat's recompute."""
+    args = train_cli.parse_args(list(MAMBA_TRAIN_ARGS))
+    trainer = train_cli.build_trainer(args)
+    cfg = trainer.model.cfg
+    if args.seq_len % cfg.ssm.chunk_size:
+        raise AssertionError("the sequence must be a multiple of the chunk "
+                             "for the SSD kernel to run")
+    per_pass = cfg.num_layers
+    expected = per_pass * (2 if args.remat != "none" else 1)
+    torch.cuda.reset_peak_memory_stats()
+    launch_counts.reset()
+    records = timed_steps(trainer, args.steps)
+    launches = launch_counts.snapshot()
+    rec = train_summary(trainer, records, args.batch * args.seq_len)
+    per_step = [r["launches"].get("ssd_scan", 0) for r in records]
+    phase("mamba2-130m_train", model=cfg.name, layers=cfg.num_layers,
+          cli=" ".join(MAMBA_TRAIN_ARGS), remat=args.remat,
+          ssd_scan_per_step=per_step,
+          ssd_scan_expected_per_step=f"{per_pass} forward + {per_pass} "
+          f"recomputed = {expected}", launches=launches, **rec)
+    if per_step != [expected] * args.steps:
+        raise AssertionError(f"SSD scan launches per step {per_step}, "
+                             f"expected {expected} each")
+    require_learning("mamba2-130m", trainer.history)
+    profile("mamba2-130m_train_step", lambda: trainer.run(1, log=None), 2,
+            shares={"ssd_scan": SSD_KERNELS, "gemm": GEMM_KERNELS})
+    del trainer
+    free_memory()
+    return launches.get("ssd_scan", 0)
+
+
+def ssd_grad_case(name, b, s, h, p, g, n, chunk, with_state, seed):
+    """Gradients of a seeded scalar of (y, final state) through the
+    wrapper (kernel forward, plain recompute for the backward) against
+    ``torch.autograd.grad`` through ``ssd_chunked_ref``, on the card."""
+    xbar, dA_log, Bm, Cm, state0 = ssd_inputs(
+        b, s, h, p, g, n, bc_dtype=torch.bfloat16, strided=True,
+        with_state=with_state, model_decay=True, seed=seed)
+    inputs = [t.detach().requires_grad_() if t is not None else None
+              for t in (xbar, dA_log, Bm, Cm, state0)]
+    wanted = [t for t in inputs if t is not None]
+    gen = torch.Generator(device="cuda").manual_seed(seed)
+    wy = torch.randn(b, s, h, p, generator=gen, device="cuda")
+    wf = torch.randn(b, h, n, p, generator=gen, device="cuda")
+
+    def scalar(y, fs):
+        return (y * wy).sum() + (fs * wf).sum()
+
+    def kernel_grads():
+        y, fs = ssd_ops.ssd_scan(*inputs[:4], chunk=chunk, state0=inputs[4])
+        return torch.autograd.grad(scalar(y, fs), wanted)
+
+    def plain_grads():
+        y, fs = ssd_ops.ssd_chunked_ref(*inputs[:4], chunk, inputs[4])
+        return torch.autograd.grad(scalar(y, fs), wanted)
+
+    before = launch_counts.get("ssd_scan")
+    got, want = kernel_grads(), plain_grads()
+    launched = launch_counts.get("ssd_scan") - before
+    errs = {nm: float((a.float() - w.float()).abs().max()
+                      / w.float().abs().max().clamp_min(1e-30))
+            for nm, a, w in zip(("xbar", "dA_log", "B", "C", "state0"),
+                                got, want)}
+    with torch.no_grad():
+        fwd_ms = time_ms(lambda: ssd_ops.ssd_scan(
+            *inputs[:4], chunk=chunk, state0=inputs[4]), 10)
+    rec = {"shape": dict(b=b, s=s, h=h, p=p, g=g, n=n, chunk=chunk),
+           "state0": with_state, "kernel_launches": launched,
+           "grad_rel_err": errs, "limit": SSD_GRAD_REL,
+           "max_grad_rel_err": max(errs.values()),
+           "kernel_forward_ms": fwd_ms,
+           "kernel_forward_plain_backward_ms": time_ms(kernel_grads, 5),
+           "plain_forward_backward_ms": time_ms(plain_grads, 5)}
+    phase("ssd_scan_grad", case=name, **rec)
+    if launched != 1 or any(not g.isfinite().all() for g in got):
+        raise AssertionError(f"ssd_scan_grad {name}: {launched} launches "
+                             "or a gradient not finite")
+    if rec["max_grad_rel_err"] > SSD_GRAD_REL:
+        raise AssertionError(f"ssd_scan_grad {name}: {errs} over "
+                             f"{SSD_GRAD_REL}")
+
+
+def _state_copy(trainer):
+    return [t.clone() for t in tree_leaves(trainer._state_tree())]
+
+
+def _max_diff(a, b):
+    return max(float((x.double() - y.double()).abs().max())
+               for x, y in zip(a, b))
+
+
+def check_lm100m_restart():
+    """The 100M example (``repro_torch.examples.train_100m``: 12 layers,
+    d 768, S 256, B 8, microbatches 2) for 20 steps, saving every 10; a
+    new ``Trainer`` on the same directory restores step 20 bit for bit
+    and its next 5 steps equal those of the run that went on; then a
+    few steps with int8 gradient compression."""
+    out = Path(__file__).resolve().parent / "build" / "repro_torch_train"
+    ckpt = out / "lm-100m"
+    shutil.rmtree(ckpt, ignore_errors=True)
+    total = LM100M_STEPS + LM100M_MORE
+    tc = dataclasses.replace(ex100m.train_config(total, str(ckpt)),
+                             checkpoint_every=LM100M_SAVE_EVERY)
+    dc = ex100m.data_config(8, 256)
+    model = zoo.build(ex100m.CFG_100M)
+    torch.cuda.reset_peak_memory_stats()
+    first = Trainer(model, tc, dc, seed=SEED)
+    records = timed_steps(first, LM100M_STEPS)
+    first.ckpt.wait()
+    at_save = _state_copy(first)
+    more = timed_steps(first, LM100M_MORE)
+    rec = train_summary(first, records + more, 8 * 256)
+    second = Trainer(model, tc, dc, seed=SEED + 1)
+    restored = _state_copy(second)
+    exact = len(restored) == len(at_save) and all(
+        torch.equal(a, b) for a, b in zip(restored, at_save))
+    second.run(LM100M_MORE, log=None)
+    cont = _max_diff(_state_copy(second), _state_copy(first))
+    losses = ([h["loss"] for h in first.history[-LM100M_MORE:]],
+              [h["loss"] for h in second.history])
+    del first, second
+    free_memory()
+    comp = Trainer(model, dataclasses.replace(
+        tc, grad_compression=True, checkpoint_dir=None), dc, seed=SEED)
+    comp.run(3, log=None)
+    phase("lm-100m_train_restart", model=ex100m.CFG_100M.name,
+          saved_steps=sorted(os.listdir(ckpt)), restored_step=LM100M_STEPS,
+          restored_bit_for_bit=exact,
+          continued_max_abs_diff=cont, continued_bit_for_bit=cont == 0.0,
+          continued_losses=losses[0], restored_run_losses=losses[1],
+          grad_compression_loss=[h["loss"] for h in comp.history], **rec)
+    if not exact:
+        raise AssertionError("the restored state differs from the saved")
+    if cont > 1e-6:
+        raise AssertionError(f"the restored run drifts by {cont}")
+    require_learning("lm-100m", records + more)
+    if not _finite(comp.history, "loss"):
+        raise AssertionError("a loss with grad compression is not finite")
+    del comp
+    free_memory()
+
+
+def check_grad_refusals():
+    """Flash and paged under grad raise on the card, as does
+    ``attend(impl="pallas")``; under no_grad they launch."""
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    q = torch.randn(1, 128, 8, 64, generator=gen, device="cuda",
+                    dtype=torch.bfloat16).requires_grad_()
+    k = torch.randn(1, 128, 8, 64, generator=gen, device="cuda",
+                    dtype=torch.bfloat16)
+    pages = torch.randn(4, PAGE, 8, 64, generator=gen, device="cuda",
+                        dtype=torch.bfloat16)
+    tables = torch.arange(4, dtype=torch.int32, device="cuda")[None]
+    lens = torch.tensor([50], dtype=torch.int32, device="cuda")
+    calls = {
+        "flash_attention": lambda: flash_ops.flash_attention(q, k, k),
+        "attend_pallas": lambda: attention_impl.attend(
+            q, k, k, causal=True, impl="pallas"),
+        "paged_attention": lambda: paged_ops.paged_attention(
+            q[:, 0], pages, pages, tables, lens)}
+    refused = {}
+    for name, call in calls.items():
+        try:
+            call()
+            refused[name] = None
+        except RuntimeError as e:
+            refused[name] = str(e)
+    with torch.no_grad():
+        for call in calls.values():
+            call()
+    phase("grad_refusals", refused=refused)
+    if any(v is None or "no backward" not in v for v in refused.values()):
+        raise AssertionError(f"a kernel route took a grad call: {refused}")
+
+
+def check_training():
+    """The training phases; returns the SSD-scan launches of
+    mamba2-130m's training run."""
+    check_llama_training()
+    ssd = check_mamba_training()
+    ssd_grad_case("mamba2-130m prefill shape", 1, 1024, 24, 64, 1, 128, 256,
+                  with_state=False, seed=11)
+    ssd_grad_case("zamba2-2.7b prefill shape", 1, 1024, 80, 64, 1, 64, 256,
+                  with_state=True, seed=12)
+    check_lm100m_restart()
+    check_grad_refusals()
+    return ssd
+
+
 SIM_ARGS = ("--arch", "llama2-7b", "--hw", "A100", "--requests", "1000",
             "--qps", "8", "--seed", "0")
 
@@ -2235,11 +2575,12 @@ def main():
         free_memory()
         zamba = check_zamba2()
         free_memory()
+    ssd_train = check_training()
     check_simulator()
 
     kernels = []
     # the main paths' runs: each paged model's, mamba2-130m's,
-    # whisper-base's and zamba2-2.7b's
+    # whisper-base's and zamba2-2.7b's, and mamba2-130m's training run
     by_path = {name: {arch: n[name] for arch, n in served.items()}
                for name in ("paged_attention", "flash_attention")}
     by_path["flash_attention"][WHISPER_ARCH] = \
@@ -2247,7 +2588,8 @@ def main():
     by_path["flash_attention"][HYBRID_ARCH] = \
         zamba["launches"]["flash_attention"]
     by_path["ssd_scan"] = {"mamba2-130m": mamba["launches"]["ssd_scan"],
-                           HYBRID_ARCH: zamba["launches"]["ssd_scan"]}
+                           HYBRID_ARCH: zamba["launches"]["ssd_scan"],
+                           "mamba2-130m_train": ssd_train}
     launches = {name: sum(n.values()) for name, n in by_path.items()}
     for name, rec, src, replaces in (
             ("paged_attention", paged,

@@ -20,6 +20,10 @@ fp32-logit table, and an encoder-decoder model's embedding table, which
 is its unembedding too) stay fp32.  An encoder-decoder tree
 (``enc_layers``; ``dec_layers`` with ``ln_x`` and ``xattn``) goes
 across as any other: the rule is the leaf's path.
+
+``master=True`` gives the training tree instead: every leaf in
+``cfg.param_dtype`` (``model_zoo.master_dtype``), so the reference's
+fp32 weights come across bit for bit.
 """
 from __future__ import annotations
 
@@ -33,13 +37,13 @@ from repro_torch.models.common import resolve_device
 
 
 def params_from_jax(model: zoo.Model, tree: Dict[str, Any],
-                    device=None) -> Dict[str, Any]:
+                    device=None, master: bool = False) -> Dict[str, Any]:
     device = resolve_device(device)
 
     def convert(node, path: Tuple[str, ...]):
         if isinstance(node, dict):
             return {k: convert(v, path + (k,)) for k, v in node.items()}
         return torch.tensor(np.asarray(node, np.float32), device=device,
-                            dtype=zoo.param_dtype(model, path))
+                            dtype=zoo.param_dtype(model, path, master))
 
     return convert(tree, ())

@@ -19,7 +19,9 @@ the models compute, at head_dim 64, 80 (in its 128-wide tiles, the
 columns past 80 read as zeros) or 128; the fp32 plain version serves the CPU and the
 comparisons.  ``flash_attention`` runs ``flash_attention_ref`` for CPU
 tensors and the kernel for CUDA tensors; on a CUDA tensor it launches or
-raises (``TypeError`` for any dtype but bf16).  Each launch counts as
+raises (``TypeError`` for any dtype but bf16; ``RuntimeError`` where
+autograd would record the call, since the kernel has no backward, as the
+reference's Pallas kernel has none).  Each launch counts as
 ``flash_attention`` in ``kernels.counts``, and by query length under
 ``("flash_attention", Sq)``.
 """
@@ -98,6 +100,12 @@ def flash_attention(q, k, v, *, causal: bool = True, softcap: float = 0.0):
     if q.device.type != "cuda":
         raise ValueError(f"flash_attention runs on cuda or cpu, not "
                          f"{q.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (q, k, v)):
+        raise RuntimeError(
+            "the flash_attention kernel has no backward (nor has the "
+            "reference's): call it under torch.no_grad(), or train on a "
+            "plain attention route")
     _check(q, k, v)
     b, sq, h, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]

@@ -23,7 +23,8 @@ CUDA graph takes the set of the stream it was captured on with it
 The kernel takes head_dim 64, 80 (a row on 16 lanes, 10 of them live)
 and 128.  ``paged_attention`` runs ``paged_attention_ref`` for CPU
 tensors and the kernel for CUDA tensors; on a CUDA tensor it launches
-or raises.
+or raises (``RuntimeError`` where autograd would record the call: the
+kernel has no backward).
 Each launch counts as ``paged_attention`` in ``kernels.counts`` (one a
 call: the merge is inside the kernel).
 """
@@ -152,6 +153,12 @@ def paged_attention(q, k_pages, v_pages, block_tables, context_lens, *,
     if q.device.type != "cuda":
         raise ValueError(f"paged_attention runs on cuda or cpu, not "
                          f"{q.device}")
+    if torch.is_grad_enabled() and any(t.requires_grad
+                                       for t in (q, k_pages, v_pages)):
+        raise RuntimeError(
+            "the paged_attention kernel has no backward (nor has the "
+            "reference's): call it under torch.no_grad(), or train on a "
+            "plain attention route")
     _check(q, k_pages, v_pages, block_tables, context_lens)
     b, hq, d = q.shape
     _, page, hkv, _ = k_pages.shape

@@ -32,6 +32,15 @@ they are column slices of the conv output, ``models.ssm._split_xbc``),
 in fp32 or bf16; x, dA_log and the initial state must be contiguous fp32.
 Each scan counts as ``ssd_scan`` in ``kernels.counts``: one per wrapper
 call on the card, whatever number of CUDA kernels a scan takes.
+
+Gradients.  Where autograd records the call (grad mode on and an input
+that requires grad), the card's scan runs inside ``_ScanFunction``: its
+forward launches the kernels as above, and its backward recomputes the
+plain version on the saved inputs and takes its gradients, with respect
+to xbar, dA_log, B, C and the initial state where given.  That is the
+gradient the reference's ``jax.grad`` takes of its plain ``ssd_chunked``;
+no reference kernel has a backward, so there is no backward kernel.  On
+the CPU the plain version is differentiable as it stands.
 """
 from __future__ import annotations
 
@@ -103,6 +112,47 @@ def ssd_chunked_ref(xbar, dA_log, Bm, Cm, chunk: int, state0=None):
     return y, state
 
 
+def _plain(xbar, dA_log, Bm, Cm, chunk, state0):
+    """``ssd_chunked_ref`` at the wrapper's chunk, a ragged S padded with
+    identity steps and cut off again."""
+    s = xbar.shape[1]
+    pad = (-s) % chunk
+    if pad:
+        xbar = F.pad(xbar.float(), (0, 0, 0, 0, 0, pad))
+        dA_log = F.pad(dA_log.float(), (0, 0, 0, pad))
+        Bm = F.pad(Bm.float(), (0, 0, 0, 0, 0, pad))
+        Cm = F.pad(Cm.float(), (0, 0, 0, 0, 0, pad))
+    y, fs = ssd_chunked_ref(xbar, dA_log, Bm, Cm, chunk, state0)
+    return y[:, :s], fs
+
+
+class _ScanFunction(torch.autograd.Function):
+    """``forward_fn``'s scan with the plain version's gradients: the
+    backward recomputes ``_plain`` on the saved inputs and differentiates
+    it.  ``forward_fn(xbar, dA_log, Bm, Cm, chunk, state0)`` is the
+    kernels' launch on the card."""
+
+    @staticmethod
+    def forward(ctx, forward_fn, chunk, xbar, dA_log, Bm, Cm, state0):
+        ctx.chunk = chunk
+        ctx.save_for_backward(xbar, dA_log, Bm, Cm, state0)
+        return forward_fn(xbar, dA_log, Bm, Cm, chunk, state0)
+
+    @staticmethod
+    def backward(ctx, dy, dfs):
+        inputs = ctx.saved_tensors
+        wanted = ctx.needs_input_grad[2:]
+        with torch.enable_grad():
+            leaves = [None if t is None else t.detach().requires_grad_(w)
+                      for t, w in zip(inputs, wanted)]
+            y, fs = _plain(*leaves[:4], ctx.chunk, leaves[4])
+            wrt = [t for t, w in zip(leaves, wanted) if w]
+            got = iter(torch.autograd.grad((y, fs), wrt, (dy, dfs),
+                                           allow_unused=True))
+        grads = [next(got) if w else None for w in wanted]
+        return (None, None, *grads)
+
+
 def _lib():
     lib = build.load("ssd_scan")
     if lib.ssd_scan_launch.argtypes is None:
@@ -158,21 +208,22 @@ def _check(xbar, dA_log, Bm, Cm, state0):
 def ssd_scan(xbar, dA_log, Bm, Cm, *, chunk: int = 256, state0=None):
     """xbar (B,S,H,P); dA_log (B,S,H); Bm/Cm (B,S,G,N) ->
     (y (B,S,H,P) f32, final_state (B,H,N,P) f32)."""
-    s = xbar.shape[1]
-    chunk = _chunk(s, chunk)
+    chunk = _chunk(xbar.shape[1], chunk)
     if xbar.device.type == "cpu":
-        pad = (-s) % chunk
-        if pad:
-            xbar = F.pad(xbar.float(), (0, 0, 0, 0, 0, pad))
-            dA_log = F.pad(dA_log.float(), (0, 0, 0, pad))
-            Bm = F.pad(Bm.float(), (0, 0, 0, 0, 0, pad))
-            Cm = F.pad(Cm.float(), (0, 0, 0, 0, 0, pad))
-        y, fs = ssd_chunked_ref(xbar, dA_log, Bm, Cm, chunk, state0)
-        return y[:, :s], fs
+        return _plain(xbar, dA_log, Bm, Cm, chunk, state0)
     if xbar.device.type != "cuda":
         raise ValueError(f"ssd_scan runs on cuda or cpu, not {xbar.device}")
     _check(xbar, dA_log, Bm, Cm, state0)
-    b, _, h, p = xbar.shape
+    inputs = (xbar, dA_log, Bm, Cm, state0)
+    if torch.is_grad_enabled() and any(
+            t is not None and t.requires_grad for t in inputs):
+        return _ScanFunction.apply(_launch, chunk, *inputs)
+    return _launch(*inputs[:4], chunk, state0)
+
+
+def _launch(xbar, dA_log, Bm, Cm, chunk, state0):
+    """The kernels' scan on the card (inputs checked)."""
+    b, s, h, p = xbar.shape
     g, n = Bm.shape[2], Bm.shape[3]
     if chunk > MAX_CHUNK:
         raise ValueError(f"chunk {chunk} > {MAX_CHUNK}")

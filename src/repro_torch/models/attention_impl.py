@@ -10,6 +10,9 @@
 * ``pallas``         — the hand-written flash kernel
                        (``repro_torch.kernels.flash_attention``); on CPU
                        tensors its wrapper runs the kernel's plain version.
+                       Forward only: where autograd would record it, it
+                       raises on every device, as the reference's grad
+                       through its Pallas kernel fails.
 * ``decode_attention`` — one query token against a contiguous cache.
 
 ``blocked`` and ``blocked_causal`` are plain PyTorch on every device, as
@@ -202,6 +205,15 @@ def attend(q, k, v, *, causal: bool, impl: str, block_q=1024, block_kv=1024,
                                         block_kv=block_kv,
                                         logit_softcap=logit_softcap)
     if impl == "pallas":
+        if torch.is_grad_enabled() and any(t.requires_grad
+                                           for t in (q, k, v)):
+            # the reference's jax.grad through its Pallas kernel fails,
+            # so its training never takes this route; the plain version
+            # that stands for the kernel on the CPU is not differentiated
+            raise RuntimeError(
+                "attention impl 'pallas' has no backward (the reference's "
+                "grad through its flash kernel fails): train with 'auto', "
+                "'naive' or 'blocked'")
         if q_offset:
             raise ValueError("the flash kernel aligns causal masking "
                              "top-left and takes no q_offset")

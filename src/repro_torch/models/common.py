@@ -1,4 +1,5 @@
-"""Shared model-runtime settings and the device rule of the port."""
+"""Shared model-runtime settings, the device rule of the port, and the
+two helpers over parameter trees (nested dicts of tensors)."""
 from __future__ import annotations
 
 from dataclasses import dataclass
@@ -14,6 +15,11 @@ import torch
 ATTN_IMPLS = ("auto", "naive", "blocked", "blocked_causal", "pallas")
 #: every accepted ``RunSettings.moe_impl`` (``models.moe``)
 MOE_IMPLS = ("dense_onehot", "sort")
+#: every accepted ``RunSettings.remat``: what a layer keeps for the
+#: backward (``models.model_zoo``): all (``none``), only its input
+#: (``full``), or its input and its plain matrix products
+#: (``dots_saveable``)
+REMAT_MODES = ("none", "full", "dots_saveable")
 
 
 @dataclass(frozen=True)
@@ -21,7 +27,8 @@ class RunSettings:
     """Hashable knobs threaded through the model functions.
 
     The port's copy of ``repro.models.common.RunSettings``, holding the
-    fields that the serving path reads.  The remat, layer-scan and
+    fields that the serving and training paths read.  ``remat`` acts
+    only where autograd records the forward.  The layer-scan and
     sharding knobs of the reference come with the slices that use them.
     """
 
@@ -29,6 +36,7 @@ class RunSettings:
     attn_block_q: int = 1024
     attn_block_kv: int = 1024
     naive_attn_max_seq: int = 2048  # "auto" switches to blocked above this
+    remat: str = "full"             # one of REMAT_MODES
     moe_impl: str = "dense_onehot"  # one of MOE_IMPLS
     logits_fp32: bool = True
 
@@ -36,6 +44,9 @@ class RunSettings:
         if self.attn_impl not in ATTN_IMPLS:
             raise ValueError(f"unknown attention impl {self.attn_impl!r}; "
                              f"have {ATTN_IMPLS}")
+        if self.remat not in REMAT_MODES:
+            raise ValueError(f"unknown remat mode {self.remat!r}; "
+                             f"have {REMAT_MODES}")
         if self.moe_impl not in MOE_IMPLS:
             raise ValueError(f"unknown moe impl {self.moe_impl!r}; "
                              f"have {MOE_IMPLS}")
@@ -60,3 +71,20 @@ def resolve_device(device=None) -> torch.device:
                 "the CPU")
         return torch.device("cuda")
     return torch.device(device)
+
+
+def tree_map(fn, *trees):
+    """``fn`` over the leaves of nested dicts of one structure (the
+    first tree's keys), as ``jax.tree.map`` over dict trees."""
+    first = trees[0]
+    if isinstance(first, dict):
+        return {k: tree_map(fn, *(t[k] for t in trees)) for k in first}
+    return fn(*trees)
+
+
+def tree_leaves(tree):
+    """The leaves of a nested dict in sorted key order, the order of
+    ``jax.tree.leaves``."""
+    if isinstance(tree, dict):
+        return [a for k in sorted(tree) for a in tree_leaves(tree[k])]
+    return [tree]

@@ -6,9 +6,10 @@ names and shapes: a dense weight is ``(d_in, d_out)`` and applies as
 
 Numerics follow the reference: norms, RoPE and the SwiGLU activation
 run in fp32 and cast back; ``dense_apply`` and ``embed_apply`` cast the
-weight to the compute dtype first (the port stores those weights in the
-compute dtype already, so the cast is free); ``unembed_apply`` runs in
-fp32 when asked.  Cross-entropy comes with the training slice.
+weight to the compute dtype first (the serving tree stores those weights
+in the compute dtype already, so the cast is free there; a training
+master tree holds them in fp32); ``unembed_apply`` runs in
+fp32 when asked.  ``softmax_xent`` is the training loss, in fp32.
 """
 from __future__ import annotations
 
@@ -165,7 +166,11 @@ def embed_init(vocab, d_model, *, generator, device, dtype):
 def embed_apply(p, ids, compute_dtype):
     """Rows ``ids`` of the table in the compute dtype.  The reference
     casts the whole table, then gathers; gathering first and casting the
-    rows gives the same values without a cast of the table per call."""
+    rows gives the same values without a cast of the table per call.
+    Under autograd the rows' gradients are then summed into the table in
+    its own dtype (fp32 in a master tree), where the reference sums them
+    in the compute dtype before its cast: a rounding difference of bf16
+    training alone."""
     return p["table"][ids].to(compute_dtype)
 
 
@@ -177,3 +182,20 @@ def unembed_apply(table, x, *, vocab_logical: int, fp32: bool = True):
     if vp != vocab_logical:
         logits[..., vocab_logical:] = -1e30
     return logits
+
+
+# ---------------------------------------------------------------------------
+# Losses
+# ---------------------------------------------------------------------------
+def softmax_xent(logits, labels, mask=None):
+    """Mean token cross-entropy, logsumexp minus the gold logit, in fp32.
+    logits (..., V); labels int (...); an optional mask weights the
+    tokens, and the masked mean divides by ``max(mask.sum(), 1)``."""
+    logits = logits.float()
+    logz = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    nll = logz - gold
+    if mask is None:
+        return nll.mean()
+    mask = mask.float()
+    return (nll * mask).sum() / torch.clamp(mask.sum(), min=1.0)

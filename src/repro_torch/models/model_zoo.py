@@ -12,7 +12,9 @@ cross-attention to the encoder output.
 ``Model`` is a frozen bundle of (ArchConfig, PadPlan, RunSettings), as in
 the reference.  Parameters are a dict tree with the reference's keys and
 shapes, layers stacked on a leading L axis; the functions below loop over
-layers in Python where the reference has ``lax.scan``.
+layers in Python where the reference has ``lax.scan``.  Where autograd
+records the forward, each layer the reference rematerialises (its
+``_scan_blocks`` bodies) runs under ``RunSettings.remat`` (``_remat``).
 
 Storage dtypes (``param_dtype``): matmul weights (the MoE experts'
 ``up``/``gate``/``down`` among them) and the embedding table in the
@@ -27,12 +29,18 @@ are cast at the lookup; so is an encoder-decoder model's, which has no
 position tables (``pos``; ``enc_pos`` and ``dec_pos``) are in the
 compute dtype, because the reference casts them to the activations'
 dtype before the add.  At llama2-7b that is about 13 GB of bf16 weights
-plus a 0.5 GB fp32 unembedding table.
+plus a 0.5 GB fp32 unembedding table.  That is a serving choice.
+Training needs the reference's master tree, every leaf in
+``cfg.param_dtype`` (fp32 in every config), which
+``init_params(..., master=True)`` draws and ``is_master`` recognises: the
+optimizer updates those values, and the readers cast them at use as they
+cast the serving tree.
 
 Entry points
 ------------
-* ``init_params(model, seed, device)`` — random parameters.
+* ``init_params(model, seed, device, master)`` — random parameters.
 * ``forward(model, params, batch)``   — full-seq logits.
+* ``loss_fn(model, params, batch)``   — the training loss and its metrics.
 * ``init_cache / prefill / decode_step`` — decode cache, updated in
   place: dense ``{k,v: (L,B,Smax,Hkv,hd), len: (B,)}``; SSM
   ``{conv: (L,B,W-1,C), ssd: (L,B,H,N,P) fp32, len: (B,)}``; hybrid the
@@ -47,9 +55,11 @@ from __future__ import annotations
 import dataclasses
 import functools
 from dataclasses import dataclass
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, List, Tuple
 
 import torch
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import (ArchConfig, AUDIO, DENSE, ENCDEC,
                                       HYBRID, MOE, SSM, VLM)
@@ -57,12 +67,13 @@ from repro_torch.distributed.padding import PadPlan, make_pad_plan
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention_impl import attend, decode_attention
 from repro_torch.models.common import (DEFAULT_SETTINGS, RunSettings,
-                                       resolve_device)
+                                       resolve_device, tree_leaves,
+                                       tree_map)
 from repro_torch.models.layers import (apply_rope, dense_apply, dense_init,
                                        embed_apply, embed_init,
                                        head_norm_apply, mlp_apply, mlp_init,
                                        norm_apply, norm_init, normal,
-                                       unembed_apply)
+                                       softmax_xent, unembed_apply)
 from repro_torch.models.moe import moe_apply, moe_init
 
 #: encoder-decoder families (whisper), with ``enc_layers``/``dec_layers``
@@ -109,8 +120,17 @@ def build(cfg: ArchConfig, tp: int = 1,
     return Model(cfg=cfg, plan=make_pad_plan(cfg, tp), settings=settings)
 
 
-def param_dtype(model: Model, path: Tuple[str, ...]) -> torch.dtype:
-    """Storage dtype of the parameter at ``path`` in the tree."""
+def master_dtype(model: Model) -> torch.dtype:
+    """The dtype of every leaf of a master tree: ``cfg.param_dtype``."""
+    return getattr(torch, model.cfg.param_dtype)
+
+
+def param_dtype(model: Model, path: Tuple[str, ...],
+                master: bool = False) -> torch.dtype:
+    """Storage dtype of the parameter at ``path`` in the tree: in the
+    serving tree by the rules above, in a master tree ``master_dtype``."""
+    if master:
+        return master_dtype(model)
     fp32_logits = model.settings.logits_fp32
     if path[-2:] == ("unembed", "table") and fp32_logits:
         return torch.float32
@@ -131,6 +151,17 @@ def layer(layers: Dict[str, Any], i: int) -> Dict[str, Any]:
     """Layer ``i`` of a stacked layer tree (views, no copies)."""
     return {k: layer(v, i) if isinstance(v, dict) else v[i]
             for k, v in layers.items()}
+
+
+def layers_of(layers: Dict[str, Any]) -> List[Dict[str, Any]]:
+    """Every layer of a stacked layer tree (views, no copies), from one
+    ``unbind`` a leaf: under autograd each stacked leaf then gets its
+    gradient from one stack of the layers' gradients, where a ``layer``
+    view per layer would give each layer's gradient the stacked size and
+    sum them (L full-size fills and adds a leaf)."""
+    parts = tree_map(lambda a: a.unbind(0), layers)
+    n = len(tree_leaves(parts)[0])
+    return [tree_map(lambda t: t[i], parts) for i in range(n)]
 
 
 # ---------------------------------------------------------------------------
@@ -241,38 +272,42 @@ def _block_apply(p, x, model: Model, positions, *, causal=True, enc_out=None,
 # ---------------------------------------------------------------------------
 # Parameters
 # ---------------------------------------------------------------------------
-def init_params(model: Model, seed: int = 0, device=None) -> Dict[str, Any]:
+def init_params(model: Model, seed: int = 0, device=None,
+                master: bool = False) -> Dict[str, Any]:
     """Random parameters with the reference's shapes and scales
     (model_zoo.py:266-323), drawn from a ``torch.Generator`` on
     ``device`` (not the reference's random stream).  ``device=None``
-    means the CUDA card."""
+    means the CUDA card.  ``master`` draws the training tree, every leaf
+    in ``cfg.param_dtype`` as the reference's ``init_params`` stores it;
+    otherwise the serving tree (``param_dtype``)."""
     device = resolve_device(device)
     cfg, plan = model.cfg, model.plan
     gen = torch.Generator(device=device)
     gen.manual_seed(seed)
     d, hd = cfg.d_model, cfg.head_dim
     nq, nkv = plan.n_q, plan.n_kv // plan.kv_rep
-    cd = model.compute_dtype
+    # the matrices' storage dtype
+    wd = master_dtype(model) if master else model.compute_dtype
     kw = dict(generator=gen, device=device)
 
     def stacked(make, n=cfg.num_layers):
         """Stack n per-layer trees, drawn one layer at a time into
         preallocated (n, ...) tensors (peak: the stack plus one layer)."""
         first = make()
-        out = _tree_map(lambda a: torch.empty((n,) + a.shape, dtype=a.dtype,
-                                              device=a.device), first)
+        out = tree_map(lambda a: torch.empty((n,) + a.shape, dtype=a.dtype,
+                                             device=a.device), first)
         for i in range(n):
             tree = first if i == 0 else make()
-            _tree_map(lambda dst, src: dst[i].copy_(src), out, tree)
+            tree_map(lambda dst, src: dst[i].copy_(src), out, tree)
         return out
 
     def attention(cross=False):
-        dense = dict(dtype=cd, bias=cfg.qkv_bias, **kw)
+        dense = dict(dtype=wd, bias=cfg.qkv_bias, **kw)
         attn = {
             "wq": dense_init(d, nq * hd, **dense),
             "wk": dense_init(d, nkv * hd, **dense),
             "wv": dense_init(d, nkv * hd, **dense),
-            "wo": dense_init(nq * hd, d, dtype=cd, scale=(nq * hd) ** -0.5,
+            "wo": dense_init(nq * hd, d, dtype=wd, scale=(nq * hd) ** -0.5,
                              **kw),
         }
         if cfg.qk_norm and not cross:
@@ -289,24 +324,25 @@ def init_params(model: Model, seed: int = 0, device=None) -> Dict[str, Any]:
             p["xattn"] = attention(cross=True)
         if cfg.family == MOE:
             p["moe"] = moe_init(d, plan.n_experts, cfg.moe.d_expert,
-                                cfg.act, dtype=cd, **kw)
+                                cfg.act, dtype=wd, **kw)
         else:
-            p["mlp"] = mlp_init(d, cfg.d_ff, cfg.act, dtype=cd,
+            p["mlp"] = mlp_init(d, cfg.d_ff, cfg.act, dtype=wd,
                                 bias=mlp_bias(cfg), **kw)
         return p
 
     def ssm_layer():
         return {"ln": norm_init(d, cfg.norm, device=device),
-                "mixer": ssm_mod.mamba2_init(d, cfg.ssm, dtype=cd,
+                "mixer": ssm_mod.mamba2_init(d, cfg.ssm, dtype=wd,
                                              n_heads_phys=plan.ssm_heads,
                                              **kw)}
 
     def positions(name, n):
-        return normal((n, d), 0.02, dtype=param_dtype(model, (name,)), **kw)
+        return normal((n, d), 0.02, dtype=param_dtype(model, (name,), master),
+                      **kw)
 
     params: Dict[str, Any] = {
         "embed": embed_init(plan.vocab, d, dtype=param_dtype(
-            model, ("embed", "table")), **kw)}
+            model, ("embed", "table"), master), **kw)}
     if cfg.family in ENCDEC_FAMILIES:
         # no unembedding: the embedding table is the decoder's output
         # table, whatever tie_embeddings says (reference model_zoo.py:418)
@@ -318,7 +354,7 @@ def init_params(model: Model, seed: int = 0, device=None) -> Dict[str, Any]:
             dec_layers=stacked(lambda: block(cross=True), cfg.n_dec_layers),
             enc_norm=norm_init(d, cfg.norm, device=device),
             final_norm=norm_init(d, cfg.norm, device=device))
-        return params
+        return _as_master(model, params) if master else params
     params["layers"] = stacked(ssm_layer if cfg.family in SSM_FAMILIES
                                else block)
     if cfg.family == HYBRID:
@@ -326,11 +362,27 @@ def init_params(model: Model, seed: int = 0, device=None) -> Dict[str, Any]:
     params["final_norm"] = norm_init(d, cfg.norm, device=device)
     if not cfg.tie_embeddings:
         params["unembed"] = embed_init(plan.vocab, d, dtype=param_dtype(
-            model, ("unembed", "table")), **kw)
+            model, ("unembed", "table"), master), **kw)
     if cfg.pos_emb == "learned":
         params["pos"] = positions("pos", min(cfg.max_seq_len,
                                              LEARNED_POS_CAP))
-    return params
+    return _as_master(model, params) if master else params
+
+
+def _as_master(model: Model, params):
+    """Every leaf in the master dtype (its fp32 leaves are already)."""
+    dt = master_dtype(model)
+    return tree_map(lambda a: a.to(dt), params)
+
+
+def is_master(model: Model, params) -> bool:
+    """Whether every leaf of ``params`` is in ``cfg.param_dtype``."""
+    dt = master_dtype(model)
+    return all(a.dtype == dt for a in tree_leaves(params))
+
+
+def param_count(params) -> int:
+    return sum(a.numel() for a in tree_leaves(params))
 
 
 def mlp_bias(cfg: ArchConfig) -> bool:
@@ -341,11 +393,38 @@ def mlp_bias(cfg: ArchConfig) -> bool:
             or cfg.pos_emb == "learned")
 
 
-def _tree_map(fn, *trees):
-    first = trees[0]
-    if isinstance(first, dict):
-        return {k: _tree_map(fn, *(t[k] for t in trees)) for k in first}
-    return fn(*trees)
+# ---------------------------------------------------------------------------
+# Rematerialisation (the reference's _maybe_remat, model_zoo.py:341-352)
+# ---------------------------------------------------------------------------
+#: the plain matrix products, which ``dots_saveable`` keeps; batched ones
+#: (``bmm``) are recomputed, as ``dots_with_no_batch_dims_saveable`` does
+_DOT_OPS = (torch.ops.aten.mm.default, torch.ops.aten.addmm.default)
+
+
+def _dots_policy(ctx, op, *args, **kwargs):
+    return CheckpointPolicy.MUST_SAVE if op in _DOT_OPS \
+        else CheckpointPolicy.PREFER_RECOMPUTE
+
+
+def _remat(model: Model, body, x, p):
+    """``body(x, p)``, one layer, under ``settings.remat``: ``none`` keeps
+    every activation for the backward, ``full`` only the layer's inputs
+    (the rest is recomputed in the backward), ``dots_saveable`` the
+    inputs and the plain matrix products' outputs.  Where autograd
+    records nothing (no input requires grad, or grad mode is off) the
+    body runs as it is.  Remat changes memory, never values: the forward
+    has no randomness to replay."""
+    mode = model.settings.remat
+    records = torch.is_grad_enabled() and (
+        x.requires_grad or any(a.requires_grad for a in tree_leaves(p)))
+    if mode == "none" or not records:
+        return body(x, p)
+    kw = {}
+    if mode == "dots_saveable":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _dots_policy)
+    return checkpoint(body, x, p, use_reentrant=False,
+                      preserve_rng_state=False, **kw)
 
 
 # ---------------------------------------------------------------------------
@@ -396,9 +475,12 @@ def _encode(model: Model, params, embeds):
     x = embeds.to(model.compute_dtype)
     x = _add_positions(params["enc_pos"], x)
     positions = torch.arange(s, device=x.device)
-    for i in range(cfg.n_enc_layers):
-        x, _, _ = _block_apply(layer(params["enc_layers"], i), x, model,
-                               positions, causal=False)
+
+    def body(x, lp):
+        return _block_apply(lp, x, model, positions, causal=False)[0]
+
+    for lp in layers_of(params["enc_layers"]):
+        x = _remat(model, body, x, lp)
     return norm_apply(params["enc_norm"], x, cfg.norm)
 
 
@@ -413,17 +495,20 @@ def _run_blocks(model: Model, params, batch, on_kv=None, cross_softcap=None):
     tokens = batch["tokens"]
     positions = torch.arange(tokens.shape[1], device=tokens.device)
     enc_out = None
-    layers, n_layers = params.get("layers"), cfg.num_layers
+    layers = params.get("layers")
     if cfg.family in ENCDEC_FAMILIES:
         enc_out = _encode(model, params, batch["embeds"])
-        layers, n_layers = params["dec_layers"], cfg.n_dec_layers
+        layers = params["dec_layers"]
     x = _add_positions(_position_table(model, params),
                        _embed_tokens(model, params, tokens))
     total: Dict[str, torch.Tensor] = {}
-    for i in range(n_layers):
-        x, kv, aux = _block_apply(layer(layers, i), x, model, positions,
-                                  enc_out=enc_out,
-                                  cross_softcap=cross_softcap)
+
+    def body(x, lp):
+        return _block_apply(lp, x, model, positions, enc_out=enc_out,
+                            cross_softcap=cross_softcap)
+
+    for i, lp in enumerate(layers_of(layers)):
+        x, kv, aux = _remat(model, body, x, lp)
         for k, v in (aux or {}).items():
             total[k] = total[k] + v if k in total else v
         if on_kv is not None:
@@ -451,6 +536,25 @@ def forward(model: Model, params, batch) -> Tuple[torch.Tensor, Dict]:
     return _lm_head(model, params, x), aux
 
 
+def loss_fn(model: Model, params, batch) -> Tuple[torch.Tensor, Dict]:
+    """The training loss (reference model_zoo.py:563-574): the token
+    cross-entropy of ``forward``'s logits against ``batch["labels"]``
+    (masked by ``batch["loss_mask"]`` where given) and, for an MoE model,
+    ``router_aux_coef`` times the load-balance loss plus
+    ``router_z_coef`` times the z-loss.  Returns (loss, metrics):
+    ``xent``, ``loss`` and the MoE's ``aux`` and ``zloss``."""
+    logits, aux = forward(model, params, batch)
+    loss = softmax_xent(logits, batch["labels"], batch.get("loss_mask"))
+    metrics = {"xent": loss}
+    if aux:
+        m = model.cfg.moe
+        loss = loss + m.router_aux_coef * aux.get("aux", 0.0) \
+            + m.router_z_coef * aux.get("zloss", 0.0)
+        metrics.update(aux)
+    metrics["loss"] = loss
+    return loss, metrics
+
+
 def _ssm_head_mask(model: Model, device):
     plan = model.plan
     if plan.ssm_heads == plan.ssm_heads_logical:
@@ -458,15 +562,17 @@ def _ssm_head_mask(model: Model, device):
     return _head_mask(plan, "ssm", torch.float32, torch.device(device))
 
 
-def _ssm_block(model: Model, params, i, x, hm):
-    """Mamba2 layer ``i`` (pre-norm, residual) over a full sequence:
-    (x, (conv_state, ssd_state))."""
-    lp = layer(params["layers"], i)
-    h = norm_apply(lp["ln"], x, model.cfg.norm)
-    y, states = ssm_mod.mamba2_apply(
-        lp["mixer"], h, model.cfg.ssm, compute_dtype=model.compute_dtype,
-        head_mask=hm)
-    return x + y, states
+def _ssm_block(model: Model, lp, x, hm):
+    """The Mamba2 layer ``lp`` (pre-norm, residual) over a full sequence,
+    under ``settings.remat``: (x, (conv_state, ssd_state))."""
+    def body(x, lp):
+        h = norm_apply(lp["ln"], x, model.cfg.norm)
+        y, states = ssm_mod.mamba2_apply(
+            lp["mixer"], h, model.cfg.ssm,
+            compute_dtype=model.compute_dtype, head_mask=hm)
+        return x + y, states
+
+    return _remat(model, body, x, lp)
 
 
 def _run_ssm_blocks(model: Model, params, tokens, on_states=None):
@@ -474,8 +580,8 @@ def _run_ssm_blocks(model: Model, params, tokens, on_states=None):
     (conv_state, ssd_state) to on_states."""
     x = _embed_tokens(model, params, tokens)
     hm = _ssm_head_mask(model, tokens.device)
-    for i in range(model.cfg.num_layers):
-        x, states = _ssm_block(model, params, i, x, hm)
+    for i, lp in enumerate(layers_of(params["layers"])):
+        x, states = _ssm_block(model, lp, x, hm)
         if on_states is not None:
             on_states(i, states)
     return x
@@ -501,13 +607,14 @@ def _run_hybrid_blocks(model: Model, params, tokens, copy, on_states=None,
     x = _embed_tokens(model, params, tokens)
     hm = _ssm_head_mask(model, tokens.device)
     positions = torch.arange(tokens.shape[1], device=tokens.device)
+    lps, shared = layers_of(params["layers"]), layers_of(params["shared_attn"])
     for g in range(n_groups):
         for i in range(g * period, (g + 1) * period):
-            x, states = _ssm_block(model, params, i, x, hm)
+            x, states = _ssm_block(model, lps[i], x, hm)
             if on_states is not None:
                 on_states(i, states)
-        x, kv, _ = _block_apply(layer(params["shared_attn"], copy(g)), x,
-                                model, positions, causal=True)
+        x, kv, _ = _block_apply(shared[copy(g)], x, model, positions,
+                                causal=True)
         if on_kv is not None:
             on_kv(g, kv)
     return x

@@ -36,10 +36,13 @@ def test_no_jax_or_reference_imports(path):
     "repro_torch.serving.engine, repro_torch.convert",
     "repro_torch.core.simulator, repro_torch.explore, "
     "repro_torch.launch.simulate",
+    "repro_torch.training, repro_torch.launch.train, "
+    "repro_torch.examples.train_100m",
 ])
 def test_engine_import_loads_no_jax(modules):
-    """Importing the serving engine, or the simulator and its entry
-    points, loads nothing of jax or of the reference."""
+    """Importing the serving engine, the simulator and its entry points,
+    or the trainer and its entry points, loads nothing of jax or of the
+    reference."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     code = (f"import sys, {modules}; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
@@ -71,3 +74,25 @@ def test_serve_cli_refuses_cpu_fallback(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     with pytest.raises(RuntimeError, match="CUDA"):
         serve.main(["--arch", "mamba2-130m", "--smoke", "--requests", "1"])
+
+
+def test_train_entry_points_refuse_cpu_fallback(monkeypatch):
+    """``Trainer``, ``launch/train.py`` and the 100M example run on the
+    card unless ``device="cpu"`` / ``--device cpu``."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.examples import train_100m
+    from repro_torch.launch import train
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.training import TrainConfig, Trainer
+    from repro_torch.training.data import DataConfig
+
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    cfg = get_smoke_config("llama2-7b")
+    with pytest.raises(RuntimeError, match="CUDA"):
+        Trainer(zoo.build(cfg), TrainConfig(),
+                DataConfig(vocab_size=cfg.vocab_size, seq_len=8,
+                           global_batch=2))
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train.main(["--smoke", "--steps", "1"])
+    with pytest.raises(RuntimeError, match="CUDA"):
+        train_100m.main(["--steps", "1"])

@@ -45,6 +45,16 @@ its products are fp32 FMAs.
 its source and shows that this limit, and chip_smoke.py's limits for a
 mamba2-130m layer through the kernel against ``impl="recurrent"``,
 catch it.
+
+Under autograd: the SSD wrapper launches its kernels once and carries
+gradients, which equal ``torch.autograd.grad`` through the plain
+version on the card within 1e-4 of each input's largest gradient, at
+mamba2-130m's and zamba2-2.7b's prefill shapes (the latter from an
+initial state); a mamba2 loss through the kernel has the same gradients
+under each remat mode, the recompute launching the scan once more a
+layer; and flash, paged and ``attend(impl="pallas")`` raise where
+autograd would record them (none has a backward, nor has the
+reference's).
 """
 import functools
 import importlib.util
@@ -824,3 +834,103 @@ def test_ssd_cpu_tensors_take_the_plain_version():
     y, fs = ssd.ssd_scan(*args[:4], chunk=32)
     torch.testing.assert_close(y, ssd.ssd_chunked_ref(*args[:4], 32)[0])
     assert counts.get("ssd_scan") == before
+
+
+#: (b, s, h, p, g, n, chunk, with_state): mamba2-130m's and zamba2-2.7b's
+#: prefill shapes, the latter from an initial state
+SSD_GRAD = [(1, 1024, 24, 64, 1, 128, 256, False),
+            (1, 1024, 80, 64, 1, 64, 256, True)]
+
+
+@pytest.mark.parametrize("case", SSD_GRAD,
+                         ids=["mamba2-130m", "zamba2-2.7b-state0"])
+def test_ssd_wrapper_gradients_match_the_plain_version(cuda, case):
+    """Under autograd the wrapper launches the kernels once and carries
+    gradients: a seeded scalar of (y, final state) differentiates, input
+    by input, as the plain version does on the card, within 1e-4 of each
+    input's largest gradient."""
+    *shape, chunk, with_state = case
+    args = _ssd_inputs(*shape, cuda, bc_dtype=torch.bfloat16, strided=True,
+                       model_decay=True, with_state=with_state)
+    inputs = [None if t is None else t.detach().requires_grad_()
+              for t in args]
+    wanted = [t for t in inputs if t is not None]
+    gen = torch.Generator(device=cuda).manual_seed(1)
+    b, s, h, p, g, n = shape
+    wy = torch.randn(b, s, h, p, generator=gen, device=cuda)
+    wf = torch.randn(b, h, n, p, generator=gen, device=cuda)
+    before = counts.get("ssd_scan")
+    y, fs = ssd.ssd_scan(*inputs[:4], chunk=chunk, state0=inputs[4])
+    assert counts.get("ssd_scan") == before + 1
+    assert y.grad_fn is not None and fs.grad_fn is not None
+    got = torch.autograd.grad((y * wy).sum() + (fs * wf).sum(), wanted)
+    assert counts.get("ssd_scan") == before + 1
+    y_ref, fs_ref = ssd.ssd_chunked_ref(*inputs[:4], chunk, inputs[4])
+    want = torch.autograd.grad((y_ref * wy).sum() + (fs_ref * wf).sum(),
+                               wanted)
+    for a, w in zip(got, want):
+        assert a.dtype == w.dtype and a.shape == w.shape
+        err = float((a.float() - w.float()).abs().max()
+                    / w.float().abs().max())
+        assert err <= REL_TOL[torch.float32]
+
+
+def test_attention_kernels_refuse_grad(cuda):
+    """Flash and paged have no backward (nor have the reference's): on
+    the card they raise where autograd would record the call, as
+    ``attend(impl="pallas")`` does; under no_grad they launch."""
+    q = torch.randn(1, 128, 8, 64, device=cuda,
+                    dtype=torch.bfloat16).requires_grad_()
+    k = torch.randn(1, 128, 8, 64, device=cuda, dtype=torch.bfloat16)
+    pages = torch.randn(4, 16, 8, 64, device=cuda, dtype=torch.bfloat16)
+    tables = torch.arange(4, dtype=torch.int32, device=cuda)[None]
+    lens = torch.tensor([50], dtype=torch.int32, device=cuda)
+    calls = [lambda: flash.flash_attention(q, k, k),
+             lambda: attention_impl.attend(q, k, k, causal=True,
+                                           impl="pallas"),
+             lambda: paged.paged_attention(q[:, 0], pages, pages, tables,
+                                           lens)]
+    for call in calls:
+        with pytest.raises(RuntimeError, match="no backward"):
+            call()
+    with torch.no_grad():
+        before = counts.snapshot()
+        for call in calls:
+            call()
+        after = counts.snapshot()
+    assert after["flash_attention"] == before.get("flash_attention", 0) + 2
+    assert after["paged_attention"] == before.get("paged_attention", 0) + 1
+
+
+@pytest.mark.parametrize("remat", ["full", "dots_saveable"])
+def test_remat_modes_agree_through_the_ssd_kernel(cuda, remat):
+    """A mamba2 loss and its gradients through the SSD kernel are the
+    same, bit for bit, under each remat mode as under ``none``; ``none``
+    launches the scan once a layer, the others once more a layer in the
+    recompute."""
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.models.common import RunSettings, tree_leaves
+    from repro_torch.training.trainer import value_and_grad
+
+    cfg = get_smoke_config("mamba2-130m")
+    s = 2 * cfg.ssm.chunk_size
+    gen = torch.Generator(device=cuda).manual_seed(0)
+    tokens = torch.randint(0, cfg.vocab_size, (2, s + 1), generator=gen,
+                           device=cuda)
+    batch = {"tokens": tokens[:, :-1], "labels": tokens[:, 1:]}
+    params = zoo.init_params(zoo.build(cfg), seed=0, device=cuda,
+                             master=True)
+    runs = {}
+    for mode in ("none", remat):
+        model = zoo.build(cfg, settings=RunSettings(remat=mode))
+        before = counts.get("ssd_scan")
+        (loss, _), grads = value_and_grad(model, params, batch)
+        runs[mode] = (loss, tree_leaves(grads),
+                      counts.get("ssd_scan") - before)
+    (l0, g0, n0), (l1, g1, n1) = runs["none"], runs[remat]
+    assert (n0, n1) == (cfg.num_layers, 2 * cfg.num_layers)
+    assert torch.equal(l0, l1)
+    for a, b in zip(g0, g1):
+        assert torch.equal(a, b)
+    assert all(bool(g.isfinite().all()) for g in g0)
