@@ -26,7 +26,8 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    stablelm-3b (head_dim 80, bf16 and fp32); flash also at the 1024-token
    prefills of the two granite models and at head_dim 80 in every bucket
    (stablelm-3b's prefills and zamba2-2.7b's shared block, 32/32); the
-   SSD scan also at zamba2-2.7b's prefill (80 heads, N 64);
+   SSD scan also at zamba2-2.7b's prefill (80 heads, N 64) and at the
+   training CLI's mamba2-130m shape (B 4, S 1024);
 4. serving: llama2-7b at full width and depth (random weights from
    ``init_params(seed=0)``) behind ``ServingEngine``, 16 requests of
    64-1024 prompt tokens and 32 output tokens, on the kernel path; the
@@ -129,13 +130,29 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    bit and take the next 5 steps as the first run took them, and 3
    steps with int8 gradient compression; flash, paged and
    ``attend(impl="pallas")`` must refuse a call autograd would record;
-10. the simulator (``repro_torch.launch.simulate``, llama2-7b on A100,
+10. the sharding plan (``distributed.shard_plan`` on DTensor), each phase
+   on a 1 x 1 mesh (``launch.mesh.make_host_mesh``) of a one-rank NCCL
+   group, the trees placed with ``shard_plan.distribute`` and run under
+   ``use_rules(mesh, default_rules())``, against the same run without
+   the plan (a one-card mesh shows op coverage, the kernel boundaries
+   and DTensor's host cost; multi-rank values are checked by the CPU
+   tests): llama2-7b at full width and depth with
+   ``attn_impl="pallas"``, a B 8, S 1024 prefill (twice, the second
+   timed) and 32 decode steps on the unsharded run's tokens, flash
+   counted (once a layer a prefill), logits and walls beside the
+   unsharded ones; llama2-7b cut to 8 layers through ``Trainer`` with
+   ``shardings``, 3 steps at B 8, S 512, its losses held to the training
+   phase's first three, step walls and peak memory beside that phase's;
+   mamba2-130m whole, a B 8, S 1024 prefill through the SSD scan (counted,
+   once a layer), logits and states against the unsharded prefill's;
+11. the simulator (``repro_torch.launch.simulate``, llama2-7b on A100,
    1000 requests at 8 QPS) twice, each in its own process: the two
    summaries must be equal apart from the host's wall time; a third
    process imports the port's simulator, sweep and CLI and must load
    nothing of jax or of the reference package;
-11. the ``kernels`` JSON line (each kernel's launches summed over the
-   main paths that run it, with ``launches_by_path``; its times at the
+12. the ``kernels`` JSON line (each kernel's launches summed over the
+   main paths that run it, the sharded phases' among them, with
+   ``launches_by_path``; its times at the
    llama2-7b case), then the result line.
 
 Without a CUDA device, or without the rest of the checkout, it fails
@@ -149,6 +166,7 @@ import json
 import os
 import re
 import shutil
+import socket
 import subprocess
 import sys
 import time
@@ -156,6 +174,8 @@ from pathlib import Path
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
@@ -168,7 +188,10 @@ from repro_torch.kernels.paged_attention import ops as paged_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
+from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.configs.base import MOE  # noqa: E402
+from repro_torch.distributed import shard_plan  # noqa: E402
+from repro_torch.distributed.api import placements, use_rules  # noqa: E402
 from repro_torch.examples import train_100m as ex100m  # noqa: E402
 from repro_torch.models import attention_impl  # noqa: E402
 from repro_torch.models import model_zoo as zoo  # noqa: E402
@@ -1448,6 +1471,9 @@ def check_ssd_kernel():
              seed=5)
     ssd_case("zamba2-2.7b prefill S=1024", 1, 1024, 80, 64, 1, 64, 256,
              bc_dtype=bf16, strided=True, model_decay=True, seed=6)
+    # the training CLI's shape (mamba2-130m, B 4, S 1024)
+    ssd_case("mamba2-130m training B=4 S=1024", 4, 1024, 24, 64, 1, 128,
+             256, bc_dtype=bf16, strided=True, model_decay=True, seed=7)
     return full
 
 
@@ -2275,6 +2301,7 @@ def check_llama_training():
             shares={"gemm": GEMM_KERNELS})
     del trainer
     free_memory()
+    return rec
 
 
 def check_mamba_training():
@@ -2457,8 +2484,8 @@ def check_grad_refusals():
 
 def check_training():
     """The training phases; returns the SSD-scan launches of
-    mamba2-130m's training run."""
-    check_llama_training()
+    mamba2-130m's training run and the llama2-7b phase's record."""
+    llama = check_llama_training()
     ssd = check_mamba_training()
     ssd_grad_case("mamba2-130m prefill shape", 1, 1024, 24, 64, 1, 128, 256,
                   with_state=False, seed=11)
@@ -2466,7 +2493,255 @@ def check_training():
                   with_state=True, seed=12)
     check_lm100m_restart()
     check_grad_refusals()
+    return ssd, llama
+
+
+# ---------------------------------------------------------------------------
+# The sharding plan on one card (a 1 x 1 mesh)
+# ---------------------------------------------------------------------------
+#: llama2-7b's sharded serving phase: one prefill of B x S, then decode
+#: steps on the unsharded run's greedy tokens
+SHARDED_BATCH, SHARDED_SEQ, SHARDED_DECODE = 8, 1024, 32
+SHARDED_TRAIN_STEPS = 3
+#: mamba2-130m's sharded prefill: B x S, S a multiple of the chunk
+SHARDED_SSM_BATCH, SHARDED_SSM_SEQ = 8, 1024
+#: sharded against unsharded on one card, largest |difference| over the
+#: unsharded run's largest |value| (logits), or relative (losses): on a
+#: 1 x 1 mesh every shard is the whole tensor and each op runs the same
+#: kernel on it, so a sound plan reads 0 or rounding; a lost or doubled
+#: shard, or a boundary that hands a kernel the wrong heads, reads the
+#: values' own size
+SHARDED_REL = 1e-3
+
+
+def _one_rank_group():
+    """A one-rank NCCL group on the card (the mesh's world)."""
+    with socket.socket() as sock:
+        sock.bind(("127.0.0.1", 0))
+        port = sock.getsockname()[1]
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", rank=0, world_size=1,
+                            init_method=f"tcp://127.0.0.1:{port}")
+
+
+def _full(x):
+    return x.full_tensor() if isinstance(x, DTensor) else x
+
+
+def _rel(got, want):
+    return float((_full(got).float() - want.float()).abs().max()
+                 / want.float().abs().max().clamp_min(1e-30))
+
+
+def _wall(fn):
+    """(result, host seconds) of ``fn`` ending in a synchronize."""
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0
+
+
+def _serve_run(model, params, cache, tokens, decode_tokens, place=None):
+    """A prefill (run twice, the second timed) and one decode step for
+    each of ``decode_tokens`` (None: the greedy tokens of this run); with
+    ``place`` each token vector is placed by it first.  Returns the
+    prefill's logits, every decode step's logits, the
+    tokens fed, the prefill wall and the decode walls."""
+    zoo.prefill(model, params, {"tokens": tokens}, cache)
+    (logits, cache), prefill_s = _wall(lambda: zoo.prefill(
+        model, params, {"tokens": tokens}, cache))
+    first = _full(logits)
+    del logits
+    tok = first[:, -1].argmax(-1)
+    steps, fed, walls = [], [], []
+    for i in range(SHARDED_DECODE):
+        if decode_tokens is not None:
+            tok = decode_tokens[i]
+        fed.append(tok)
+        arg = tok if place is None else place(tok)
+        (logits, cache), wall = _wall(lambda: zoo.decode_step(
+            model, params, cache, arg))
+        walls.append(wall)
+        logits = _full(logits).float()
+        steps.append(logits)
+        tok = logits.argmax(-1)
+    return first, steps, fed, prefill_s, walls
+
+
+def check_sharded_serving(mesh):
+    """llama2-7b at full width and depth with ``attn_impl="pallas"``: a
+    prefill of SHARDED_BATCH x SHARDED_SEQ and SHARDED_DECODE decode
+    steps, unsharded, then with the weights, cache and tokens placed by
+    the plan under its rules; the flash launches of the sharded run, the
+    logits against the unsharded run's, and the walls."""
+    cfg = get_config("llama2-7b")
+    model = zoo.build(cfg, settings=RunSettings(attn_impl="pallas"))
+    params = zoo.init_params(model, seed=SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    tokens = torch.randint(0, cfg.vocab_size,
+                           (SHARDED_BATCH, SHARDED_SEQ), generator=gen,
+                           device="cuda")
+    max_len = SHARDED_SEQ + SHARDED_DECODE
+    cache = zoo.init_cache(model, SHARDED_BATCH, max_len)
+    first, steps, fed, prefill_s, walls = _serve_run(
+        model, params, cache, tokens, None)
+    del cache
+    free_memory()
+
+    rules = shard_plan.default_rules()
+    dparams = shard_plan.distribute(params, mesh,
+                                    shard_plan.param_pspecs(model))
+    del params
+    dcache = shard_plan.distribute(
+        zoo.init_cache(model, SHARDED_BATCH, max_len), mesh,
+        shard_plan.cache_pspecs(model, rules))
+    dtokens = distribute_tensor(tokens, mesh, placements(
+        mesh, rules.spec("batch", "seq")))
+    batch_placed = placements(mesh, rules.spec("batch"))
+    with use_rules(mesh, rules):
+        launch_counts.reset()
+        got_first, got_steps, _, sh_prefill_s, sh_walls = _serve_run(
+            model, dparams, dcache, dtokens, fed,
+            place=lambda t: distribute_tensor(t, mesh, batch_placed))
+        flash = launch_counts.get("flash_attention")
+    errs = [_rel(got_first, first)] + [_rel(g, w)
+                                       for g, w in zip(got_steps, steps)]
+    exact = torch.equal(got_first, first) and all(
+        torch.equal(g, w) for g, w in zip(got_steps, steps))
+    rec = {"model": cfg.name, "layers": cfg.num_layers, "mesh": "1 x 1",
+           "attn_impl": "pallas", "batch": SHARDED_BATCH,
+           "seq": SHARDED_SEQ, "decode_steps": SHARDED_DECODE,
+           "flash_launches": flash,
+           "flash_expected": 2 * cfg.num_layers,
+           "max_rel_err": max(errs), "prefill_rel_err": errs[0],
+           "decode_rel_err": errs[1:], "limit": SHARDED_REL,
+           "bit_for_bit": exact,
+           "prefill_wall_ms": 1e3 * sh_prefill_s,
+           "unsharded_prefill_wall_ms": 1e3 * prefill_s,
+           "decode_wall_ms_mean": 1e3 * float(np.mean(sh_walls[1:])),
+           "unsharded_decode_wall_ms_mean": 1e3 * float(np.mean(walls[1:])),
+           "decode_wall_ms": [1e3 * w for w in sh_walls],
+           "unsharded_decode_wall_ms": [1e3 * w for w in walls],
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    phase("llama2-7b_sharded_serve", **rec)
+    del dparams, dcache
+    free_memory()
+    if flash != 2 * cfg.num_layers:
+        raise AssertionError(f"sharded prefills launched flash {flash} "
+                             f"times, expected {2 * cfg.num_layers}")
+    if not max(errs) <= SHARDED_REL:
+        raise AssertionError(f"sharded logits differ by {max(errs)}")
+    return flash
+
+
+def check_sharded_training(mesh, unsharded):
+    """llama2-7b cut to TRAIN_LAYERS layers through ``Trainer`` with the
+    state placed by the plan (``shardings``) and each batch placed under
+    its rules: SHARDED_TRAIN_STEPS steps from the unsharded phase's seed,
+    its losses held to that phase's first ones."""
+    cfg = dataclasses.replace(get_config(TRAIN_ARCH),
+                              num_layers=TRAIN_LAYERS)
+    model = zoo.build(cfg, settings=RunSettings(remat="full"))
+    tc = TrainConfig(opt=AdamWConfig(lr=3e-4, warmup_steps=2,
+                                     total_steps=TRAIN_STEPS))
+    dc = DataConfig(vocab_size=cfg.vocab_size, seq_len=TRAIN_SEQ,
+                    global_batch=TRAIN_BATCH, seed=SEED)
+    specs = {"params": shard_plan.param_pspecs(model),
+             "opt": shard_plan.opt_pspecs(model),
+             "ef": shard_plan.ef_pspecs(model, tc.grad_compression)}
+    torch.cuda.reset_peak_memory_stats()
+    with use_rules(mesh, shard_plan.default_rules()):
+        trainer = Trainer(model, tc, dc, seed=SEED,
+                          shardings=shard_plan.named(mesh, specs))
+        records = timed_steps(trainer, SHARDED_TRAIN_STEPS)
+    rec = train_summary(trainer, records, TRAIN_BATCH * TRAIN_SEQ)
+    want = unsharded["loss"][:SHARDED_TRAIN_STEPS]
+    errs = [abs(a - b) / abs(b) for a, b in zip(rec["loss"], want)]
+    sharded = all(isinstance(x, DTensor)
+                  for x in tree_leaves(trainer._state_tree()))
+    phase(f"{TRAIN_ARCH}_sharded_train_{TRAIN_LAYERS}_layers",
+          model=cfg.name, mesh="1 x 1", batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+          steps=SHARDED_TRAIN_STEPS, state_on_mesh=sharded,
+          loss_rel_err=errs, limit=SHARDED_REL,
+          unsharded_loss=want, unsharded_step_wall_s=unsharded[
+              "step_wall_s"][:SHARDED_TRAIN_STEPS],
+          unsharded_mean_step_wall_s=unsharded["mean_step_wall_s"],
+          unsharded_peak_gb=unsharded["peak_gb"], **rec)
+    del trainer
+    free_memory()
+    if not sharded:
+        raise AssertionError("the trainer's state is not on the mesh")
+    if not max(errs) <= SHARDED_REL:
+        raise AssertionError(f"sharded losses {rec['loss']} against {want}")
+
+
+def check_sharded_ssm(mesh):
+    """mamba2-130m whole: a prefill of SHARDED_SSM_BATCH x SHARDED_SSM_SEQ
+    (the SSD kernel once a layer), unsharded and under the plan; the SSD
+    launches of the sharded prefill, logits and states against the
+    unsharded ones, and the walls."""
+    cfg = get_config("mamba2-130m")
+    model = zoo.build(cfg)
+    params = zoo.init_params(model, seed=SEED)
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    tokens = torch.randint(0, cfg.vocab_size,
+                           (SHARDED_SSM_BATCH, SHARDED_SSM_SEQ),
+                           generator=gen, device="cuda")
+    b, s = tokens.shape
+
+    def prefill(p, cache, toks):
+        zoo.prefill(model, p, {"tokens": toks}, cache)
+        return _wall(lambda: zoo.prefill(model, p, {"tokens": toks},
+                                         cache))
+
+    (want, cache), wall = prefill(params, zoo.init_cache(model, b, s),
+                                  tokens)
+    rules = shard_plan.default_rules()
+    dparams = shard_plan.distribute(params, mesh,
+                                    shard_plan.param_pspecs(model))
+    dcache = shard_plan.distribute(zoo.init_cache(model, b, s), mesh,
+                                   shard_plan.cache_pspecs(model, rules))
+    dtokens = distribute_tensor(tokens, mesh, placements(
+        mesh, rules.spec("batch", "seq")))
+    with use_rules(mesh, rules):
+        launch_counts.reset()
+        (got, dcache), sh_wall = prefill(dparams, dcache, dtokens)
+        ssd = launch_counts.get("ssd_scan")
+    errs = {"logits": _rel(got, want),
+            "conv": _rel(dcache["conv"], cache["conv"]),
+            "ssd": _rel(dcache["ssd"], cache["ssd"])}
+    phase("mamba2-130m_sharded_prefill", model=cfg.name, mesh="1 x 1",
+          batch=b, seq=s, chunk=cfg.ssm.chunk_size, ssd_launches=ssd,
+          ssd_expected=2 * cfg.num_layers, rel_err=errs,
+          limit=SHARDED_REL,
+          bit_for_bit=torch.equal(_full(got), want),
+          prefill_wall_ms=1e3 * sh_wall, unsharded_prefill_wall_ms=1e3 * wall)
+    del params, dparams, cache, dcache
+    free_memory()
+    if ssd != 2 * cfg.num_layers:
+        raise AssertionError(f"the sharded prefills launched the SSD scan "
+                             f"{ssd} times, expected {2 * cfg.num_layers}")
+    if not max(errs.values()) <= SHARDED_REL:
+        raise AssertionError(f"sharded mamba2-130m prefill differs: {errs}")
     return ssd
+
+
+def check_sharded(unsharded_training):
+    """The sharded phases, each on a 1 x 1 mesh of a one-rank NCCL group
+    under ``default_rules()``; returns the flash and SSD-scan launches of
+    their runs."""
+    _one_rank_group()
+    try:
+        mesh = make_host_mesh()
+        with torch.no_grad():
+            flash = check_sharded_serving(mesh)
+        check_sharded_training(mesh, unsharded_training)
+        with torch.no_grad():
+            ssd = check_sharded_ssm(mesh)
+    finally:
+        dist.destroy_process_group()
+    return flash, ssd
 
 
 SIM_ARGS = ("--arch", "llama2-7b", "--hw", "A100", "--requests", "1000",
@@ -2575,7 +2850,8 @@ def main():
         free_memory()
         zamba = check_zamba2()
         free_memory()
-    ssd_train = check_training()
+    ssd_train, llama_train = check_training()
+    sharded_flash, sharded_ssd = check_sharded(llama_train)
     check_simulator()
 
     kernels = []
@@ -2587,9 +2863,11 @@ def main():
         whisper["launches"]["flash_attention"]
     by_path["flash_attention"][HYBRID_ARCH] = \
         zamba["launches"]["flash_attention"]
+    by_path["flash_attention"]["llama2-7b_sharded_serve"] = sharded_flash
     by_path["ssd_scan"] = {"mamba2-130m": mamba["launches"]["ssd_scan"],
                            HYBRID_ARCH: zamba["launches"]["ssd_scan"],
-                           "mamba2-130m_train": ssd_train}
+                           "mamba2-130m_train": ssd_train,
+                           "mamba2-130m_sharded_prefill": sharded_ssd}
     launches = {name: sum(n.values()) for name, n in by_path.items()}
     for name, rec, src, replaces in (
             ("paged_attention", paged,

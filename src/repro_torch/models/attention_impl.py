@@ -15,6 +15,13 @@
                        through its Pallas kernel fails.
 * ``decode_attention`` — one query token against a contiguous cache.
 
+Under a sharding plan (``distributed.api.use_rules``) with DTensor
+inputs, ``attend`` and ``decode_attention`` run on each rank's local
+shards (``distributed.api.local``): attention is independent across
+batch rows and across GQA groups, so each rank computes its rows and
+heads whole, the kernel among the routes, which DTensor has no rule
+for.  Plain tensors pass straight through.
+
 ``blocked`` and ``blocked_causal`` are plain PyTorch on every device, as
 the reference's are plain JAX: they take any dtype and head_dim, fall
 back to ``naive`` on ragged shapes as the reference does, and neither
@@ -27,6 +34,7 @@ from __future__ import annotations
 
 import torch
 
+from repro_torch.distributed.api import axis_size, local
 from repro_torch.kernels.flash_attention import ops as flash_ops
 
 NEG_INF = -1e30
@@ -167,8 +175,25 @@ def blocked_causal_attention(q, k, v, *, block_q=1024, block_kv=1024,
                      dim=1).to(q.dtype)
 
 
+def _spec(q, k):
+    """The logical spec of q, k and v at the attention boundary: batch
+    rows and heads, whole GQA groups on each rank (heads left whole when
+    a rank's share would split a group), the whole sequence."""
+    n = axis_size("heads")
+    heads = "heads" if q.shape[2] % n == 0 and k.shape[2] % n == 0 \
+        else None
+    return ("batch", None, heads, None)
+
+
 def decode_attention(q, k_cache, v_cache, cache_len, *,
                      logit_softcap: float = 0.0):
+    spec = _spec(q, k_cache)
+    return local(_decode_attention, (spec,), (spec,) * 3 + (("batch",),))(
+        q, k_cache, v_cache, cache_len, logit_softcap=logit_softcap)
+
+
+def _decode_attention(q, k_cache, v_cache, cache_len, *,
+                      logit_softcap: float = 0.0):
     """q: (B,1,H,D); caches: (B,S,Hkv,D); cache_len: (B,) valid length
     (the new token's kv must already be written at cache_len-1)."""
     b, _, h, d = q.shape
@@ -189,6 +214,14 @@ def decode_attention(q, k_cache, v_cache, cache_len, *,
 
 def attend(q, k, v, *, causal: bool, impl: str, block_q=1024, block_kv=1024,
            q_offset=0, logit_softcap: float = 0.0):
+    spec = _spec(q, k)
+    return local(_attend, (spec,), (spec,) * 3)(
+        q, k, v, causal=causal, impl=impl, block_q=block_q,
+        block_kv=block_kv, q_offset=q_offset, logit_softcap=logit_softcap)
+
+
+def _attend(q, k, v, *, causal: bool, impl: str, block_q=1024, block_kv=1024,
+            q_offset=0, logit_softcap: float = 0.0):
     if impl == "naive":
         return naive_attention(q, k, v, causal=causal, q_offset=q_offset,
                                logit_softcap=logit_softcap)

@@ -20,16 +20,23 @@ MOE_IMPLS = ("dense_onehot", "sort")
 #: (``full``), or its input and its plain matrix products
 #: (``dots_saveable``)
 REMAT_MODES = ("none", "full", "dots_saveable")
+#: every accepted ``RunSettings.embed_shard`` (``distributed.shard_plan``):
+#: the embedding table vocab-parallel over ``model`` and d_model over
+#: ``data`` (``vocab``), or d_model over ``data`` alone (``fsdp``)
+EMBED_SHARDS = ("vocab", "fsdp")
 
 
 @dataclass(frozen=True)
 class RunSettings:
     """Hashable knobs threaded through the model functions.
 
-    The port's copy of ``repro.models.common.RunSettings``, holding the
-    fields that the serving and training paths read.  ``remat`` acts
-    only where autograd records the forward.  The layer-scan and
-    sharding knobs of the reference come with the slices that use them.
+    The port's copy of ``repro.models.common.RunSettings``, with every
+    field of the reference.  ``remat`` acts only where autograd records
+    the forward.  ``scan_layers`` chooses nothing here: the port always
+    runs a Python loop over the stacked layers, which computes the same
+    values as the reference's ``lax.scan`` and its unrolled loop alike.
+    ``embed_shard`` and ``fsdp_params`` are read by
+    ``distributed.shard_plan`` only.
     """
 
     attn_impl: str = "auto"         # one of ATTN_IMPLS
@@ -37,8 +44,13 @@ class RunSettings:
     attn_block_kv: int = 1024
     naive_attn_max_seq: int = 2048  # "auto" switches to blocked above this
     remat: str = "full"             # one of REMAT_MODES
+    scan_layers: bool = True
     moe_impl: str = "dense_onehot"  # one of MOE_IMPLS
     logits_fp32: bool = True
+    # --- sharding-plan knobs (read by distributed.shard_plan) ----------
+    embed_shard: str = "vocab"      # one of EMBED_SHARDS
+    fsdp_params: bool = True        # False: replicate non-embedding weights
+    #                                 over "data" (pure TP+DP, no ZeRO-3)
 
     def __post_init__(self):
         if self.attn_impl not in ATTN_IMPLS:
@@ -50,6 +62,9 @@ class RunSettings:
         if self.moe_impl not in MOE_IMPLS:
             raise ValueError(f"unknown moe impl {self.moe_impl!r}; "
                              f"have {MOE_IMPLS}")
+        if self.embed_shard not in EMBED_SHARDS:
+            raise ValueError(f"unknown embed shard {self.embed_shard!r}; "
+                             f"have {EMBED_SHARDS}")
 
     def resolve_attn(self, seq_len: int) -> str:
         if self.attn_impl != "auto":

@@ -16,6 +16,8 @@ from __future__ import annotations
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.api import replicated, shard
+
 
 # ---------------------------------------------------------------------------
 # Initializers (torch.Generator draws; same shapes and scales as the
@@ -109,8 +111,8 @@ def apply_rope(x, positions, theta: float):
     if positions.ndim == 1:
         positions = positions[None, :]
     angles = positions[..., None].float() * freqs            # (B,S,D/2)
-    cos = torch.cos(angles)[:, :, None, :]
-    sin = torch.sin(angles)[:, :, None, :]
+    cos = replicated(torch.cos(angles)[:, :, None, :])
+    sin = replicated(torch.sin(angles)[:, :, None, :])
     x1, x2 = torch.chunk(x.float(), 2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x1 * sin + x2 * cos], dim=-1)
     return out.to(x.dtype)
@@ -170,8 +172,12 @@ def embed_apply(p, ids, compute_dtype):
     Under autograd the rows' gradients are then summed into the table in
     its own dtype (fp32 in a master tree), where the reference sums them
     in the compute dtype before its cast: a rounding difference of bf16
-    training alone."""
-    return p["table"][ids].to(compute_dtype)
+    training alone.  The lookup is ``F.embedding``, whose forward and
+    backward DTensor has sharding rules for: under a sharding plan a
+    vocab-sharded table gives each rank's rows as a masked partial sum.
+    DTensor keeps that mask right only for ids it holds whole, so the
+    ids are gathered first (a no-op without the plan)."""
+    return F.embedding(replicated(ids), p["table"]).to(compute_dtype)
 
 
 def unembed_apply(table, x, *, vocab_logical: int, fp32: bool = True):
@@ -180,7 +186,11 @@ def unembed_apply(table, x, *, vocab_logical: int, fp32: bool = True):
     logits = x.to(dt) @ table.to(dt).T
     vp = table.shape[0]
     if vp != vocab_logical:
-        logits[..., vocab_logical:] = -1e30
+        # a mask over the whole row, not a fill of the padded slice: a
+        # vocab-sharded DTensor has an in-place rule for the one and not
+        # for the other
+        pad = torch.arange(vp, device=logits.device) >= vocab_logical
+        logits.masked_fill_(replicated(pad), -1e30)
     return logits
 
 
@@ -193,7 +203,11 @@ def softmax_xent(logits, labels, mask=None):
     tokens, and the masked mean divides by ``max(mask.sum(), 1)``."""
     logits = logits.float()
     logz = torch.logsumexp(logits, dim=-1)
-    gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
+    # under a sharding plan the gathered logit is a partial sum over the
+    # vocab shards, which DTensor reduces correctly only before the
+    # trailing dim is dropped
+    gold = shard(torch.gather(logits, -1, labels[..., None].long()),
+                 "batch", "seq", None)[..., 0]
     nll = logz - gold
     if mask is None:
         return nll.mean()

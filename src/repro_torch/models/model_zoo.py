@@ -38,7 +38,8 @@ cast the serving tree.
 
 Entry points
 ------------
-* ``init_params(model, seed, device, master)`` — random parameters.
+* ``init_params(model, seed, device, master)`` — random parameters;
+  ``param_specs(model, master)`` the same tree on the meta device.
 * ``forward(model, params, batch)``   — full-seq logits.
 * ``loss_fn(model, params, batch)``   — the training loss and its metrics.
 * ``init_cache / prefill / decode_step`` — decode cache, updated in
@@ -48,7 +49,19 @@ Entry points
   cache for each of the G applications of the shared block;
   encoder-decoder ``{k,v: (Ld,B,Smax,Hkv,hd), xk,xv: (Ld,B,Senc,Hkv,hd),
   len: (B,)}``, the cross-attention's K/V written whole by ``prefill``
-  and read-only in ``decode_step``.
+  and read-only in ``decode_step``.  ``cache_specs`` gives its tensors
+  on the meta device.
+
+Sharding: the reference's eight ``shard`` points (q, k and v at their
+projections, the caches a decode step reads, each block's output, the
+embedded tokens and the logits) call ``distributed.api.shard``, which
+returns its input unless a sharding plan is installed
+(``use_rules``); then every tree is DTensors placed by
+``distributed.shard_plan`` and each point redistributes its activation
+as the reference constrains it.  The attention routes and the SSD scan
+run on each rank's local shards there (``distributed.api.local``), and
+so does the decode's row write into the cache, which DTensor has no
+in-place rule for.
 """
 from __future__ import annotations
 
@@ -58,11 +71,15 @@ from dataclasses import dataclass
 from typing import Any, Dict, List, Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from repro_torch.configs.base import (ArchConfig, AUDIO, DENSE, ENCDEC,
                                       HYBRID, MOE, SSM, VLM)
+from repro_torch.distributed.api import (current_mesh, current_rules,
+                                         local, placements, replicated,
+                                         shard, shard_start, use_rules)
 from repro_torch.distributed.padding import PadPlan, make_pad_plan
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention_impl import attend, decode_attention
@@ -176,7 +193,7 @@ def _q_proj(p, x, model: Model, positions):
         q = head_norm_apply(p["q_norm"], q)
     if cfg.pos_emb == "rope":
         q = apply_rope(q, positions, cfg.rope_theta)
-    return q
+    return shard(q, "batch", "seq", "heads", None)
 
 
 def _kv_proj(p, x, model: Model, positions):
@@ -194,6 +211,8 @@ def _kv_proj(p, x, model: Model, positions):
     if plan.kv_rep > 1:
         k = k.repeat_interleave(plan.kv_rep, dim=2)
         v = v.repeat_interleave(plan.kv_rep, dim=2)
+    k = shard(k, "batch", "kv_seq", "kv_heads", None)
+    v = shard(v, "batch", "kv_seq", "kv_heads", None)
     return k, v
 
 
@@ -211,7 +230,7 @@ def _attn_out(p, ctx, model: Model):
     plan = model.plan
     b, s = ctx.shape[:2]
     if plan.has_q_padding:
-        mask = _head_mask(plan, "q", ctx.dtype, ctx.device)
+        mask = replicated(_head_mask(plan, "q", ctx.dtype, ctx.device))
         ctx = ctx * mask[None, None, :, None]
     ctx = ctx.reshape(b, s, plan.n_q * model.cfg.head_dim)
     return dense_apply(p["wo"], ctx, model.compute_dtype)
@@ -266,7 +285,7 @@ def _block_apply(p, x, model: Model, positions, *, causal=True, enc_out=None,
         kv = kv + xkv
     h = norm_apply(p["ln2"], x, cfg.norm)
     y, aux = _ffn_apply(p, h, model)
-    return x + y, kv, aux
+    return shard(x + y, "batch", "seq", "embed"), kv, aux
 
 
 # ---------------------------------------------------------------------------
@@ -282,7 +301,9 @@ def init_params(model: Model, seed: int = 0, device=None,
     otherwise the serving tree (``param_dtype``)."""
     device = resolve_device(device)
     cfg, plan = model.cfg, model.plan
-    gen = torch.Generator(device=device)
+    # the meta device (``param_specs``) draws nothing; a CPU generator
+    # stands in for the one it cannot have
+    gen = torch.Generator(device="cpu" if device.type == "meta" else device)
     gen.manual_seed(seed)
     d, hd = cfg.d_model, cfg.head_dim
     nq, nkv = plan.n_q, plan.n_kv // plan.kv_rep
@@ -369,6 +390,13 @@ def init_params(model: Model, seed: int = 0, device=None,
     return _as_master(model, params) if master else params
 
 
+def param_specs(model: Model, master: bool = False) -> Dict[str, Any]:
+    """The tree of ``init_params(model, ..., master=master)`` on the meta
+    device: every path, shape and dtype, nothing allocated (the
+    reference's ``param_specs``, an ``eval_shape`` of its init)."""
+    return init_params(model, device="meta", master=master)
+
+
 def _as_master(model: Model, params):
     """Every leaf in the master dtype (its fp32 leaves are already)."""
     dt = master_dtype(model)
@@ -419,6 +447,15 @@ def _remat(model: Model, body, x, p):
         x.requires_grad or any(a.requires_grad for a in tree_leaves(p)))
     if mode == "none" or not records:
         return body(x, p)
+    mesh, rules = current_mesh(), current_rules()
+    if rules is not None:
+        # the recompute may run on autograd's device thread, which does
+        # not see this thread's sharding rules: the layer takes them along
+        layer_body = body
+
+        def body(x, p):
+            with use_rules(mesh, rules):
+                return layer_body(x, p)
     kw = {}
     if mode == "dots_saveable":
         kw["context_fn"] = functools.partial(
@@ -431,7 +468,8 @@ def _remat(model: Model, body, x, p):
 # Full-sequence forward / prefill
 # ---------------------------------------------------------------------------
 def _embed_tokens(model: Model, params, tokens):
-    return embed_apply(params["embed"], tokens, model.compute_dtype)
+    x = embed_apply(params["embed"], tokens, model.compute_dtype)
+    return shard(x, "batch", "seq", "embed")
 
 
 def _position_table(model: Model, params):
@@ -462,8 +500,9 @@ def _add_positions(table, x, lens=None):
 def _lm_head(model: Model, params, x):
     x = norm_apply(params["final_norm"], x, model.cfg.norm)
     table = params.get("unembed", params["embed"])["table"]
-    return unembed_apply(table, x, vocab_logical=model.plan.vocab_logical,
-                         fp32=model.settings.logits_fp32)
+    logits = unembed_apply(table, x, vocab_logical=model.plan.vocab_logical,
+                           fp32=model.settings.logits_fp32)
+    return shard(logits, "batch", "seq", "vocab")
 
 
 def _encode(model: Model, params, embeds):
@@ -559,7 +598,8 @@ def _ssm_head_mask(model: Model, device):
     plan = model.plan
     if plan.ssm_heads == plan.ssm_heads_logical:
         return None
-    return _head_mask(plan, "ssm", torch.float32, torch.device(device))
+    return replicated(_head_mask(plan, "ssm", torch.float32,
+                                 torch.device(device)))
 
 
 def _ssm_block(model: Model, lp, x, hm):
@@ -620,33 +660,48 @@ def _run_hybrid_blocks(model: Model, params, tokens, copy, on_states=None,
     return x
 
 
-def init_cache(model: Model, batch: int, max_len: int, device=None):
-    device = resolve_device(device)
+def _cache_struct(model: Model, batch: int,
+                  max_len: int) -> Dict[str, Tuple[tuple, torch.dtype]]:
+    """Shapes and dtypes of the decode cache (reference model_zoo.py:
+    580-610): dict of (shape, dtype)."""
     cfg, plan = model.cfg, model.plan
-    lens = torch.zeros((batch,), dtype=torch.int32, device=device)
+    cd, hd = model.compute_dtype, cfg.head_dim
+    out: Dict[str, Tuple[tuple, torch.dtype]] = {}
     n_layers = cfg.num_layers
-    cache = {}
     if cfg.family in SSM_FAMILIES:
         s = cfg.ssm
         conv_dim = plan.ssm_heads * s.head_dim + 2 * s.n_groups * s.d_state
-        cache = {"conv": torch.zeros(
-                     (cfg.num_layers, batch, s.conv_width - 1, conv_dim),
-                     dtype=model.compute_dtype, device=device),
-                 "ssd": torch.zeros(
-                     (cfg.num_layers, batch, plan.ssm_heads, s.d_state,
-                      s.head_dim), dtype=torch.float32, device=device)}
+        ssm_cache = {
+            "conv": ((n_layers, batch, s.conv_width - 1, conv_dim), cd),
+            "ssd": ((n_layers, batch, plan.ssm_heads, s.d_state,
+                     s.head_dim), torch.float32)}
         if cfg.family == SSM:
-            return {**cache, "len": lens}
+            return {**ssm_cache, "len": ((batch,), torch.int32)}
         n_layers = _hybrid_groups(model)[0]
+        out = ssm_cache
     if cfg.family in ENCDEC_FAMILIES:
         n_layers = cfg.n_dec_layers
-        xkv = (n_layers, batch, cfg.enc_seq_len, plan.n_kv, cfg.head_dim)
-        cache = {key: torch.zeros(xkv, dtype=model.compute_dtype,
-                                  device=device) for key in ("xk", "xv")}
-    kv = (n_layers, batch, max_len, plan.n_kv, cfg.head_dim)
-    return {"k": torch.zeros(kv, dtype=model.compute_dtype, device=device),
-            "v": torch.zeros(kv, dtype=model.compute_dtype, device=device),
-            **cache, "len": lens}
+        xkv = (n_layers, batch, cfg.enc_seq_len, plan.n_kv, hd)
+        out = {"xk": (xkv, cd), "xv": (xkv, cd)}
+    kv = (n_layers, batch, max_len, plan.n_kv, hd)
+    return {"k": (kv, cd), "v": (kv, cd), **out,
+            "len": ((batch,), torch.int32)}
+
+
+def init_cache(model: Model, batch: int, max_len: int, device=None):
+    device = resolve_device(device)
+    return {k: torch.zeros(shape, dtype=dt, device=device)
+            for k, (shape, dt) in _cache_struct(model, batch,
+                                                max_len).items()}
+
+
+def cache_specs(model: Model, batch: int, max_len: int):
+    """The decode cache's tensors on the meta device (shapes and dtypes,
+    nothing allocated), as the reference's ``cache_specs`` gives
+    ``ShapeDtypeStruct``s."""
+    return {k: torch.empty(shape, dtype=dt, device="meta")
+            for k, (shape, dt) in _cache_struct(model, batch,
+                                                max_len).items()}
 
 
 def prefill(model: Model, params, batch, cache, prompt_lens=None):
@@ -668,8 +723,8 @@ def prefill(model: Model, params, batch, cache, prompt_lens=None):
         cache["ssd"][i] = states[1]
 
     def write(i, kv):
-        cache["k"][i, :, :s] = kv[0]
-        cache["v"][i, :, :s] = kv[1]
+        _write_prefix(cache["k"][i], kv[0])
+        _write_prefix(cache["v"][i], kv[1])
         if len(kv) == 4:
             cache["xk"][i] = kv[2]
             cache["xv"][i] = kv[3]
@@ -692,16 +747,67 @@ def prefill(model: Model, params, batch, cache, prompt_lens=None):
 # ---------------------------------------------------------------------------
 # Decode step
 # ---------------------------------------------------------------------------
-def _write_rows(cache, lens, new):
-    """``cache[b, lens[b]] = new[b]`` for every row b, in place; a row
-    whose index is past the cache's end writes nothing, as the reference's
-    ``.at[].set`` drops it (an empty slot's length keeps advancing)."""
+def _write_cache_rows(cache, lens, new, start=0):
+    """``cache[b, lens[b] - start] = new[b]`` for every row b, in place,
+    where ``cache`` holds positions ``start`` on of the sequence; a row
+    whose index falls outside it writes nothing, as the reference's
+    ``.at[].set`` drops a write past the cache's end (an empty slot's
+    length keeps advancing)."""
     n = cache.shape[1]
+    if n == 0:
+        return cache
     bidx = torch.arange(cache.shape[0], device=cache.device)
-    idx = lens.long().clamp(max=n - 1)
-    keep = (lens < n)[:, None, None]
+    pos = lens.long() - start
+    idx = pos.clamp(0, n - 1)
+    keep = ((pos >= 0) & (pos < n))[:, None, None]
     cache[bidx, idx] = torch.where(keep, new.to(cache.dtype),
                                    cache[bidx, idx])
+    return cache
+
+
+_ROWS = ("batch", "kv_seq", "kv_heads", None)
+
+
+def _write_prompt(cache, kv, start=0):
+    """``cache[:, :s] = kv`` (kv: (B,s,...)), in place, where ``cache``
+    holds positions ``start`` on of the sequence."""
+    lo, hi = start, min(start + cache.shape[1], kv.shape[1])
+    if hi > lo:
+        cache[:, :hi - lo] = kv[:, lo:hi]
+    return cache
+
+
+def _in_place(fn, cache, *args, in_specs):
+    """``fn(cache, *args, start=0)`` on a cache of layout ``_ROWS``.
+    Under a sharding plan each rank runs it on its own shard of the
+    cache, with ``start`` that shard's first position (DTensor has no
+    in-place rule for a write into part of a sharded dim).  The write
+    lands in the cache itself only where the cache lies as its spec
+    says, so any other placement is refused."""
+    rules = current_rules()
+    if rules is None or not isinstance(cache, DTensor):
+        return fn(cache, *args)
+    want = placements(current_mesh(), rules.spec(*_ROWS))
+    if tuple(cache.placements) != want:
+        raise ValueError(f"a cache placed as {cache.placements} is written "
+                         f"in place only as its spec places it, {want}")
+    return local(functools.partial(fn, start=shard_start(cache, 1)),
+                 (_ROWS,), (_ROWS,) + in_specs)(cache, *args)
+
+
+def _write_prefix(cache, kv):
+    """The prompt's K or V into the first positions of a layer's cache."""
+    if kv.shape[1] > cache.shape[1]:
+        raise ValueError(f"a prompt of {kv.shape[1]} positions does not fit "
+                         f"a cache of {cache.shape[1]}")
+    return _in_place(_write_prompt, cache, kv,
+                     in_specs=(("batch", None, "kv_heads", None),))
+
+
+def _write_rows(cache, lens, new):
+    """One decode token's K or V at each row's length."""
+    return _in_place(_write_cache_rows, cache, lens, new,
+                     in_specs=(("batch",), ("batch", "kv_heads", None)))
 
 
 def _attn_decode(p, x_t, model: Model, k_cache, v_cache, cache_len, *,
@@ -721,6 +827,8 @@ def _attn_decode(p, x_t, model: Model, k_cache, v_cache, cache_len, *,
         _write_rows(k_cache, cache_len, k_t[:, 0])
         _write_rows(v_cache, cache_len, v_t[:, 0])
         valid_len = cache_len + 1
+    k_cache = shard(k_cache, "batch", "kv_seq", "kv_heads", None)
+    v_cache = shard(v_cache, "batch", "kv_seq", "kv_heads", None)
     ctx = decode_attention(q, k_cache, v_cache, valid_len,
                            logit_softcap=model.cfg.attn_logit_softcap)
     return _attn_out(p, ctx, model)

@@ -28,6 +28,7 @@ import math
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.api import axis_size, local
 from repro_torch.kernels.ssd_scan import ops as ssd_ops
 from repro_torch.models.layers import normal
 
@@ -65,8 +66,26 @@ def ssd_chunked(xbar, dA_log, Bm, Cm, chunk: int, state0=None):
     s = xbar.shape[1]
     if s % chunk:
         raise ValueError(f"seq {s} not divisible by chunk {chunk}")
-    return ssd_ops.ssd_scan(xbar, dA_log, Bm, Cm, chunk=chunk,
-                            state0=state0)
+    # under a sharding plan each rank scans its batch rows and SSD heads,
+    # with the B/C groups those heads read: all of them (one group, or
+    # heads left whole) or its share (groups sharded with the heads)
+    n = axis_size("heads")
+    g = Bm.shape[2]
+    heads = "heads" if xbar.shape[2] % n == 0 and (g == 1 or g % n == 0) \
+        else None
+    groups = heads if g > 1 else None
+    hs = ("batch", None, heads, None)
+    state = ("batch", heads, None, None)
+    gs = ("batch", None, groups, None)
+
+    def scan(xbar, dA_log, Bm, Cm, state0):
+        return ssd_ops.ssd_scan(xbar, dA_log, Bm, Cm, chunk=chunk,
+                                state0=state0)
+
+    return local(scan, (hs, state),
+                 (hs, ("batch", None, heads), gs, gs,
+                  None if state0 is None else state))(
+        xbar, dA_log, Bm, Cm, state0)
 
 
 def ssd_step(state, x_t, dA_log_t, B_t, C_t):

@@ -18,8 +18,16 @@ restores in the other:
   can go on updating the tensors.
 
 ``load`` restores into the structure and dtypes of a template tree, on
-``device`` (None: each template leaf's own device), where the
-reference's ``shardings`` re-shard over a mesh.
+``device`` (None: each template leaf's own device), or, with
+``shardings`` (a tree of ``(mesh, placements)`` or None leaves, as
+``distributed.shard_plan.named`` gives), places each leaf on its mesh:
+a checkpoint saved under one mesh restores onto another, or onto none.
+
+Sharded trees: a save writes each DTensor's ``full_tensor()``, so a
+manifest does not depend on the mesh.  Every rank of the default process
+group calls ``save`` (the gather is collective); rank 0 writes, and the
+ranks meet at a barrier once the step is on disk (after the write, or in
+``wait`` for an async save), so a load on any rank finds it.
 """
 from __future__ import annotations
 
@@ -32,6 +40,8 @@ from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 import torch
+import torch.distributed as dist
+from torch.distributed.tensor import DTensor, distribute_tensor
 
 from repro_torch.models.common import tree_map
 
@@ -67,10 +77,22 @@ def _checksum(arr: np.ndarray) -> str:
 def _to_host(t: torch.Tensor) -> Tuple[np.ndarray, str]:
     """A host copy of ``t`` as numpy (bf16 as its uint16 view) and its
     logical dtype, named as numpy names it (``float32``, ``bfloat16``)."""
+    if isinstance(t, DTensor):
+        t = t.full_tensor()
     t = t.detach().to("cpu", copy=True)
     if t.dtype == torch.bfloat16:
         return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
     return t.numpy(), str(t.numpy().dtype)
+
+
+def _ranks() -> int:
+    """The default process group's size (1 without one)."""
+    return dist.get_world_size() if dist.is_initialized() else 1
+
+
+def _barrier() -> None:
+    if _ranks() > 1:
+        dist.barrier()
 
 
 def _from_host(arr: np.ndarray, logical: str) -> torch.Tensor:
@@ -93,6 +115,8 @@ class CheckpointManager:
         host = {k: _to_host(v) for k, v in _flatten_with_paths(tree).items()}
 
         def write():
+            if dist.is_initialized() and dist.get_rank() != 0:
+                return
             tmp = os.path.join(self.dir, f"step_{step}.tmp")
             final = os.path.join(self.dir, f"step_{step}")
             if os.path.exists(tmp):
@@ -117,6 +141,7 @@ class CheckpointManager:
 
         if blocking:
             write()
+            _barrier()
         else:
             self._thread = threading.Thread(target=write, daemon=True)
             self._thread.start()
@@ -126,6 +151,7 @@ class CheckpointManager:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        _barrier()
 
     def _gc(self) -> None:
         steps = sorted(self.steps())
@@ -148,10 +174,13 @@ class CheckpointManager:
         s = self.steps()
         return s[-1] if s else None
 
-    def load(self, step: int, template, *, device=None,
+    def load(self, step: int, template, *, device=None, shardings=None,
              verify: bool = True):
         """Restore into the structure and dtypes of ``template``, on
-        ``device`` (None: each template leaf's device)."""
+        ``device`` (None: each template leaf's device); ``shardings`` (a
+        tree of ``template``'s keys whose leaves are ``(mesh,
+        placements)`` or None) places each leaf on its mesh instead,
+        re-sharding elastically."""
         path = os.path.join(self.dir, f"step_{step}")
         with open(os.path.join(path, "manifest.json")) as f:
             manifest = json.load(f)
@@ -162,14 +191,23 @@ class CheckpointManager:
                 raise IOError(f"checksum mismatch for {key} in step {step}")
             values[key] = _from_host(arr, meta["dtype"])
         tree = _unflatten_like(template, values)
-        tree = tree_map(
-            lambda x, t: x.to(device=t.device if device is None else device,
-                              dtype=t.dtype), tree, template)
+
+        def restore(x, t, placed=None):
+            if placed is not None:
+                return distribute_tensor(x.to(t.dtype), *placed)
+            return x.to(device=t.device if device is None else device,
+                        dtype=t.dtype)
+
+        if shardings is None:
+            tree = tree_map(restore, tree, template)
+        else:
+            tree = tree_map(restore, tree, template, shardings)
         return tree, manifest.get("extra", {})
 
-    def restore_latest(self, template, *, device=None):
+    def restore_latest(self, template, *, device=None, shardings=None):
         step = self.latest_step()
         if step is None:
             return None, None, {}
-        tree, extra = self.load(step, template, device=device)
+        tree, extra = self.load(step, template, device=device,
+                                shardings=shardings)
         return step, tree, extra

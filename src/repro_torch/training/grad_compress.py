@@ -24,8 +24,8 @@ from repro_torch.models.common import tree_map
 
 def ef_init(params) -> Any:
     """Error-feedback residual state (fp32 zeros like params)."""
-    return tree_map(lambda p: torch.zeros(p.shape, dtype=torch.float32,
-                                          device=p.device), params)
+    return tree_map(lambda p: torch.zeros_like(p, dtype=torch.float32),
+                    params)
 
 
 def quantize(g, *, bits: int = 8) -> Tuple[torch.Tensor, torch.Tensor]:

@@ -17,7 +17,9 @@ replacing the old tensors (which it never writes into), so the old and
 the new trees never take memory together; the reference's update builds
 new trees, which XLA keeps beside the old ones.  At llama2-7b's full
 width that is the difference between 30 GB of fp32 state plus one leaf's
-temporaries and twice as much.
+temporaries and twice as much.  On DTensor leaves (a sharding plan) the
+same holds shard by shard: each new leaf keeps its parameter's
+placements.
 """
 from __future__ import annotations
 
@@ -26,6 +28,7 @@ from dataclasses import dataclass
 from typing import Tuple
 
 import torch
+from torch.distributed.tensor import DTensor
 
 from repro_torch.models.common import tree_leaves, tree_map
 
@@ -81,6 +84,10 @@ def adamw_update(cfg: AdamWConfig, grads, opt_state, params):
     bc2 = 1 - b2 ** t
 
     def upd(g, m, v, p):
+        if isinstance(p, DTensor):
+            # a gradient may come back on other placements than its
+            # parameter's; the update keeps the parameter's
+            g = g.redistribute(p.device_mesh, p.placements)
         g = g.float() * scale
         m = b1 * m + (1 - b1) * g
         v = b2 * v + (1 - b2) * g * g

@@ -17,6 +17,15 @@ from ``seed`` (``init_params(..., master=True)``), or takes an initial
 ``params`` tree (the reference's weights through
 ``convert.params_from_jax(..., master=True)``).  It runs on the CUDA card
 unless given ``device="cpu"``.
+
+``shardings`` (``shard_plan.named(mesh, {"params": ..., "opt": ...,
+"ef": ...})``, a tree of ``(mesh, placements)`` over the state tree)
+places the state on a mesh: the parameters, then ``mu``/``nu`` and the
+error-feedback residual beside them and the step as its spec says; a
+restore places what it loads by the same tree (the reference's
+``shardings``, which it reads for the restore alone).  Its steps then run
+under ``distributed.api.use_rules``, which the caller installs; with
+rules installed each batch is placed by ``shard_plan.batch_pspecs``.
 """
 from __future__ import annotations
 
@@ -24,7 +33,9 @@ from dataclasses import dataclass
 from typing import Dict, Optional
 
 import torch
+from torch.distributed.tensor import DTensor, distribute_tensor
 
+from repro_torch.distributed import api, shard_plan
 from repro_torch.models import model_zoo as zoo
 from repro_torch.models.common import resolve_device, tree_leaves, tree_map
 from repro_torch.training import grad_compress
@@ -87,8 +98,8 @@ def make_train_step(model: zoo.Model, tc: TrainConfig):
         if nmb > 1:
             mbatches = {k: v.reshape((nmb, v.shape[0] // nmb) + v.shape[1:])
                         for k, v in batch.items()}
-            gsum = tree_map(lambda p: torch.zeros(
-                p.shape, dtype=torch.float32, device=p.device), params)
+            gsum = tree_map(lambda p: torch.zeros_like(
+                p, dtype=torch.float32), params)
             losses = []
             for i in range(nmb):
                 (loss, _), g = value_and_grad(
@@ -110,9 +121,20 @@ def make_train_step(model: zoo.Model, tc: TrainConfig):
     return train_step
 
 
+def _place(tree, shardings):
+    """Each leaf of ``tree`` on the ``(mesh, placements)`` of its leaf in
+    ``shardings`` (a DTensor redistributed, a no-op where it lies so)."""
+    def place(x, placed):
+        if isinstance(x, DTensor):
+            return x.redistribute(*placed)
+        return distribute_tensor(x, *placed)
+    return tree_map(place, tree, shardings)
+
+
 class Trainer:
     def __init__(self, model: zoo.Model, tc: TrainConfig, dc: DataConfig,
-                 *, seed: int = 0, params=None, device=None):
+                 *, seed: int = 0, params=None, device=None,
+                 shardings=None):
         self.model = model
         self.tc = tc
         self.device = resolve_device(device)
@@ -124,11 +146,20 @@ class Trainer:
                 f"Trainer takes a master tree, every leaf in "
                 f"{model.cfg.param_dtype} (init_params(..., master=True) or "
                 f"params_from_jax(..., master=True)); this one is not")
+        self.shardings = shardings
         self.params = tree_map(lambda p: p.to(self.device), params)
+        if shardings is not None:
+            # first, so that the optimizer's zeros are made shard by shard
+            self.params = _place(self.params, shardings["params"])
         self.opt_state = adamw_init(self.params)
         self.ef_state = grad_compress.ef_init(self.params) \
             if tc.grad_compression \
             else {"_": torch.zeros((), device=self.device)}
+        if shardings is not None:
+            # every leaf as ``shardings`` places it, as a restore does
+            state = _place(self._state_tree(), shardings)
+            self.params, self.opt_state, self.ef_state = (
+                state["params"], state["opt"], state["ef"])
         self.step = 0
         self.ckpt = CheckpointManager(tc.checkpoint_dir) \
             if tc.checkpoint_dir else None
@@ -143,7 +174,8 @@ class Trainer:
                 "ef": self.ef_state}
 
     def _maybe_restore(self) -> bool:
-        step, tree, extra = self.ckpt.restore_latest(self._state_tree())
+        step, tree, extra = self.ckpt.restore_latest(
+            self._state_tree(), shardings=self.shardings)
         if step is None:
             return False
         self.params = tree["params"]
@@ -167,6 +199,11 @@ class Trainer:
         for _ in range(num_steps):
             batch = {k: torch.as_tensor(v, device=self.device)
                      for k, v in self.data.batch_at(self.data.cursor).items()}
+            rules = api.current_rules()
+            if self.shardings is not None and rules is not None:
+                batch = shard_plan.distribute(
+                    batch, api.current_mesh(),
+                    shard_plan.batch_pspecs(batch, rules))
             self.data.cursor += 1
             self.params, self.opt_state, self.ef_state, m = self._fn(
                 self.params, self.opt_state, self.ef_state, batch)

@@ -38,11 +38,13 @@ def test_no_jax_or_reference_imports(path):
     "repro_torch.launch.simulate",
     "repro_torch.training, repro_torch.launch.train, "
     "repro_torch.examples.train_100m",
+    "repro_torch.distributed.api, repro_torch.distributed.shard_plan, "
+    "repro_torch.launch.mesh",
 ])
 def test_engine_import_loads_no_jax(modules):
     """Importing the serving engine, the simulator and its entry points,
-    or the trainer and its entry points, loads nothing of jax or of the
-    reference."""
+    the trainer and its entry points, or the sharding plan and its
+    meshes, loads nothing of jax or of the reference."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     code = (f"import sys, {modules}; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "
