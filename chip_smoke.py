@@ -145,6 +145,11 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    phase's first three, step walls and peak memory beside that phase's;
    mamba2-130m whole, a B 8, S 1024 prefill through the SSD scan (counted,
    once a layer), logits and states against the unsharded prefill's;
+   the dry run's counters (``launch.dryrun``) on llama2-7b's sharded
+   decode step at full width, first on meta tensors of the same local
+   shapes and placements, then on the real step with the weights loaded:
+   equal FLOP counts, argument bytes equal to the placed tensors' bytes,
+   the temp estimate beside ``max_memory_allocated`` less the arguments;
 11. the simulator (``repro_torch.launch.simulate``, llama2-7b on A100,
    1000 requests at 8 QPS) twice, each in its own process: the two
    summaries must be equal apart from the host's wall time; a third
@@ -186,6 +191,7 @@ from repro_torch.kernels import counts as launch_counts  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
 from repro_torch.kernels.paged_attention import ops as paged_ops  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd_ops  # noqa: E402
+from repro_torch.launch import dryrun  # noqa: E402
 from repro_torch.launch import serve as serve_cli  # noqa: E402
 from repro_torch.launch import train as train_cli  # noqa: E402
 from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
@@ -197,7 +203,8 @@ from repro_torch.models import attention_impl  # noqa: E402
 from repro_torch.models import model_zoo as zoo  # noqa: E402
 from repro_torch.models import moe  # noqa: E402
 from repro_torch.models import ssm  # noqa: E402
-from repro_torch.models.common import RunSettings, tree_leaves  # noqa: E402
+from repro_torch.models.common import (RunSettings, tree_leaves,  # noqa: E402
+                                       tree_map)
 from repro_torch.models.layers import norm_apply  # noqa: E402
 from repro_torch.serving import paged_model  # noqa: E402
 from repro_torch.serving.engine import EngineConfig, ServingEngine  # noqa: E402
@@ -2625,6 +2632,7 @@ def check_sharded_serving(mesh):
            "unsharded_decode_wall_ms": [1e3 * w for w in walls],
            "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
     phase("llama2-7b_sharded_serve", **rec)
+    check_dryrun_counters(model, dparams, dcache, mesh, rules)
     del dparams, dcache
     free_memory()
     if flash != 2 * cfg.num_layers:
@@ -2633,6 +2641,80 @@ def check_sharded_serving(mesh):
     if not max(errs) <= SHARDED_REL:
         raise AssertionError(f"sharded logits differ by {max(errs)}")
     return flash
+
+
+def _meta_like(x):
+    """A meta DTensor of ``x``'s local shape, dtype and placements."""
+    return DTensor.from_local(
+        torch.empty(x.to_local().shape, dtype=x.dtype, device="meta"),
+        x.device_mesh, x.placements, run_check=False,
+        shape=x.shape, stride=x.stride())
+
+
+def check_dryrun_counters(model, dparams, dcache, mesh, rules):
+    """The dry run's counters (``launch.dryrun.measure``) on one sharded
+    decode step of SHARDED_BATCH rows against the cache of the phase
+    before: on meta tensors of the same local shapes and placements (what
+    the dry run traces), then on the card's tensors, the weights loaded.
+    The two FLOP counts must be equal, and so must the argument bytes and
+    the bytes of the placed tensors; the temp estimate is printed beside
+    the card's peak less the arguments."""
+    tokens = distribute_tensor(
+        torch.zeros(SHARDED_BATCH, dtype=torch.int32, device="cuda"), mesh,
+        placements(mesh, rules.spec("batch")))
+    args = (dparams, dcache, tokens)
+    step = dryrun.serve_step(model)
+    meta_args = tuple(tree_map(_meta_like, a) if isinstance(a, dict)
+                      else _meta_like(a) for a in args)
+    with torch.no_grad():
+        _, meta_mem, meta_cost, meta_coll, meta_s, _ = dryrun.measure(
+            step, meta_args, mesh=mesh, rules=rules)
+        torch.cuda.synchronize()
+        before = torch.cuda.memory_allocated()
+        torch.cuda.reset_peak_memory_stats()
+        (logits, _), mem, cost, coll, wall, _ = dryrun.measure(
+            step, args, mesh=mesh, rules=rules)
+        torch.cuda.synchronize()
+        peak = torch.cuda.max_memory_allocated()
+    placed = sum(x.to_local().numel() * x.to_local().element_size()
+                 for a in args for x in tree_leaves(
+                     a if isinstance(a, dict) else {"x": a}))
+    finite = bool(torch.isfinite(
+        logits.to_local()[:, :model.cfg.vocab_size]).all())
+    card = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        check=True, timeout=60).stdout.strip()
+    phase("llama2-7b_dryrun_counters", model=model.cfg.name, mesh="1 x 1",
+          batch=SHARDED_BATCH,
+          cache_len=int(dcache["len"].to_local().max()),
+          card=card, flops_meta=meta_cost["flops"], flops_card=cost["flops"],
+          bytes_accessed_meta=meta_cost["bytes accessed"],
+          bytes_accessed_card=cost["bytes accessed"],
+          transcendentals_meta=meta_cost["transcendentals"],
+          transcendentals_card=cost["transcendentals"],
+          argument_bytes_meta=meta_mem["argument_size_in_bytes"],
+          argument_bytes_card=mem["argument_size_in_bytes"],
+          placed_tensor_bytes=placed,
+          output_bytes_meta=meta_mem["output_size_in_bytes"],
+          output_bytes_card=mem["output_size_in_bytes"],
+          temp_bytes_meta=meta_mem["temp_size_in_bytes"],
+          temp_bytes_card=mem["temp_size_in_bytes"],
+          card_peak_less_arguments=peak - placed,
+          card_peak_over_allocated_before=peak - before,
+          collectives_meta=meta_coll, collectives_card=coll,
+          trace_s_meta=meta_s, step_s_card=wall, logits_finite=finite)
+    if meta_cost["flops"] != cost["flops"] or not cost["flops"] > 0:
+        raise AssertionError(f"the dry run's FLOPs on meta tensors, "
+                             f"{meta_cost['flops']}, differ from the "
+                             f"card's step's, {cost['flops']}")
+    if not (meta_mem["argument_size_in_bytes"]
+            == mem["argument_size_in_bytes"] == placed):
+        raise AssertionError(f"argument bytes {meta_mem} / {mem} against "
+                             f"{placed} placed")
+    if not finite:
+        raise AssertionError("the counted decode step's logits are not "
+                             "finite")
 
 
 def check_sharded_training(mesh, unsharded):

@@ -29,6 +29,7 @@ from contextlib import contextmanager
 from dataclasses import dataclass
 from typing import Optional, Tuple, Union
 
+import torch
 from torch.distributed.device_mesh import DeviceMesh
 from torch.distributed.tensor import DTensor, Replicate, Shard
 from torch.distributed.tensor.experimental import (implicit_replication,
@@ -175,6 +176,34 @@ def shard(x, *logical: Optional[str]):
         x = DTensor.from_local(x, mesh, [Replicate()] * mesh.ndim,
                                run_check=False)
     return x.redistribute(mesh, want)
+
+
+class _PlacedGrad(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x):
+        ctx.placements = tuple(Replicate() if p.is_partial() else p
+                               for p in x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, grad):
+        if isinstance(grad, DTensor) and \
+                tuple(grad.placements) != ctx.placements:
+            grad = grad.redistribute(grad.device_mesh, ctx.placements)
+        return grad
+
+
+def placed_grad(x):
+    """``x`` itself, whose gradient arrives placed as ``x`` is (a partial
+    sum reduced first).  DTensor places a backward op's gradient by its
+    own rules, and some placements cannot be taken back through the
+    forward's ops: a partial sum to the masked partial sum of the
+    vocab-parallel lookup, or tokens split over every mesh dim to the
+    (batch, seq) view they were flattened from.  ``x`` itself without
+    rules or a gradient."""
+    if not isinstance(x, DTensor) or not x.requires_grad:
+        return x
+    return _PlacedGrad.apply(x)
 
 
 def replicated(x):

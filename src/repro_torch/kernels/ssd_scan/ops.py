@@ -14,7 +14,9 @@ contract (``models.ssm``).
   wrapper does and pads a ragged S with identity steps (``dA_log = 0``,
   ``x = 0``: the state passes through, the padded rows of y are cut
   off).  CPU tensors run ``ssd_chunked_ref``; CUDA tensors launch the
-  kernels (``kernels/csrc/ssd_scan.cu``) or raise.  The kernels mask the
+  kernels (``kernels/csrc/ssd_scan.cu``) or raise.  Meta tensors (the
+  dry run's, ``launch/dryrun.py``) trace ``ssd_chunked_ref``'s ops,
+  which compute nothing.  The kernels mask the
   ragged last chunk themselves, so nothing is padded on the card.
 
 On the card a scan is three kernels on the current stream, ordered by
@@ -209,10 +211,11 @@ def ssd_scan(xbar, dA_log, Bm, Cm, *, chunk: int = 256, state0=None):
     """xbar (B,S,H,P); dA_log (B,S,H); Bm/Cm (B,S,G,N) ->
     (y (B,S,H,P) f32, final_state (B,H,N,P) f32)."""
     chunk = _chunk(xbar.shape[1], chunk)
-    if xbar.device.type == "cpu":
+    if xbar.device.type in ("cpu", "meta"):
         return _plain(xbar, dA_log, Bm, Cm, chunk, state0)
     if xbar.device.type != "cuda":
-        raise ValueError(f"ssd_scan runs on cuda or cpu, not {xbar.device}")
+        raise ValueError(f"ssd_scan runs on cuda, cpu or meta, not "
+                         f"{xbar.device}")
     _check(xbar, dA_log, Bm, Cm, state0)
     inputs = (xbar, dA_log, Bm, Cm, state0)
     if torch.is_grad_enabled() and any(

@@ -32,9 +32,12 @@ class RunSettings:
 
     The port's copy of ``repro.models.common.RunSettings``, with every
     field of the reference.  ``remat`` acts only where autograd records
-    the forward.  ``scan_layers`` chooses nothing here: the port always
+    the forward.  ``scan_layers`` chooses no code path: the port always
     runs a Python loop over the stacked layers, which computes the same
-    values as the reference's ``lax.scan`` and its unrolled loop alike.
+    values as the reference's ``lax.scan`` and its unrolled loop alike,
+    so every count the dry run (``launch/dryrun.py``) takes is the
+    reference's unrolled (``scan_layers=False``) count; its one reader is
+    the dry run's record, which keeps the setting as given.
     ``embed_shard`` and ``fsdp_params`` are read by
     ``distributed.shard_plan`` only.
     """

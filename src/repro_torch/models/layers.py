@@ -15,6 +15,7 @@ from __future__ import annotations
 
 import torch
 import torch.nn.functional as F
+from torch.distributed.tensor import DTensor
 
 from repro_torch.distributed.api import replicated, shard
 
@@ -186,11 +187,14 @@ def unembed_apply(table, x, *, vocab_logical: int, fp32: bool = True):
     logits = x.to(dt) @ table.to(dt).T
     vp = table.shape[0]
     if vp != vocab_logical:
-        # a mask over the whole row, not a fill of the padded slice: a
-        # vocab-sharded DTensor has an in-place rule for the one and not
-        # for the other
         pad = torch.arange(vp, device=logits.device) >= vocab_logical
-        logits.masked_fill_(replicated(pad), -1e30)
+        if isinstance(logits, DTensor):
+            # under a sharding plan the product may be a partial sum (the
+            # table's d_model over "data"), which a fill must not enter
+            # before the shards are summed: out of place, DTensor reduces
+            # it first; in place it has no rule for a partial sum
+            return logits.masked_fill(replicated(pad), -1e30)
+        logits.masked_fill_(pad, -1e30)
     return logits
 
 
@@ -202,12 +206,23 @@ def softmax_xent(logits, labels, mask=None):
     logits (..., V); labels int (...); an optional mask weights the
     tokens, and the masked mean divides by ``max(mask.sum(), 1)``."""
     logits = logits.float()
-    logz = torch.logsumexp(logits, dim=-1)
-    # under a sharding plan the gathered logit is a partial sum over the
-    # vocab shards, which DTensor reduces correctly only before the
-    # trailing dim is dropped
-    gold = shard(torch.gather(logits, -1, labels[..., None].long()),
-                 "batch", "seq", None)[..., 0]
+    if isinstance(logits, DTensor):
+        # under a sharding plan both terms are sums over the vocab shards
+        # (Megatron's vocab-parallel cross-entropy), which stay split in
+        # the backward too.  DTensor would gather the logits' vocab whole
+        # for logsumexp, and runs a gather's backward (a scatter into
+        # zeros) at the logits' whole global shape on every rank.  The
+        # gold logit is the sum of its one column: the same value.
+        top = shard(logits.detach().amax(dim=-1, keepdim=True),
+                    "batch", "seq", None)
+        logz = shard(torch.exp(logits - top).sum(-1), "batch", "seq") \
+            .log() + top[..., 0]
+        hit = labels[..., None].long() == shard(
+            torch.arange(logits.shape[-1], device=logits.device), "vocab")
+        gold = shard(torch.where(hit, logits, 0.0).sum(-1), "batch", "seq")
+    else:
+        logz = torch.logsumexp(logits, dim=-1)
+        gold = torch.gather(logits, -1, labels[..., None].long())[..., 0]
     nll = logz - gold
     if mask is None:
         return nll.mean()

@@ -58,10 +58,16 @@ embedded tokens and the logits) call ``distributed.api.shard``, which
 returns its input unless a sharding plan is installed
 (``use_rules``); then every tree is DTensors placed by
 ``distributed.shard_plan`` and each point redistributes its activation
-as the reference constrains it.  The attention routes and the SSD scan
-run on each rank's local shards there (``distributed.api.local``), and
-so does the decode's row write into the cache, which DTensor has no
-in-place rule for.
+as the reference constrains it.  XLA chooses the placements between the
+points for the whole program; DTensor chooses them op by op, so the port
+adds points where its choice would gather a sharded weight whole
+(``_reduced``: each attention, MLP and Mamba2 output joins the residual
+stream whole over "model"; K/V whole over "model" when fewer KV heads
+than TP) and places two gradients that DTensor could not take back
+(``distributed.api.placed_grad``).  None of them changes a value.  The
+attention routes and the SSD scan run on each rank's local shards there
+(``distributed.api.local``), and so does the decode's row write into
+the cache, which DTensor has no in-place rule for.
 """
 from __future__ import annotations
 
@@ -78,8 +84,9 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
 from repro_torch.configs.base import (ArchConfig, AUDIO, DENSE, ENCDEC,
                                       HYBRID, MOE, SSM, VLM)
 from repro_torch.distributed.api import (current_mesh, current_rules,
-                                         local, placements, replicated,
-                                         shard, shard_start, use_rules)
+                                         local, placements, placed_grad,
+                                         replicated, shard, shard_start,
+                                         use_rules)
 from repro_torch.distributed.padding import PadPlan, make_pad_plan
 from repro_torch.models import ssm as ssm_mod
 from repro_torch.models.attention_impl import attend, decode_attention
@@ -202,8 +209,16 @@ def _kv_proj(p, x, model: Model, positions):
     cd = model.compute_dtype
     b, s, _ = x.shape
     nkv_log = plan.n_kv // plan.kv_rep
-    k = dense_apply(p["wk"], x, cd).reshape(b, s, nkv_log, cfg.head_dim)
-    v = dense_apply(p["wv"], x, cd).reshape(b, s, nkv_log, cfg.head_dim)
+    k = dense_apply(p["wk"], x, cd)
+    v = dense_apply(p["wv"], x, cd)
+    if plan.kv_rep > 1:
+        # fewer KV heads than TP: the weights are whole over "model", and
+        # so must the products be before they split into heads (DTensor
+        # may split their columns over "model", cutting heads apart)
+        k = shard(k, "batch", "seq", None)
+        v = shard(v, "batch", "seq", None)
+    k = k.reshape(b, s, nkv_log, cfg.head_dim)
+    v = v.reshape(b, s, nkv_log, cfg.head_dim)
     if "k_norm" in p:
         k = head_norm_apply(p["k_norm"], k)
     if cfg.pos_emb == "rope" and positions is not None:
@@ -276,16 +291,28 @@ def _block_apply(p, x, model: Model, positions, *, causal=True, enc_out=None,
     cfg = model.cfg
     h = norm_apply(p["ln1"], x, cfg.norm)
     attn, kv = _attn_full(p["attn"], h, model, positions, causal=causal)
-    x = x + attn
+    x = x + _reduced(attn)
     if "xattn" in p:
         h = norm_apply(p["ln_x"], x, cfg.norm)
         attn, xkv = _attn_full(p["xattn"], h, model, None, causal=False,
                                kv_x=enc_out, logit_softcap=cross_softcap)
-        x = x + attn
+        x = x + _reduced(attn)
         kv = kv + xkv
     h = norm_apply(p["ln2"], x, cfg.norm)
     y, aux = _ffn_apply(p, h, model)
-    return shard(x + y, "batch", "seq", "embed"), kv, aux
+    return shard(x + _reduced(y), "batch", "seq", "embed"), kv, aux
+
+
+def _reduced(y):
+    """An attention's, an MLP's or a Mamba2 mixer's output, before it
+    joins the residual stream, whole over "model" (a no-op without a
+    sharding plan).  Its last product leaves a partial sum over "model";
+    added as it is, DTensor splits the sum along d_model, the next
+    block's weights are then gathered whole to meet it, and the
+    backward's gradients take the split too.  Reduced here (Megatron's
+    all-reduce points), the residual stream stays whole and its gradient
+    too.  y: (B,S,d), or a Mamba2 decode step's (B,d)."""
+    return shard(y, "batch", *("seq",) * (y.dim() - 2), "embed")
 
 
 # ---------------------------------------------------------------------------
@@ -469,7 +496,7 @@ def _remat(model: Model, body, x, p):
 # ---------------------------------------------------------------------------
 def _embed_tokens(model: Model, params, tokens):
     x = embed_apply(params["embed"], tokens, model.compute_dtype)
-    return shard(x, "batch", "seq", "embed")
+    return placed_grad(shard(x, "batch", "seq", "embed"))
 
 
 def _position_table(model: Model, params):
@@ -610,7 +637,7 @@ def _ssm_block(model: Model, lp, x, hm):
         y, states = ssm_mod.mamba2_apply(
             lp["mixer"], h, model.cfg.ssm,
             compute_dtype=model.compute_dtype, head_mask=hm)
-        return x + y, states
+        return x + _reduced(y), states
 
     return _remat(model, body, x, lp)
 
@@ -820,8 +847,11 @@ def _attn_decode(p, x_t, model: Model, k_cache, v_cache, cache_len, *,
     positions = cache_len[:, None].long()
     q = _q_proj(p, x_t, model, positions)
     if cross:
-        valid_len = torch.full((bsz,), k_cache.shape[1], dtype=torch.int32,
-                               device=x_t.device)
+        # replicated under a sharding plan, so that the attention's
+        # boundary hands each rank its own rows of it
+        valid_len = replicated(torch.full((bsz,), k_cache.shape[1],
+                                          dtype=torch.int32,
+                                          device=x_t.device))
     else:
         k_t, v_t = _kv_proj(p, x_t, model, positions)
         _write_rows(k_cache, cache_len, k_t[:, 0])
@@ -840,13 +870,14 @@ def _block_decode(p, x_t, model: Model, k, v, cache_len, *, xk=None,
     place; in a decoder block, cross-attention on (xk, xv)."""
     cfg = model.cfg
     h = norm_apply(p["ln1"], x_t, cfg.norm)
-    x_t = x_t + _attn_decode(p["attn"], h, model, k, v, cache_len)
+    x_t = x_t + _reduced(_attn_decode(p["attn"], h, model, k, v,
+                                      cache_len))
     if "xattn" in p:
         h = norm_apply(p["ln_x"], x_t, cfg.norm)
-        x_t = x_t + _attn_decode(p["xattn"], h, model, xk, xv, cache_len,
-                                 cross=True)
+        x_t = x_t + _reduced(_attn_decode(p["xattn"], h, model, xk, xv,
+                                          cache_len, cross=True))
     h = norm_apply(p["ln2"], x_t, cfg.norm)
-    return x_t + _ffn_apply(p, h, model)[0]
+    return x_t + _reduced(_ffn_apply(p, h, model)[0])
 
 
 def decode_step(model: Model, params, cache, tokens):
@@ -887,7 +918,7 @@ def _ssm_decode_block(model: Model, params, cache, i, x, hm):
         head_mask=hm)
     cache["conv"][i] = cs
     cache["ssd"][i] = ss
-    return x + y
+    return x + _reduced(y)
 
 
 def _ssm_decode_step(model: Model, params, cache, tokens):

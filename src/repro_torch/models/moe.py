@@ -29,6 +29,7 @@ from typing import Tuple
 import torch
 import torch.nn.functional as F
 
+from repro_torch.distributed.api import placed_grad, replicated
 from repro_torch.models.layers import normal
 
 NEG_INF = -1e30
@@ -64,7 +65,10 @@ def _router(p, x, top_k: int, n_experts_logical: int):
     probs = torch.softmax(top_logits, dim=-1)                # renormalised
     # Load-balance aux loss (Switch-style) + router z-loss, over real experts.
     me = torch.softmax(logits, dim=-1).mean(dim=0)           # (E,)
-    ce = torch.zeros(e, dtype=torch.float32, device=x.device).index_add_(
+    # the counts start as a replicated tensor, so that under a sharding
+    # plan the in-place add has a DTensor to add into (a no-op without it)
+    ce = replicated(torch.zeros(e, dtype=torch.float32,
+                                device=x.device)).index_add_(
         0, top_ids.reshape(-1),
         torch.full((top_ids.numel(),), 1.0 / top_ids.numel(),
                    device=x.device))
@@ -94,7 +98,9 @@ def moe_apply_dense(p, x, *, top_k: int, n_experts_logical: int,
                     compute_dtype) -> Tuple[torch.Tensor, dict]:
     """dense_onehot route. x: (..., d)."""
     shp = x.shape
-    x2 = x.reshape(-1, shp[-1]).to(compute_dtype)            # (T, d)
+    # under a sharding plan the tokens' gradient must come back as the
+    # tokens lie, to be viewed as (B, S) again
+    x2 = placed_grad(x.reshape(-1, shp[-1]).to(compute_dtype))  # (T, d)
     probs, ids, aux = _router(p, x2, top_k, n_experts_logical)
     e = p["router"].shape[-1]
     outs = _expert_ffn_dense(p, x2, compute_dtype)           # (E, T, d)

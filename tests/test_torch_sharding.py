@@ -13,7 +13,11 @@
   at tp=2 from the reference's weights: gradients, train steps (plain
   and int8 error feedback), a checkpoint restored onto (2, 4) and onto no
   mesh, prefill and decode through the flash boundary, and a mamba2-130m
-  prefill through the SSD-scan boundary.  The reference's own small-mesh
+  prefill through the SSD-scan boundary; and stablelm-3b smoke, whose
+  vocabulary tp pads (384 -> 512), so that its logits mask runs on the
+  unembedding's partial sum: prefill, decode steps and a train step
+  against the port's unsharded run and the reference's.  The reference's
+  own small-mesh
   test fails at seed (a ``DuplicateSpecError`` in its embedding), so the
   sharded step is held to the reference's *unsharded* loss and to the
   port's unsharded step.
@@ -52,7 +56,7 @@ from repro.training.optimizer import adamw_init as r_adamw_init
 from repro.training.trainer import TrainConfig as R_TrainConfig
 from repro.training.trainer import make_train_step as r_make_train_step
 
-from repro_torch.configs import ASSIGNED, get_config
+from repro_torch.configs import ASSIGNED, get_config, get_smoke_config
 from repro_torch.distributed import api
 from repro_torch.distributed import shard_plan as sp
 from repro_torch.launch import mesh as port_mesh
@@ -312,6 +316,8 @@ def test_production_mesh_places_every_config(fake_world, name):
 # ---------------------------------------------------------------------------
 ARCH, TP = "qwen3-14b", 2
 B, S = 8, 32
+#: the decode steps each rank runs (torch_sharding_ranks.DECODE_STEPS)
+DECODE_STEPS = 4
 #: sharded against the port's unsharded run (see the module docstring):
 #: the fp32 loss; gradients of the bf16 config, each leaf's largest
 #: error over its largest gradient; of the fp32-compute config
@@ -340,6 +346,40 @@ def _free_port():
         return sock.getsockname()[1]
 
 
+#: a smoke config whose vocabulary tp pads (384 -> 512)
+PADDED_ARCH = "stablelm-3b"
+
+
+def _padded_reference(work, rng):
+    """PADDED_ARCH's reference weights and batch for the ranks (with
+    DECODE_STEPS decode tokens), and the reference's unsharded loss, and
+    prefill and decode logits on them."""
+    cfg = r_get_smoke_config(PADDED_ARCH)
+    model = r_zoo.build(cfg, tp=TP)
+    params = r_zoo.init_params(model, jax.random.key(1))
+    np.savez(work / "params_padded.npz", **{
+        k: np.asarray(v) for k, v in _ref_flat(params).items()})
+    batch = {k: rng.randint(0, cfg.vocab_size, (B, S)).astype(np.int32)
+             for k in ("tokens", "labels")}
+    decode = rng.randint(0, cfg.vocab_size,
+                         (DECODE_STEPS, B)).astype(np.int32)
+    np.savez(work / "batch_padded.npz", decode=decode, **batch)
+    step = jax.jit(r_make_train_step(model, R_TrainConfig()))
+    loss = step(params, r_adamw_init(params), {"_": jnp.zeros(())},
+                {k: jnp.asarray(v) for k, v in batch.items()})[3]["loss"]
+    cache = r_zoo.init_cache(model, B, S + DECODE_STEPS)
+    logits, cache = r_zoo.prefill(model, params,
+                                  {"tokens": jnp.asarray(batch["tokens"])},
+                                  cache)
+    out = [np.asarray(logits, np.float32)]
+    for tok in decode:
+        logits, cache = r_zoo.decode_step(model, params, cache,
+                                          jnp.asarray(tok))
+        out.append(np.asarray(logits, np.float32))
+    return {"loss": float(loss), "logits": out,
+            "vocab": cfg.vocab_size, "padded_vocab": model.plan.vocab}
+
+
 @pytest.fixture(scope="module")
 def ranks(tmp_path_factory):
     """The reference's weights and unsharded losses, then the eight ranks;
@@ -350,7 +390,7 @@ def ranks(tmp_path_factory):
     batch = {k: rng.randint(0, cfg.vocab_size, (B, S)).astype(np.int32)
              for k in ("tokens", "labels")}
     np.savez(work / "batch.npz", **batch)
-    ref = {}
+    ref = {"padded": _padded_reference(work, rng)}
     for tag, c in (("bf16", cfg), ("fp32", dataclasses.replace(
             cfg, dtype="float32"))):
         model = r_zoo.build(c, tp=TP)
@@ -381,7 +421,10 @@ def ranks(tmp_path_factory):
     assert not failed, (
         failed, (work / f"rank{failed[0]}.log").read_text()[-4000:])
     with open(work / "result.json") as f:
-        return json.load(f), ref
+        got = json.load(f)
+    with np.load(work / "padded_logits.npz") as f:
+        got["padded"]["logits"] = [f[f"arr_{i}"] for i in range(len(f))]
+    return got, ref
 
 
 def test_sharded_loss_matches_reference_unsharded(ranks):
@@ -500,3 +543,57 @@ def test_mamba_prefill_through_ssd_boundary(ranks):
                          [bm[0] // 4] + bm[1:], [cm[0] // 4] + cm[1:]]
     assert got["logits_max_diff"] <= LOGIT_REL * got["logits_max_abs"]
     assert got["cache_rel_diff"] <= LOGIT_REL, got
+
+
+# ---------------------------------------------------------------------------
+# A vocabulary that tp pads, under the plan
+# ---------------------------------------------------------------------------
+def test_padded_vocab_sizes():
+    """The case's vocabulary is padded at tp (so the logits mask runs on
+    the unembedding's partial sum), as the reference pads it."""
+    ref = r_zoo.build(r_get_smoke_config(PADDED_ARCH), tp=TP).plan
+    model = zoo.build(get_smoke_config(PADDED_ARCH), tp=TP)
+    assert (model.plan.vocab_logical, model.plan.vocab) == \
+        (ref.vocab_logical, ref.vocab) == (384, 512)
+
+
+def test_padded_vocab_serve_matches_unsharded_and_reference(ranks):
+    """Prefill and DECODE_STEPS decode steps under the plan, the padded
+    columns masked on the unembedding's partial sum: every padded column
+    holds the reference's -1e30, and the logits over the vocabulary
+    equal the port's unsharded run's and the reference's unsharded ones
+    within the bf16 limit."""
+    got, ref = ranks
+    padded, want = got["padded"], ref["padded"]
+    assert (padded["vocab"], padded["padded_vocab"]) == \
+        (want["vocab"], want["padded_vocab"])
+    served = padded["serve"]
+    assert served["pad_exact"] is True
+    _serve_matches(served, LOGIT_REL)
+    vocab = want["vocab"]
+    assert len(padded["logits"]) == len(want["logits"]) == DECODE_STEPS + 1
+    scale = max(np.abs(w[..., :vocab]).max() for w in want["logits"])
+    for g, w in zip(padded["logits"], want["logits"]):
+        assert g.shape == w.shape
+        assert np.all(w[..., vocab:] == -1e30)
+        assert np.abs(g[..., :vocab] - w[..., :vocab]).max() \
+            <= LOGIT_REL * scale
+
+
+def test_padded_vocab_train_step_matches(ranks):
+    """The loss, gradients and a train step of the padded-vocabulary
+    config under the plan, against the port's unsharded ones and the
+    reference's unsharded loss."""
+    got, ref = ranks
+    padded = got["padded"]
+    np.testing.assert_allclose(padded["grads"]["loss"],
+                               padded["grads"]["loss_unsharded"],
+                               rtol=LOSS_RTOL)
+    assert padded["grads"]["grads_rel_diff"] <= GRAD_REL_BF16, padded
+    train = padded["train"]["plain"]
+    np.testing.assert_allclose(train["loss"], ref["padded"]["loss"],
+                               rtol=REF_LOSS_RTOL)
+    np.testing.assert_allclose(train["loss"], train["loss_unsharded"],
+                               rtol=LOSS_RTOL)
+    assert train["update_off_share"] <= UPDATE_OFF_SHARE["plain"], train
+    assert train["placements_kept"], train

@@ -4,9 +4,11 @@ Run as ``python torch_sharding_ranks.py RANK PORT WORKDIR`` in eight
 processes: a gloo group of 8 ranks on this host, the (4 data x 2 model)
 mesh of the reference's small-mesh test.  WORKDIR holds ``params.npz``
 (the reference's qwen3-14b smoke weights at tp=2, one array per
-``/``-joined path) and ``batch.npz`` (tokens, labels); rank 0 writes
-``result.json``.  Every rank checks nothing itself: the test reads the
-numbers.  It loads no jax.
+``/``-joined path) and ``batch.npz`` (tokens, labels), and the same of
+the padded-vocabulary case (``params_padded.npz``; ``batch_padded.npz``
+with its decode tokens); rank 0 writes ``result.json`` and that case's
+sharded logits, ``padded_logits.npz``.  Every rank checks nothing
+itself: the test reads the numbers.  It loads no jax.
 """
 import dataclasses
 import json
@@ -36,6 +38,8 @@ from repro_torch.training.trainer import (TrainConfig, Trainer,
                                           make_train_step, value_and_grad)
 
 ARCH, TP = "qwen3-14b", 2
+#: a smoke config whose vocabulary tp pads (384 -> 512)
+PADDED_ARCH = "stablelm-3b"
 #: the reference's small-mesh rules (tests/test_sharding_and_dryrun.py)
 RULES = make_rules(batch=("data",), heads="model", kv_heads="model",
                    ff="model", vocab="model", experts="model")
@@ -199,18 +203,25 @@ def train_steps(model, params, batch, mesh):
     return out, state
 
 
-def serve(model, params, prompt, mesh, rules=RULES):
+def serve(model, params, prompt, mesh, rules=RULES, toks=None):
     """prefill plus DECODE_STEPS decode steps, unsharded and under
-    ``rules``, on the same tokens (the unsharded run's greedy ones)."""
+    ``rules``, on the same tokens (``toks``, or the unsharded run's
+    greedy ones).  The logits are compared over the config's vocabulary;
+    ``pad_exact`` says whether every padded column of the sharded run
+    holds the reference's -1e30, and ``logits`` keeps the sharded run's
+    logits for the caller."""
     b, s = prompt.shape
+    vocab = model.cfg.vocab_size
     cache = zoo.init_cache(model, b, s + DECODE_STEPS, "cpu")
     logits, cache = zoo.prefill(model, params, {"tokens": prompt}, cache)
     want = [logits]
-    toks = []
+    greedy = toks is None
+    toks = [] if greedy else toks
     tok = logits[:, -1].float().argmax(-1)
-    for _ in range(DECODE_STEPS):
-        toks.append(tok)
-        logits, cache = zoo.decode_step(model, params, cache, tok)
+    for i in range(DECODE_STEPS):
+        if greedy:
+            toks.append(tok)
+        logits, cache = zoo.decode_step(model, params, cache, toks[i])
         want.append(logits)
         tok = logits.float().argmax(-1)
 
@@ -229,11 +240,42 @@ def serve(model, params, prompt, mesh, rules=RULES):
             logits, dcache = zoo.decode_step(model, dparams, dcache, tok)
             got.append(full(logits))
     return {
-        "logits_max_diff": [float((g.float() - w.float()).abs().max())
+        "logits_max_diff": [float((g[..., :vocab].float()
+                                   - w[..., :vocab].float()).abs().max())
                             for g, w in zip(got, want)],
-        "logits_max_abs": max(float(w.float().abs().max()) for w in want),
+        "logits_max_abs": max(float(w[..., :vocab].float().abs().max())
+                              for w in want),
+        "pad_exact": all(bool((g[..., vocab:] == -1e30).all()) for g in got),
         "cache_rel_diff": rel_diff(dcache, cache),
-        "flash_local_shapes": fl.shapes}
+        "flash_local_shapes": fl.shapes,
+        "logits": [g.float().numpy() for g in got]}
+
+
+def padded_vocab(mesh, workdir):
+    """PADDED_ARCH's smoke config, whose vocabulary tp pads (384 -> 512),
+    from the reference's weights: its gradients and a train step, then a
+    prefill and DECODE_STEPS decode steps on the test's tokens, each
+    under the plan against the unsharded run.  The sharded logits go to
+    ``padded_logits.npz`` for the test to hold to the reference's."""
+    model = zoo.build(get_smoke_config(PADDED_ARCH), tp=TP)
+    tree = unflatten(dict(np.load(os.path.join(workdir,
+                                               "params_padded.npz"))))
+    data = np.load(os.path.join(workdir, "batch_padded.npz"))
+    batch = {k: torch.from_numpy(data[k]) for k in ("tokens", "labels")}
+    params = params_from_jax(model, tree, "cpu", master=True)
+    out = {"vocab": model.cfg.vocab_size, "padded_vocab": model.plan.vocab,
+           "grads": gradients(model, params, batch, mesh),
+           "train": train_steps(model, params, batch, mesh)[0]}
+    with torch.no_grad():
+        served = serve(model, params_from_jax(model, tree, "cpu"),
+                       batch["tokens"],
+                       mesh, toks=[torch.from_numpy(t)
+                                   for t in data["decode"]])
+    logits = served.pop("logits")
+    if dist.get_rank() == 0:
+        np.savez(os.path.join(workdir, "padded_logits.npz"), *logits)
+    out["serve"] = served
+    return out
 
 
 def trainer_placements(model, params, mesh):
@@ -340,15 +382,18 @@ def main():
             result["serve"] = serve(served, params_from_jax(served, tree,
                                                             "cpu"),
                                     batch["tokens"], mesh)
+            del result["serve"]["logits"]
             # the reference's long-context rules (the cache's sequence
             # over "data", the batch whole), in fp32 compute
             served = fp32.with_settings(attn_impl="pallas")
             result["serve_seq_parallel"] = serve(
                 served, params_from_jax(served, tree, "cpu"),
                 batch["tokens"], mesh, sp.default_rules(seq_parallel=True))
+            del result["serve_seq_parallel"]["logits"]
             result["misplaced_cache_refused"] = misplaced_cache_refused(
                 mesh)
             result["mamba"] = mamba_prefill(mesh)
+        result["padded"] = padded_vocab(mesh, workdir)
         if rank == 0:
             with open(os.path.join(workdir, "result.json"), "w") as f:
                 json.dump(result, f)
