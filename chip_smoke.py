@@ -26,8 +26,20 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    stablelm-3b (head_dim 80, bf16 and fp32); flash also at the 1024-token
    prefills of the two granite models and at head_dim 80 in every bucket
    (stablelm-3b's prefills and zamba2-2.7b's shared block, 32/32); the
+   widened shapes: bf16 flash at head_dim 16, 32 and 96, the fp32 flash
+   kernel at llama2-7b's and qwen3-14b's 1024-token prefills (SDPA on
+   the same fp32 tensors beside it), paged at head_dim 16 and 32, group
+   6, multi-query 16/1 and 32/1, and in fp32 at llama2-7b's decode; the
    SSD scan also at zamba2-2.7b's prefill (80 heads, N 64) and at the
-   training CLI's mamba2-130m shape (B 4, S 1024);
+   training CLI's mamba2-130m shape (B 4, S 1024); then every case of
+   the reference's tests/test_kernels.py flash, softcap, paged and
+   permutation tests at its shape, dtype, causal flag and softcap
+   (inputs drawn with numpy), with group 6, 16/1 and 32/1 paged at D
+   128, fp32 flash at S 1024 (32/32, 40/8) and bf16 flash at D 96, each
+   launched through the kernel (counted) and held to its plain version
+   on the card within the reference test's elementwise tolerance (2e-5
+   fp32, 2.5e-2 bf16 flash, 3e-2 bf16 paged) and the row limit, the two
+   permuted outputs within 1e-5;
 4. serving: llama2-7b at full width and depth (random weights from
    ``init_params(seed=0)``) behind ``ServingEngine``, 16 requests of
    64-1024 prompt tokens and 32 output tokens, on the kernel path; the
@@ -47,7 +59,14 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    prefilled pages, kernel path against plain path; a profile of a
    decode step (with the paged kernel's share of its device time) and
    of a 1024-token prefill, eager and graphed; the same requests on the
-   plain path.  opt-13b (learned positions, LayerNorm, GELU; MHA 40/40)
+   plain path.  llama2-7b once more with its config's dtype set to
+   float32 (27 GB of weights): 8 of the requests, 16 output tokens each,
+   on the graphed engine through the fp32 flash kernel (one launch a
+   layer a prefill) and the paged kernel in fp32 (one a layer a decode
+   step), its first-token and decode-step logits against the plain
+   routes within 1e-4 (largest error and L2, over the plain route's),
+   the graphed decode-step and 1024-token prefill profiles and the peak
+   memory.  opt-13b (learned positions, LayerNorm, GELU; MHA 40/40)
    and qwen3-14b (qk-norm, GQA 40/8) at full width and depth run the
    main path (one graphed engine on the kernel routes), the two logit
    comparisons and the profiles; so do granite-moe-3b (MoE, 40 experts
@@ -155,17 +174,20 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    summaries must be equal apart from the host's wall time; a third
    process imports the port's simulator, sweep and CLI and must load
    nothing of jax or of the reference package;
-12. the ``kernels`` JSON line (each kernel's launches summed over the
-   main paths that run it, the sharded phases' among them, with
-   ``launches_by_path``; its times at the
-   llama2-7b case), then the result line.
+12. the script's total seconds, the ``kernels`` JSON line (each
+   kernel's launches summed over the main paths that run it, the
+   sharded phases' among them, with ``launches_by_path``; its times at
+   the llama2-7b case; the fp32 flash kernel a line of its own, its
+   launches those of the fp32 llama2-7b run), then the result line.
 
 Without a CUDA device, or without the rest of the checkout, it fails
 before printing a result.
 """
 from __future__ import annotations
 
+import ctypes
 import dataclasses
+import functools
 import gc
 import json
 import os
@@ -235,6 +257,11 @@ REL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
 #: above it.  A wrong kernel gives errors of the logits' own size.
 LOGIT_REL_MAX = 0.1
 LOGIT_REL_L2 = 0.1
+#: (max, L2) logit limits by the model's compute dtype: in fp32 both
+#: attention routes compute in fp32 and differ in summation order only,
+#: so the kernels' fp32 row limit holds the logits
+LOGIT_LIMITS = {torch.bfloat16: (LOGIT_REL_MAX, LOGIT_REL_L2),
+                torch.float32: (1e-4, 1e-4)}
 
 #: mamba2-130m, kernel route vs ``impl="recurrent"`` on the card, per
 #: layer: the norm of the difference over the recurrent route's norm, of
@@ -273,11 +300,12 @@ SSD_KERNELS = ("chunk_state_kernel", "state_passing_kernel",
 #: the paged kernel (kernels/csrc/paged_attention.cu; the merge of the
 #: splits is inside it)
 PAGED_KERNELS = ("paged_attn_kernel",)
-#: the flash kernel (kernels/csrc/flash_attention.cu)
-FLASH_KERNELS = ("flash_kernel",)
-#: rows of one q tile of the flash kernel (kBM, kernels/csrc/
-#: flash_attention.cu): its grid is (heads, batch, ceil(Sq / kBM))
-FLASH_TILE_Q = 128
+#: the flash kernels, bf16 and fp32 (kernels/csrc/flash_attention.cu)
+FLASH_KERNELS = ("flash_kernel", "flash_fp32_kernel")
+#: rows of one q tile of the flash kernels by dtype (kBM and f32::kBM,
+#: kernels/csrc/flash_attention.cu): the grid is (heads, batch,
+#: ceil(Sq / kBM))
+FLASH_TILE_Q = {torch.bfloat16: 128, torch.float32: 64}
 
 PAGE = 16
 NUM_BLOCKS = 1024
@@ -381,9 +409,10 @@ def paged_case(name, *, batch, hq, hkv, dtype, d=128, seed=0):
     flops = 4 * int(lens.sum()) * hq * d
     bound_ms, bound_by = bound(nbytes, flops, dtype)
     grid, split = paged_ops.grid(q, kp, t)
-    # blocks whose split starts below the length (at least one a row)
-    active = hkv * sum(max(1, -(-min(int(x), MAX_PAGES * PAGE) // split))
-                       for x in lens)
+    # blocks whose split starts below the length (at least one a row and
+    # chunk of q heads)
+    active = grid[1] * sum(max(1, -(-min(int(x), MAX_PAGES * PAGE) // split))
+                           for x in lens)
 
     def call():
         paged_ops.paged_attention(q, kp, vp, t, ln)
@@ -460,7 +489,7 @@ def flash_case(name, *, sq, skv, h, hkv, causal, dtype, d=128, softcap=0.0,
                              queue_ahead=True)
     rec = {"case": name, "dtype": str(dtype), "sq": sq, "skv": skv, "h": h,
            "hkv": hkv, "head_dim": d, "causal": causal, "softcap": softcap,
-           "grid": [h, 1, -(-sq // FLASH_TILE_Q)],
+           "grid": [h, 1, -(-sq // FLASH_TILE_Q[dtype])],
            "max_abs_err": err, "max_rel_err": rel,
            "tol_rel": REL_TOL[dtype], "finite": finite,
            "kernel_ms": kernel_ms, "call_ms": call_ms,
@@ -542,8 +571,175 @@ def check_kernels():
         flash_case(f"head_dim 80 causal S={s} (stablelm-3b, zamba2-2.7b)",
                    sq=s, skv=s, h=32, hkv=32, d=80, causal=True, dtype=bf16,
                    seed=20 + s)
+    # the widened shapes: bf16 flash at head_dim 16 and 32 (D-64 tiles)
+    # and 96 (D-128 tiles); the fp32 flash kernel at llama2-7b's and
+    # qwen3-14b's 1024-token prefills; paged at head_dim 16 and 32, group
+    # 6, multi-query 16/1 and 32/1 (chunks of 8 q heads), and in fp32 at
+    # llama2-7b's decode (the fp32 serving phase's)
+    for d in (16, 32, 96):
+        flash_case(f"head_dim {d} causal S=1024 32/8", sq=1024, skv=1024,
+                   h=32, hkv=8, d=d, causal=True, dtype=bf16, seed=40 + d)
+    flash32 = flash_case("fp32 llama2-7b causal S=1024", sq=1024, skv=1024,
+                         h=32, hkv=32, causal=True, dtype=f32, seed=10)
+    flash_case("fp32 qwen3-14b causal S=1024", sq=1024, skv=1024, h=40,
+               hkv=8, causal=True, dtype=f32, seed=11)
+    for d in (16, 32):
+        paged_case(f"head_dim {d} decode 32/8", batch=MAX_BATCH, hq=32, hkv=8,
+                   d=d, dtype=bf16, seed=20 + d)
+    for hq, hkv in ((48, 8), (16, 1), (32, 1)):
+        paged_case(f"group {hq // hkv} decode {hq}/{hkv}", batch=MAX_BATCH,
+                   hq=hq, hkv=hkv, dtype=bf16, seed=30 + hq + hkv)
+    paged_case("fp32 llama2-7b decode", batch=MAX_BATCH, hq=32, hkv=32,
+               dtype=f32, seed=13)
     # the rows of the kernels line: the serving path's shapes
-    return paged[0], flash[PROMPT_RANGE[1]]
+    return paged[0], flash[PROMPT_RANGE[1]], flash32
+
+
+#: tests/test_kernels.py's own kernel cases at their shapes, dtypes,
+#: causal flags and softcap (that file needs JAX, which this machine has
+#: not: the inputs are drawn with numpy from a seed instead), then the
+#: widened shapes of the serving models.  Flash: (name, b, sq, skv, h,
+#: hkv, d, causal, softcap, dtype)
+REF_FLASH_CASES = [
+    ("FLASH_CASES[0]", 2, 128, 128, 4, 2, 64, True, 0.0, torch.float32),
+    ("FLASH_CASES[1]", 1, 256, 256, 4, 4, 64, True, 0.0, torch.bfloat16),
+    ("FLASH_CASES[2]", 2, 64, 192, 4, 1, 32, False, 0.0, torch.float32),
+    ("FLASH_CASES[3]", 1, 100, 100, 2, 2, 16, True, 0.0, torch.float32),
+    ("FLASH_CASES[4]", 1, 128, 128, 8, 8, 128, True, 0.0, torch.float32),
+    ("test_flash_softcap", 1, 64, 64, 2, 2, 32, True, 20.0, torch.float32),
+    ("fp32 llama2-7b causal S=1024", 1, 1024, 1024, 32, 32, 128, True, 0.0,
+     torch.float32),
+    ("fp32 qwen3-14b causal S=1024", 1, 1024, 1024, 40, 8, 128, True, 0.0,
+     torch.float32),
+    ("bf16 head_dim 96 causal S=1024", 1, 1024, 1024, 32, 32, 96, True, 0.0,
+     torch.bfloat16),
+]
+#: paged: (name, b, hq, hkv, d, npages, page, mp, dtype)
+REF_PAGED_CASES = [
+    ("PAGED_CASES[0]", 2, 4, 2, 64, 16, 16, 4, torch.float32),
+    ("PAGED_CASES[1]", 3, 8, 1, 32, 32, 8, 6, torch.float32),
+    ("PAGED_CASES[2]", 2, 4, 4, 64, 16, 16, 3, torch.bfloat16),
+    ("PAGED_CASES[3]", 1, 16, 2, 128, 8, 32, 2, torch.float32),
+    ("group 6 48/8 d128", MAX_BATCH, 48, 8, 128, NUM_BLOCKS + 1, PAGE,
+     MAX_PAGES, torch.bfloat16),
+    ("multi-query 16/1 d128", MAX_BATCH, 16, 1, 128, NUM_BLOCKS + 1, PAGE,
+     MAX_PAGES, torch.bfloat16),
+    ("multi-query 32/1 d128", MAX_BATCH, 32, 1, 128, NUM_BLOCKS + 1, PAGE,
+     MAX_PAGES, torch.bfloat16),
+]
+#: tests/test_kernels.py's elementwise tolerances (rtol = atol) by kernel
+#: and dtype
+REF_TOL = {("flash_attention", torch.float32): 2e-5,
+           ("flash_attention", torch.bfloat16): 2.5e-2,
+           ("paged_attention", torch.float32): 2e-5,
+           ("paged_attention", torch.bfloat16): 3e-2}
+#: the permutation test's limit between its two outputs
+PERMUTATION_TOL = 1e-5
+
+
+def held_to_reference(kernel, case, got, want, dtype):
+    """The kernel's output ``got`` against the plain version's ``want``
+    (fp32, same inputs): the reference test's elementwise tolerance and
+    the row limit; prints the case's phase, raises past either."""
+    tol = REF_TOL[kernel, dtype]
+    err = (got.float() - want).abs()
+    # the largest |err| over what assert_allclose allows there: <= 1
+    ratio = float((err / (tol + tol * want.abs())).max())
+    rel = float(row_rel_err(got, want).max())
+    finite = bool(torch.isfinite(got).all())
+    rec = {"kernel": kernel, "case": case, "dtype": str(dtype),
+           "shape": list(got.shape), "max_abs_err": float(err.max()),
+           "tol_elementwise": tol, "max_err_over_tol": ratio,
+           "max_rel_err": rel, "tol_rel": REL_TOL[dtype], "finite": finite}
+    phase("kernel_reference_case", **rec)
+    if not (finite and ratio <= 1 and rel <= REL_TOL[dtype]):
+        raise AssertionError(f"{kernel} {case}: elementwise {ratio} of its "
+                             f"tolerance, row error {rel}, finite={finite}")
+    return rec
+
+
+def launched(kernel, fn):
+    """``fn()``, which must launch ``kernel`` once (not its plain
+    version)."""
+    before = launch_counts.get(kernel)
+    out = fn()
+    torch.cuda.synchronize()
+    if launch_counts.get(kernel) != before + 1:
+        raise AssertionError(f"{kernel} did not launch its kernel")
+    return out
+
+
+def check_reference_cases():
+    """Every case of tests/test_kernels.py's flash and paged tests, its
+    softcap test and its permutation test, and the widened serving
+    shapes, through the kernels (each launch counted) against their
+    plain versions on the card."""
+    recs = []
+    for name, b, sq, skv, h, hkv, d, causal, softcap, dtype in \
+            REF_FLASH_CASES:
+        rng = np.random.RandomState(0)
+        q, k, v = (torch.from_numpy(rng.randn(b, s, n, d).astype(np.float32))
+                   .to("cuda", dtype)
+                   for s, n in ((sq, h), (skv, hkv), (skv, hkv)))
+        kw = dict(causal=causal, softcap=softcap)
+        got = launched("flash_attention",
+                       lambda: flash_ops.flash_attention(q, k, v, **kw))
+        want = flash_ops.flash_attention_ref(q.float(), k.float(), v.float(),
+                                             **kw)
+        recs.append(held_to_reference("flash_attention", name, got, want,
+                                      dtype))
+    for name, b, hq, hkv, d, npages, page, mp, dtype in REF_PAGED_CASES:
+        rng = np.random.RandomState(2)
+        q, kp, vp = (torch.from_numpy(rng.randn(*shape).astype(np.float32))
+                     .to("cuda", dtype) for shape in
+                     ((b, hq, d), (npages, page, hkv, d),
+                      (npages, page, hkv, d)))
+        bt = torch.from_numpy(rng.randint(0, npages, size=(b, mp))
+                              .astype(np.int32)).cuda()
+        cl = torch.from_numpy(rng.randint(1, mp * page + 1, size=(b,))
+                              .astype(np.int32)).cuda()
+        got = launched("paged_attention",
+                       lambda: paged_ops.paged_attention(q, kp, vp, bt, cl))
+        want = paged_ops.paged_attention_ref(q.float(), kp.float(),
+                                             vp.float(), bt, cl)
+        recs.append(held_to_reference("paged_attention", name, got, want,
+                                      dtype))
+    # test_paged_attention_respects_block_table_permutation: head_dim 16,
+    # 2/1, the same K/V through two page orders
+    b, hq, hkv, d, npages, page, mp = 1, 2, 1, 16, 8, 4, 4
+    rng = np.random.RandomState(3)
+    q, kseq, vseq = (torch.from_numpy(rng.randn(*shape).astype(np.float32))
+                     .cuda() for shape in
+                     ((b, hq, d), (mp * page, hkv, d), (mp * page, hkv, d)))
+    cl = torch.tensor([mp * page], dtype=torch.int32, device="cuda")
+    outs = []
+    for perm in ([0, 1, 2, 3], [3, 1, 0, 2]):
+        kp, vp = (torch.zeros(npages, page, hkv, d, device="cuda")
+                  for _ in range(2))
+        for logical, phys in enumerate(perm):
+            kp[phys] = kseq[logical * page:(logical + 1) * page]
+            vp[phys] = vseq[logical * page:(logical + 1) * page]
+        bt = torch.tensor([perm], dtype=torch.int32, device="cuda")
+        outs.append(launched("paged_attention",
+                             lambda: paged_ops.paged_attention(q, kp, vp, bt,
+                                                               cl)))
+        recs.append(held_to_reference(
+            "paged_attention", f"permutation {perm}", outs[-1],
+            paged_ops.paged_attention_ref(q, kp, vp, bt, cl), torch.float32))
+    diff = (outs[0] - outs[1]).abs()
+    ratio = float((diff / (PERMUTATION_TOL
+                           + PERMUTATION_TOL * outs[1].abs())).max())
+    phase("kernel_reference_cases", cases=len(recs),
+          permutation_max_abs_diff=float(diff.max()),
+          permutation_tol=PERMUTATION_TOL,
+          permutation_max_diff_over_tol=ratio,
+          worst_err_over_tol=max(r["max_err_over_tol"] for r in recs),
+          worst_rel_err={str(dt): max((r["max_rel_err"] for r in recs
+                                       if r["dtype"] == str(dt)), default=None)
+                         for dt in (torch.bfloat16, torch.float32)})
+    if ratio > 1:
+        raise AssertionError(f"the permuted tables differ: {ratio} of the "
+                             f"tolerance")
 
 
 # ---------------------------------------------------------------------------
@@ -561,11 +757,13 @@ LAUNCH_STEPS = 3
 RUNTIME_LAUNCHES = ("cudaLaunch", "cuLaunch", "cudaMemcpy", "cudaMemset")
 
 
-def make_requests(offset=0):
+def make_requests(offset=0, n=N_REQUESTS, output_len=OUTPUT_LEN):
+    """The first ``n`` of the ``N_REQUESTS`` requests (prompts of 64-1024
+    tokens), each generating ``output_len`` tokens."""
     rng = np.random.RandomState(SEED)
     lens = rng.randint(PROMPT_RANGE[0], PROMPT_RANGE[1] + 1, size=N_REQUESTS)
     return [Request(id=offset + i, arrival_time=1e-3 * i, prompt_len=int(p),
-                    output_len=OUTPUT_LEN) for i, p in enumerate(lens)]
+                    output_len=output_len) for i, p in enumerate(lens[:n])]
 
 
 def paged_engine(model, params, attn_path, graphs=None):
@@ -630,7 +828,7 @@ def serve_set(eng, reqs, prompts, log, serve_fn=None):
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches = launches_now()
-    if any(r.tokens_generated != OUTPUT_LEN for r in reqs):
+    if any(r.tokens_generated != r.output_len for r in reqs):
         raise AssertionError("not every request finished")
     recs = eng.records[start:]
     captured = {i - start for i in log["captured"] if i >= start}
@@ -863,9 +1061,11 @@ def routing_agreement(got, want):
             "agree": [not bool(f[:, -1].any()) for f in flips]}
 
 
-def check_serving(arch, params=None):
+def check_serving(arch, params=None, dtype=None):
     """``arch`` at full width and depth on the paged path (``params``: its
-    weights, else drawn here).  The main
+    weights, else drawn here; ``dtype``: the compute dtype in place of
+    the config's, with FP32_REQUESTS requests of FP32_OUTPUT_LEN tokens
+    and the graphed profiles alone).  The main
     path: the engine on the kernel routes (``attn_impl="pallas"``,
     ``attn_path="pallas"``), graphed, with one paged launch a layer a
     decode iteration and one flash launch a layer a prefill; then
@@ -875,11 +1075,16 @@ def check_serving(arch, params=None):
     eager and graphed (for an MoE model, with the MoE's share).  For the
     archs of FULL_PHASE_SET, also eager against graphed engines and the
     same requests on the plain path; for SORT_ROUTE_ARCH, one request
-    set on the ``sort`` MoE route.  Phase names carry the arch as a
-    prefix (none for llama2-7b, as before)."""
-    prefix = "" if arch == "llama2-7b" else f"{arch}_"
-    full = arch in FULL_PHASE_SET
+    set on the ``sort`` MoE route.  Phase names carry the arch (and a
+    ``dtype`` given) as a prefix (none for llama2-7b, as before)."""
+    prefix = "" if arch == "llama2-7b" and dtype is None else \
+        f"{arch}_" if dtype is None else f"{arch}-{dtype}_"
+    full = arch in FULL_PHASE_SET and dtype is None
     cfg = get_config(arch)
+    if dtype is not None:
+        cfg = dataclasses.replace(cfg, dtype=dtype)
+    requests = make_requests if dtype is None else functools.partial(
+        make_requests, n=FP32_REQUESTS, output_len=FP32_OUTPUT_LEN)
     is_moe = cfg.family == MOE
     kernel_model = zoo.build(cfg, settings=RunSettings(attn_impl="pallas"))
     plain_model = kernel_model.with_settings(attn_impl="naive")
@@ -895,8 +1100,8 @@ def check_serving(arch, params=None):
                   "d_expert": cfg.moe.d_expert,
                   "moe_impl": kernel_model.settings.moe_impl} \
         if is_moe else {}
-    phase(f"{prefix}init_params", model=cfg.name, layers=cfg.num_layers,
-          d_model=cfg.d_model, n_heads=cfg.n_heads,
+    phase(f"{prefix}init_params", model=cfg.name, dtype=cfg.dtype,
+          layers=cfg.num_layers, d_model=cfg.d_model, n_heads=cfg.n_heads,
           n_kv_heads=cfg.n_kv_heads, head_dim=cfg.head_dim,
           d_ff=cfg.d_ff, vocab=cfg.vocab_size, vocab_padded=plan.vocab,
           norm=cfg.norm, act=cfg.act, pos_emb=cfg.pos_emb,
@@ -907,14 +1112,20 @@ def check_serving(arch, params=None):
     torch.cuda.reset_peak_memory_stats()
     graphed = paged_engine(kernel_model, params, "pallas")
     log = instrument(graphed)
-    main = serve_set(graphed, make_requests(), {}, log)
+    main = serve_set(graphed, requests(), {}, log)
     launches = main["launches"]
-    kernel_stats = {"model": cfg.name, "attn_path": "pallas",
+    kernel_stats = {"model": cfg.name, "dtype": cfg.dtype,
+                    "attn_path": "pallas",
                     "attn_impl": kernel_model.settings.attn_impl,
                     **main["stats"],
                     "launches": {k: launches[k] for k in
                                  ("paged_attention", "flash_attention")},
                     "flash_launches_by_sq": launches["flash_attention_by_sq"],
+                    "flash_launches_per_prefill":
+                        launches["flash_attention"] / len(main["buckets"]),
+                    "paged_launches_per_decode":
+                        launches["paged_attention"]
+                        / main["stats"]["decode_iterations"],
                     "graphs": len(graphed.graphs),
                     "capture_s": graphed.graphs.capture_seconds,
                     "peak_memory_gb": torch.cuda.max_memory_allocated() / 1e9}
@@ -941,13 +1152,14 @@ def check_serving(arch, params=None):
 
     ordered = [prompts[rid] for rid in sorted(prompts)]
     routes = {"kernel": [], "plain": []} if is_moe else {}
+    limits = LOGIT_LIMITS[kernel_model.compute_dtype]
     got = first_token_logits(kernel_model, params, ordered,
                              routes.get("kernel"))
     want = first_token_logits(plain_model, params, ordered,
                               routes.get("plain"))
     compare_logits(f"{prefix}first_token_logits", got, want, cfg.vocab_size,
                    routing_agreement(routes["kernel"], routes["plain"])
-                   if is_moe else None)
+                   if is_moe else None, limits)
 
     pages, lens, toks, free_row = decode_state(kernel_model, params)
     routes = {} if is_moe else None
@@ -957,9 +1169,9 @@ def check_serving(arch, params=None):
     compare_logits(f"{prefix}decode_logits", got, want, cfg.vocab_size,
                    routing_agreement(routes["pallas"].split(1, dim=1),
                                      routes["gather"].split(1, dim=1))
-                   if is_moe else None)
+                   if is_moe else None, limits)
     profile_serving(kernel_model, params, pages, lens, toks, free_row,
-                    prefix)
+                    prefix, eager=dtype is None)
     del pages
     free_memory()
     if not full:
@@ -1022,9 +1234,12 @@ def check_sort_route(model, params, prompts, main):
     free_memory()
 
 
-def compare_logits(label, got, want, vocab, routing=None):
+def compare_logits(label, got, want, vocab, routing=None,
+                   limits=(LOGIT_REL_MAX, LOGIT_REL_L2)):
     """Kernel-path logits ``got`` against plain-path ``want``, row by
-    row; fails past LOGIT_REL_MAX or LOGIT_REL_L2.  For an MoE model,
+    row; fails past ``limits`` (largest error over the largest |logit|,
+    and the L2 ratio; LOGIT_REL_MAX and LOGIT_REL_L2 by default).  For an
+    MoE model,
     ``routing`` (``routing_agreement``) says which rows' tokens the two
     routes sent to the same experts in every layer: the limits hold those
     rows; a row whose expert set flipped swaps part of its FFN output,
@@ -1054,11 +1269,12 @@ def compare_logits(label, got, want, vocab, routing=None):
                   "routing_differs_max_rel_err": worst(errs[False], 1),
                   "routing_differs_max_rel_l2": worst(errs[False], 2)}
     rel_max, rel_l2 = worst(held, 1), worst(held, 2)
+    tol_max, tol_l2 = limits
     phase(label, rows=len(got), max_abs_err=worst(held, 0),
-          max_rel_err=rel_max, tol_rel_max=LOGIT_REL_MAX, max_rel_l2=rel_l2,
-          tol_rel_l2=LOGIT_REL_L2, argmax_agree=argmax_same,
+          max_rel_err=rel_max, tol_rel_max=tol_max, max_rel_l2=rel_l2,
+          tol_rel_l2=tol_l2, argmax_agree=argmax_same,
           logit_scale=float(torch.stack(list(want)).abs().max()), **fields)
-    if held and (rel_max > LOGIT_REL_MAX or rel_l2 > LOGIT_REL_L2):
+    if held and (rel_max > tol_max or rel_l2 > tol_l2):
         raise AssertionError(f"{label} differ: max {rel_max}, rel L2 "
                              f"{rel_l2} of the plain path's")
 
@@ -1160,11 +1376,13 @@ def profile(label, fn, reps, shares=None):
                        for e in top])
 
 
-def profile_serving(model, params, pages, lens, toks, free_row, prefix=""):
+def profile_serving(model, params, pages, lens, toks, free_row, prefix="",
+                    eager=True):
     """One prefill of a 1024-token prompt and one decode step of the
-    ``decode_state`` batch, on the kernel path: eager, then as the
-    engine's CUDA graphs run them (the step in a graph, the copy of the
-    lengths and the scatter of the prefill's K/V outside)."""
+    ``decode_state`` batch, on the kernel path: eager (unless ``eager`` is
+    false), then as the engine's CUDA graphs run them (the step in a
+    graph, the copy of the lengths and the scatter of the prefill's K/V
+    outside)."""
     graphs = StepGraphs("cuda")
 
     def decode_step():
@@ -1194,8 +1412,9 @@ def profile_serving(model, params, pages, lens, toks, free_row, prefix=""):
         _, k, v = graphs.run("prefill", prefill_step)
         paged_model.scatter_prefill(model, pages, k, v, free_row, s)
 
-    for suffix, dec, pre in (("", decode, prefill),
-                             ("_graphed", decode_graphed, prefill_graphed)):
+    runs = (("", decode, prefill),
+            ("_graphed", decode_graphed, prefill_graphed))
+    for suffix, dec, pre in runs if eager else runs[1:]:
         profile(f"{prefix}decode_step{suffix}", dec, 5,
                 shares={"paged_attention": PAGED_KERNELS})
         profile(f"{prefix}prefill_1024{suffix}", pre, 3,
@@ -2073,35 +2292,45 @@ def ptxas_entries(lib):
 
 
 def flash_resources():
-    """Per head_dim instance of the flash kernel (and the tile width it
-    runs in: 128 for head_dim 80): ``ptxas_entries`` and the dynamic
-    shared memory a block takes."""
+    """Per (dtype, head_dim) instance of the flash kernels (bf16: and the
+    tile width it runs in, 64 up to head_dim 64 and 128 above; fp32: its
+    64-row tiles): ``ptxas_entries`` and the dynamic shared memory a
+    block takes."""
     lib = build.load("flash_attention")
+    lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int] * 2
     out = []
     for e in ptxas_entries("flash_attention"):
         name = e.pop("entry")
-        if "flash_kernel" not in name:
+        bf16 = re.search(r"flash_kernelILi(\d+)ELi(\d+)E", name)
+        fp32 = re.search(r"flash_fp32_kernelILi(\d+)E", name)
+        if bf16:
+            dtype, code, (tile, d) = "bfloat16", 1, map(int, bf16.groups())
+        elif fp32:
+            dtype, code = "float32", 0
+            tile = d = int(fp32.group(1))
+        else:
             continue
-        tile, d = map(int, re.search(r"flash_kernelILi(\d+)ELi(\d+)E",
-                                     name).groups())
-        out.append({"head_dim": d, "tile_d": tile, **e,
-                    "dynamic_smem_bytes": lib.flash_attention_smem_bytes(d)})
+        out.append({"dtype": dtype, "head_dim": d, "tile_d": tile, **e,
+                    "dynamic_smem_bytes":
+                        lib.flash_attention_smem_bytes(code, d)})
     if not out:
         raise AssertionError("no flash kernel in the ptxas report")
     return out
 
 
 def paged_resources():
-    """Per (dtype, head_dim, group) instance of the paged kernel:
-    ``ptxas_entries`` (its shared memory is all static)."""
+    """Per (dtype, head_dim, q heads a block, chunked) instance of the
+    paged kernel (chunked: a group above 8, in chunks of ``group`` q
+    heads): ``ptxas_entries`` (its shared memory is all static)."""
     out = []
     for e in ptxas_entries("paged_attention"):
-        m = re.search(r"paged_attn_kernelI(\w+?)Li(\d+)ELi(\d+)E",
+        m = re.search(r"paged_attn_kernelI(\w+?)Li(\d+)ELi(\d+)ELb([01])E",
                       e.pop("entry"))
         if m:
             out.append({"dtype": "bfloat16" if "bfloat16" in m.group(1)
                         else "float32", "head_dim": int(m.group(2)),
-                        "group": int(m.group(3)), **e})
+                        "group": int(m.group(3)),
+                        "chunked": m.group(4) == "1", **e})
     if not out:
         raise AssertionError("no paged kernel in the ptxas report")
     return out
@@ -2115,8 +2344,8 @@ def _leaves(tree):
             yield v
 
 
-#: the blocked-route check: stablelm-3b's head_dim 80, which the flash
-#: kernel refuses, at a prompt that ``auto`` sends to ``blocked``
+#: the blocked-route check: stablelm-3b's head_dim 80 at a prompt that
+#: ``auto`` sends to ``blocked``
 BLOCKED_ARCH = "stablelm-3b"
 BLOCKED_PROMPT = 4096
 
@@ -2881,6 +3110,13 @@ def check_simulator():
 #: the paged models served at full width and depth, in this order
 PAGED_MODELS = ("llama2-7b", "opt-13b", "qwen3-14b", "granite-moe-3b-a800m",
                 "granite-moe-1b-a400m")
+#: served once more at full width and depth in fp32 (its config's dtype
+#: set to float32, as the reference's ``ArchConfig.dtype`` allows): the
+#: fp32 flash kernel in every prefill, the paged kernel in fp32 in every
+#: decode, FP32_REQUESTS requests of FP32_OUTPUT_LEN tokens
+FP32_ARCH = "llama2-7b"
+FP32_REQUESTS = 8
+FP32_OUTPUT_LEN = 16
 #: those that also run eager against graphed engines and the plain path
 FULL_PHASE_SET = {"llama2-7b"}
 #: the MoE model that also serves one request set on the ``sort`` route
@@ -2911,13 +3147,16 @@ def main():
 
     served = {}
     with torch.no_grad():
-        paged, flash = check_kernels()
+        paged, flash, flash32 = check_kernels()
+        check_reference_cases()
         ssd = check_ssd_kernel()
         # one model at a time: each frees its weights and pages before
         # the next loads
         for arch in PAGED_MODELS:
             served[arch] = check_serving(arch)["launches"]
             free_memory()
+        served_fp32 = check_serving(FP32_ARCH, dtype="float32")["launches"]
+        free_memory()
         # stablelm-3b (head_dim 80) on the paged path, then its 4096-token
         # prefill on the blocked route, on the same weights
         params = zoo.init_params(zoo.build(get_config(BLOCKED_ARCH)),
@@ -2941,6 +3180,11 @@ def main():
     # whisper-base's and zamba2-2.7b's, and mamba2-130m's training run
     by_path = {name: {arch: n[name] for arch, n in served.items()}
                for name in ("paged_attention", "flash_attention")}
+    # the fp32 run: its flash launches are the fp32 kernel's
+    fp32_path = f"{FP32_ARCH}-float32"
+    by_path["paged_attention"][fp32_path] = served_fp32["paged_attention"]
+    by_path["flash_attention_fp32"] = {
+        fp32_path: served_fp32["flash_attention"]}
     by_path["flash_attention"][WHISPER_ARCH] = \
         whisper["launches"]["flash_attention"]
     by_path["flash_attention"][HYBRID_ARCH] = \
@@ -2958,6 +3202,9 @@ def main():
             ("flash_attention", flash,
              "src/repro_torch/kernels/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention/kernel.py:96"),
+            ("flash_attention_fp32", flash32,
+             "src/repro_torch/kernels/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention/kernel.py:96"),
             ("ssd_scan", ssd,
              "src/repro_torch/kernels/csrc/ssd_scan.cu",
              "src/repro/kernels/ssd_scan/kernel.py:75")):
@@ -2971,6 +3218,7 @@ def main():
                         "bound_ms": rec["bound_ms"],
                         "bound_by": rec["bound_by"],
                         "library_ms": rec["library_ms"]})
+    phase("total", seconds=time.perf_counter() - T0)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

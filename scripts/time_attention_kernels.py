@@ -1,0 +1,75 @@
+"""Time one checkout's attention kernels through chip_smoke.py's own cases.
+
+Usage, from the root of a checkout on a machine with an H100:
+
+    python3 scripts/time_attention_kernels.py [--root DIR]
+
+Imports ``chip_smoke.py`` of the checkout at ``--root`` (default: this
+one; the script puts that checkout's ``src`` first on the path) and runs
+its ``paged_case`` at llama2-7b's decode (B 8, 32/32 heads, head_dim
+128, bf16) and qwen3-14b's (40/8), and its ``flash_case`` at a causal
+1024-token bf16 prefill (32/32, head_dim 128), ``ROUNDS`` times each.
+Each case prints its own phase line; the last line is one JSON object:
+the card, each case's kernel ms (CUDA events, the card's queue filled
+ahead) by round and their median, and the registers and spills
+(``ptxas -v``) of the bf16 paged kernels at head_dim 128.
+
+To compare two checkouts, run it on each in turns in one call (parent,
+change, change, parent): times from two cards differ.
+"""
+from __future__ import annotations
+
+import argparse
+import importlib
+import json
+import statistics
+import subprocess
+import sys
+from pathlib import Path
+
+ROUNDS = 5
+
+
+def main(argv=None):
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--root", default=str(Path(__file__).resolve().parents[1]))
+    root = Path(ap.parse_args(argv).root).resolve()
+    sys.path.insert(0, str(root))
+    smoke = importlib.import_module("chip_smoke")
+    torch = smoke.torch
+    if not torch.cuda.is_available():
+        print("time_attention_kernels: no CUDA device", file=sys.stderr)
+        return 1
+    card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
+                           "--format=csv,noheader"], capture_output=True,
+                          text=True, check=True, timeout=60).stdout.strip()
+    bf16 = torch.bfloat16
+    cases = {
+        "paged llama2-7b decode": lambda: smoke.paged_case(
+            "llama2-7b decode", batch=8, hq=32, hkv=32, dtype=bf16),
+        "paged qwen3-14b decode": lambda: smoke.paged_case(
+            "qwen3-14b decode", batch=8, hq=40, hkv=8, dtype=bf16, seed=4),
+        "flash causal S=1024": lambda: smoke.flash_case(
+            "causal S=1024", sq=1024, skv=1024, h=32, hkv=32, causal=True,
+            dtype=bf16),
+    }
+    times = {name: [] for name in cases}
+    with torch.no_grad():
+        for _ in range(ROUNDS):
+            for name, case in cases.items():
+                times[name].append(case()["kernel_ms"])
+    print(json.dumps({
+        "card": card, "root": str(root),
+        "kernel_ms": {n: {"rounds": t, "median": statistics.median(t)}
+                      for n, t in times.items()},
+        "paged_registers_bf16_d128": [
+            {k: e.get(k) for k in ("group", "chunked", "registers",
+                                   "spill_store_bytes")}
+            for e in smoke.paged_resources()
+            if e["dtype"] == "bfloat16" and e["head_dim"] == 128]}),
+        flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -10,23 +10,28 @@
 // optionally soft-capped (tanh(s/c)*c) before masking.  Causal masking is
 // top-left aligned, qpos >= kpos, as in the Pallas kernel; positions
 // kpos >= Skv are always masked, so ragged lengths need no padding by the
-// caller.  bf16 only, D in {64,80,128}.  D 80 (stablelm-3b, zamba2-2.7b)
-// runs the D-128 tiles: the TMA maps span the real 80 columns, so the
-// second box of each row reads columns 64-79 and fills 80-127 with zeros,
-// which change neither Q·K^T (its last three 16-column steps are skipped)
-// nor the 80 live columns of P·V; the epilogue stores those 80 at a row
-// stride of 80.
+// caller.  Two kernels, one a dtype, each at every head_dim D that is a
+// multiple of 16 from 16 to 128:
+// - bf16: flash_kernel below (TMA + wgmma).  D 16, 32 and 48 run its
+//   D-64 tiles, D 80, 96 and 112 its D-128 tiles: the TMA maps span the
+//   real D columns, so the box that holds column D-1 fills the columns
+//   past D with zeros, which change neither Q·K^T (its 16-column steps
+//   past D are skipped) nor the D live columns of P·V; the epilogue
+//   stores those D at a row stride of D.
+// - fp32: flash_fp32_kernel further down, plain fp32 FMAs on the CUDA
+//   cores (wgmma's TF32 rounds its inputs to 10 mantissa bits, too
+//   coarse for the reference's fp32 tolerance of 2e-5).
 //
-// What bounds it on this card: at the serving path's prefill shapes
-// (B 1, Sq = Skv = 64 ... 2048, H 32, D 128, causal) the least time is
-// the bytes (q, k, v and out once each, over 3.35 TB/s) below about 1200
-// tokens and the arithmetic above (4·D flops per attended (q,k) pair,
-// about Sq·Skv/2 pairs, over 989 TFLOP/s of bf16 tensor cores).  Met
-// in practice: the tensor cores' rate, and below 512 tokens the host's
-// cost of a call (PERF.md).
+// What bounds the bf16 kernel on this card: at the serving path's
+// prefill shapes (B 1, Sq = Skv = 64 ... 2048, H 32, D 128, causal) the
+// least time is the bytes (q, k, v and out once each, over 3.35 TB/s)
+// below about 1200 tokens and the arithmetic above (4·D flops per
+// attended (q,k) pair, about Sq·Skv/2 pairs, over 989 TFLOP/s of bf16
+// tensor cores).  Met in practice: the tensor cores' rate, and below 512
+// tokens the host's cost of a call (PERF.md).
 //
-// What the design does about it (FlashAttention-3's shape, without its
-// overlap tricks):
+// What the bf16 design does about it (FlashAttention-3's shape, without
+// its overlap tricks):
 // - One block of three warpgroups per (128-row q tile, head, batch), the
 //   q tiles launched longest first (the causal rows that see most keys)
 //   so that the short ones fill the last wave.
@@ -63,6 +68,8 @@
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -288,8 +295,9 @@ __device__ __forceinline__ int kv_tiles(int q0, int skv, int causal) {
   return n;
 }
 
-// D: the tile width (64 or 128); DV: the tensors' head_dim (D, or 80 in
-// D-128 tiles), the row stride of out and the columns stored.
+// D: the tile width (64 or 128); DV: the tensors' head_dim (D, or a
+// narrower multiple of 16 whose last live column lies in the tile's last
+// box), the row stride of out and the columns stored.
 template <int D, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_kernel(const __grid_constant__ CUtensorMap tq,
@@ -540,35 +548,322 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch,
   return static_cast<int>(cudaGetLastError());
 }
 
-}  // namespace
+// ---------------------------------------------------------------------------
+// fp32: plain FMAs on the CUDA cores.
+//
+// What bounds it: the fp32 arithmetic, 4·D flops per attended (q,k) pair
+// over 67 TFLOP/s (at causal S 1024, H 32, D 128: 8.6e9 flops, 0.128 ms),
+// far above the bytes' time.  The design is a simple one that is right:
+// - One block of 256 threads per (64-row q tile, head, batch), longest
+//   rows first as above.  Q's tile is copied once into shared memory, and
+//   K and V in tiles of 64 rows into a 2-stage ring, with 16-byte
+//   cp.async (rows past Sq or Skv zero-filled without a read), the next
+//   tile's copy in flight while one computes.  Shared rows are D + 4
+//   floats apart, so the 16-byte reads of 8 neighbouring rows fall in
+//   different banks.
+// - Thread (ty, tx) of a 16 x 16 grid owns q rows 4ty .. 4ty+3.  S: it
+//   computes keys tx + 16j (j < 4) of those rows, four 16-byte reads of Q
+//   and four of K for 64 FMAs a 4-column step.  The online softmax runs
+//   in registers (a row's max and the P rows reduced over the 16 lanes
+//   of a half-warp by xor shuffles), in the natural base with expf.  P
+//   goes to shared memory, read back only by the half-warp that wrote
+//   it.  O: the thread owns columns tx + 16j (j < D/16) of its 4 rows,
+//   the running sum rescaled in registers; row l is summed over the
+//   lanes at the end.
+// - Tiles wholly above the diagonal are never loaded; the mask is
+//   applied only on tiles that cross the diagonal or the Skv edge.
+// Left for later: register tiles of more rows and keys a thread (fewer
+// shared reads a FMA), 3xTF32 wgmma, more blocks an SM at D 128.
+namespace f32 {
 
-// Dynamic shared memory of one block at this head_dim, in bytes (0 for a
-// head_dim the kernel does not take); head_dim 80 runs the D-128 tiles.
-extern "C" int flash_attention_smem_bytes(int head_dim) {
-  return head_dim == 64 ? Smem<64>::BYTES
-         : head_dim == 80 || head_dim == 128 ? Smem<128>::BYTES : 0;
+constexpr int kBM = 64;           // q rows per block
+constexpr int kBN = 64;           // kv rows per tile
+constexpr int kThreads = 256;     // 16 row groups of 16 lanes
+constexpr int kRows = 4;          // q rows a thread owns
+constexpr int kKeys = kBN / 16;   // keys of a tile a thread owns
+
+template <int D>
+struct Smem {
+  static constexpr int LD = D + 4;        // floats between shared rows
+  static constexpr int LDP = kBN + 4;     // floats between rows of P
+  static constexpr int Q = 0;             // offsets in floats
+  static constexpr int K = Q + kBM * LD;
+  static constexpr int V = K + 2 * kBN * LD;
+  static constexpr int P = V + 2 * kBN * LD;
+  static constexpr int BYTES = (P + kBM * LDP) * 4;
+};
+
+__device__ __forceinline__ void cp_async16(float* dst, const float* src,
+                                           bool live) {
+  const uint32_t d = smem_addr(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
+               ::"r"(d), "l"(src), "r"(live ? 16 : 0) : "memory");
 }
 
-// dtype: 1 = bfloat16, the only type taken.  Returns cudaGetLastError()
-// after the launch, -1 for a configuration the kernel does not take, or -2
-// when a TMA map cannot be encoded.
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+// Rows [s0, s0 + ROWS) of head hx of a (B, S, heads, D) tensor into a
+// shared tile of rows LD floats apart; rows at or past S are zeros.
+template <int D, int ROWS>
+__device__ __forceinline__ void load_rows(float* dst, const float* src,
+                                          int b, int s0, int s, int heads,
+                                          int hx) {
+  constexpr int CH = D / 4;               // 16-byte pieces a row
+  static_assert(ROWS * CH % kThreads == 0, "whole passes of the block");
+#pragma unroll
+  for (int n = 0; n < ROWS * CH / kThreads; ++n) {
+    const int i = threadIdx.x + n * kThreads;
+    const int r = i / CH;
+    const int c = i % CH;
+    const int pos = s0 + r;
+    const bool live = pos < s;
+    cp_async16(dst + r * Smem<D>::LD + 4 * c,
+               src + (((size_t)b * s + (live ? pos : 0)) * heads + hx) * D +
+                   4 * c,
+               live);
+  }
+}
+
+template <int D>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
+                  const float* __restrict__ v, float* __restrict__ out,
+                  int sq, int skv, int h, int hkv, int causal, float scale,
+                  float softcap) {
+  using L = Smem<D>;
+  constexpr int kCols = D / 16;           // O columns a thread owns
+  extern __shared__ __align__(16) float smem_f32[];
+  float* qs = smem_f32 + L::Q;
+  float* ps = smem_f32 + L::P;
+
+  const int head = blockIdx.x;
+  const int b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kBM;   // longest rows first
+  const int kvh = head / (h / hkv);
+  int n_tiles = (skv + kBN - 1) / kBN;
+  if (causal) n_tiles = min(n_tiles, (q0 + kBM - 1) / kBN + 1);
+  const int ty = threadIdx.x / 16;
+  const int tx = threadIdx.x % 16;
+  const int r0 = kRows * ty;              // first q row, in the tile
+
+  load_rows<D, kBM>(qs, q, b, q0, sq, h, head);
+  load_rows<D, kBN>(smem_f32 + L::K, k, b, 0, skv, hkv, kvh);
+  load_rows<D, kBN>(smem_f32 + L::V, v, b, 0, skv, hkv, kvh);
+  cp_async_commit();
+
+  float o[kRows][kCols];
+  float m[kRows], l[kRows];
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+    m[i] = -INFINITY;
+    l[i] = 0.f;
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) o[i][j] = 0.f;
+  }
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int stage = t % 2;
+    const int kv0 = t * kBN;
+    if (t + 1 < n_tiles) {
+      const int next = (t + 1) % 2;
+      load_rows<D, kBN>(smem_f32 + L::K + next * kBN * L::LD, k, b,
+                        kv0 + kBN, skv, hkv, kvh);
+      load_rows<D, kBN>(smem_f32 + L::V + next * kBN * L::LD, v, b,
+                        kv0 + kBN, skv, hkv, kvh);
+      cp_async_commit();
+      cp_async_wait<1>();                 // tile t has landed
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();
+    const float* ks = smem_f32 + L::K + stage * kBN * L::LD;
+    const float* vs = smem_f32 + L::V + stage * kBN * L::LD;
+
+    // S = Q K^T for rows r0 + i, keys kv0 + tx + 16 j
+    float s[kRows][kKeys];
+#pragma unroll
+    for (int i = 0; i < kRows; ++i)
+#pragma unroll
+      for (int j = 0; j < kKeys; ++j) s[i][j] = 0.f;
+#pragma unroll 4
+    for (int d = 0; d < D; d += 4) {
+      float4 qv[kRows], kv[kKeys];
+#pragma unroll
+      for (int i = 0; i < kRows; ++i)
+        qv[i] = *reinterpret_cast<const float4*>(qs + (r0 + i) * L::LD + d);
+#pragma unroll
+      for (int j = 0; j < kKeys; ++j)
+        kv[j] = *reinterpret_cast<const float4*>(ks + (tx + 16 * j) * L::LD +
+                                                 d);
+#pragma unroll
+      for (int i = 0; i < kRows; ++i)
+#pragma unroll
+        for (int j = 0; j < kKeys; ++j) {
+          float x = s[i][j];
+          x = fmaf(qv[i].x, kv[j].x, x);
+          x = fmaf(qv[i].y, kv[j].y, x);
+          x = fmaf(qv[i].z, kv[j].z, x);
+          x = fmaf(qv[i].w, kv[j].w, x);
+          s[i][j] = x;
+        }
+    }
+
+    // Online softmax: scale, softcap, mask; a row's max and sum over the
+    // 16 lanes of its half-warp.
+    const bool edge = (causal && kv0 + kBN - 1 > q0) || kv0 + kBN > skv;
+#pragma unroll
+    for (int i = 0; i < kRows; ++i) {
+      const int qpos = q0 + r0 + i;
+      float mx = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < kKeys; ++j) {
+        float x = s[i][j] * scale;
+        if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
+        if (edge) {
+          const int kpos = kv0 + tx + 16 * j;
+          if (kpos >= skv || (causal && kpos > qpos)) x = -INFINITY;
+        }
+        s[i][j] = x;
+        mx = fmaxf(mx, x);
+      }
+#pragma unroll
+      for (int off = 8; off > 0; off >>= 1)
+        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
+      const float m_new = fmaxf(m[i], mx);
+      const float mu = m_new == -INFINITY ? 0.f : m_new;  // no key yet
+      const float alpha = expf(m[i] - mu);
+      m[i] = m_new;
+      l[i] *= alpha;
+#pragma unroll
+      for (int j = 0; j < kCols; ++j) o[i][j] *= alpha;
+#pragma unroll
+      for (int j = 0; j < kKeys; ++j) {
+        const float p = expf(s[i][j] - mu);
+        l[i] += p;
+        ps[(r0 + i) * L::LDP + tx + 16 * j] = p;
+      }
+    }
+    __syncwarp();                         // P rows: written by this half-warp
+
+    // O += P V for rows r0 + i, columns tx + 16 j
+#pragma unroll 2
+    for (int n = 0; n < kBN; n += 4) {
+      float4 pv[kRows];
+#pragma unroll
+      for (int i = 0; i < kRows; ++i)
+        pv[i] = *reinterpret_cast<const float4*>(ps + (r0 + i) * L::LDP + n);
+#pragma unroll
+      for (int u = 0; u < 4; ++u) {
+#pragma unroll
+        for (int j = 0; j < kCols; ++j) {
+          const float x = vs[(n + u) * L::LD + tx + 16 * j];
+#pragma unroll
+          for (int i = 0; i < kRows; ++i) {
+            const float p = u == 0 ? pv[i].x : u == 1 ? pv[i].y
+                          : u == 2 ? pv[i].z : pv[i].w;
+            o[i][j] = fmaf(p, x, o[i][j]);
+          }
+        }
+      }
+    }
+    __syncthreads();                      // the stage may be refilled
+  }
+
+  // Epilogue: O / l, rows past Sq not stored.
+#pragma unroll
+  for (int i = 0; i < kRows; ++i) {
+#pragma unroll
+    for (int off = 8; off > 0; off >>= 1)
+      l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
+    const int qpos = q0 + r0 + i;
+    if (qpos >= sq) continue;
+    const float inv = 1.f / l[i];
+    float* dst = out + (((size_t)b * sq + qpos) * h + head) * D + tx;
+#pragma unroll
+    for (int j = 0; j < kCols; ++j) dst[16 * j] = o[i][j] * inv;
+  }
+}
+
+template <int D>
+int launch(const void* q, const void* k, const void* v, void* out, int batch,
+           int sq, int skv, int h, int hkv, int causal, float scale,
+           float softcap, cudaStream_t stream) {
+  constexpr int smem = Smem<D>::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fp32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(h, batch, (sq + kBM - 1) / kBM);
+  flash_fp32_kernel<D><<<grid, kThreads, smem, stream>>>(
+      static_cast<const float*>(q), static_cast<const float*>(k),
+      static_cast<const float*>(v), static_cast<float*>(out), sq, skv, h,
+      hkv, causal, scale, softcap);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace f32
+
+// Calls f with std::integral_constant<int, D> for a head_dim the kernels
+// take (a multiple of 16 from 16 to 128); -1 for any other.
+template <typename F>
+int with_head_dim(int d, F&& f) {
+  switch (d) {
+    case 16: return f(std::integral_constant<int, 16>{});
+    case 32: return f(std::integral_constant<int, 32>{});
+    case 48: return f(std::integral_constant<int, 48>{});
+    case 64: return f(std::integral_constant<int, 64>{});
+    case 80: return f(std::integral_constant<int, 80>{});
+    case 96: return f(std::integral_constant<int, 96>{});
+    case 112: return f(std::integral_constant<int, 112>{});
+    case 128: return f(std::integral_constant<int, 128>{});
+    default: return -1;
+  }
+}
+
+// The bf16 kernel's tile width for a head_dim: 64 up to 64, else 128.
+constexpr int bf16_tile(int d) { return d <= 64 ? 64 : 128; }
+
+}  // namespace
+
+// Dynamic shared memory of one block for a dtype (0 = float32,
+// 1 = bfloat16) and head_dim, in bytes; -1 for a pair the kernels do not
+// take.
+extern "C" int flash_attention_smem_bytes(int dtype, int head_dim) {
+  return with_head_dim(head_dim, [&](auto d) {
+    constexpr int D = decltype(d)::value;
+    return dtype == 0   ? f32::Smem<D>::BYTES
+           : dtype == 1 ? Smem<bf16_tile(D)>::BYTES
+                        : -1;
+  });
+}
+
+// dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after the
+// launch, -1 for a configuration the kernels do not take, or -2 when a
+// TMA map cannot be encoded.
 extern "C" int flash_attention_launch(int dtype, const void* q, const void* k,
                                       const void* v, void* out, int batch,
                                       int sq, int skv, int h, int hkv,
                                       int head_dim, int causal, float scale,
                                       float softcap, void* stream) {
-  if (dtype != 1 || batch <= 0 || hkv <= 0 || h % hkv != 0 || sq <= 0 ||
-      skv <= 0 || batch > 65535 || (sq + kBM - 1) / kBM > 65535)
+  const int tile_q = dtype == 0 ? f32::kBM : kBM;
+  if ((dtype != 0 && dtype != 1) || batch <= 0 || hkv <= 0 || h % hkv != 0 ||
+      sq <= 0 || skv <= 0 || batch > 65535 ||
+      (sq + tile_q - 1) / tile_q > 65535)
     return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (head_dim == 64)
-    return launch<64>(q, k, v, out, batch, sq, skv, h, hkv, causal, scale,
-                      softcap, s);
-  if (head_dim == 80)
-    return launch<128, 80>(q, k, v, out, batch, sq, skv, h, hkv, causal,
-                           scale, softcap, s);
-  if (head_dim == 128)
-    return launch<128>(q, k, v, out, batch, sq, skv, h, hkv, causal, scale,
-                       softcap, s);
-  return -1;
+  return with_head_dim(head_dim, [&](auto d) {
+    constexpr int D = decltype(d)::value;
+    if (dtype == 0)
+      return f32::launch<D>(q, k, v, out, batch, sq, skv, h, hkv, causal,
+                            scale, softcap, s);
+    return launch<bf16_tile(D), D>(q, k, v, out, batch, sq, skv, h, hkv,
+                                   causal, scale, softcap, s);
+  });
 }

@@ -7,19 +7,21 @@
 // What it computes: one decode token per sequence attends over that
 // sequence's KV, which lies in fixed-size pages named by a block table.
 // For sequence b and kv head h, the q heads h*G .. h*G+G-1 (G = Hq/Hkv)
-// attend together to positions [0, lens[b]) (lens clamped to
-// max_pages*page); scores are scaled by D^-1/2, optionally soft-capped
-// (tanh(s/c)*c), and softmaxed in fp32 with an online (running max /
-// running sum) update.  A row of length <= 0 gives zeros.
+// attend to positions [0, lens[b]) (lens clamped to max_pages*page);
+// scores are scaled by D^-1/2, optionally soft-capped (tanh(s/c)*c), and
+// softmaxed in fp32 with an online (running max / running sum) update.
+// A row of length <= 0 gives zeros.
 //
 // Layout: q (B,Hq,D); k/v pages (NP,P,Hkv,D) token-major, read in place
 // (a row of one kv head is D contiguous elements, rows Hkv*D apart);
-// tables (B,MP) int32; lens (B,) int32; out (B,Hq,D).  bf16 or fp32,
-// D in {64,80,128}, G in {1,2,3,4,5,7,8} (3: granite-moe-3b's 24/8, 5:
-// qwen3-14b's 40/8, 7: qwen2-0.5b's 14/2), any page size.  Scratch from the
-// wrapper: ws, fp32, one record of G*(D+2) floats per (sequence, kv
-// head, split); tickets, B*Hkv zeroed counters that the kernel leaves
-// zeroed.
+// tables (B,MP) int32; lens (B,) int32; out (B,Hq,D).  bf16 or fp32, D
+// any multiple of 16 from 16 to 128, any G, any page size.  A block
+// takes C q heads of one kv head together, C the largest divisor of G
+// up to 8 (C = G up to 8; 8 for multi-query groups such as 16/1 and
+// 32/1, whose G/C chunks each read their kv head's pages), so the
+// grid's y runs over the Hq/C chunks.  Scratch from the wrapper: ws,
+// fp32, one record of C*(D+2) floats per (sequence, chunk, split);
+// tickets, B*Hq/C zeroed counters that the kernel leaves zeroed.
 //
 // What bounds it on this card: device-memory bytes.  Each K/V element
 // is read once and used for G multiply-adds (about 1 flop per byte at
@@ -30,18 +32,20 @@
 // per SM, spread over every SM whatever the lengths.
 //
 // The design (split-KV over the sequence):
-// - Grid (splits, Hkv, B), splits = ceil(max_pages*page / SPLIT), from
+// - Grid (splits, Hq/C, B), splits = ceil(max_pages*page / SPLIT), from
 //   the shapes alone, so the host reads no device value and the launch
-//   can be captured in a CUDA graph.  SPLIT is 64 positions at D 128 and
-//   128 at D 64 (32 KB of bf16 K and V), so a long sequence spreads over
-//   many SMs; a block whose split starts at or past len returns at once.
-// - 128 threads.  A thread owns 8 elements of a row, D/8 threads cover a
-//   row, and the block's 1024/D row groups each take 2 rows of every
-//   step of 1024/D*2 positions.  At D 80 a row takes 16 lanes, the power
-//   of two above its 10, so the shuffles stay inside a row: lanes 10-15
-//   copy nothing (a zero-size cp.async fills their slots with zeros) and
-//   add zeros, and 8 row groups take a step of 16 positions, as at
-//   D 128.
+//   can be captured in a CUDA graph.  SPLIT is 4 steps of 2 rows a row
+//   group: 64 positions at D 80 to 128, 128 at D 48 and 64, 256 at D 32
+//   and 512 at D 16 (32 KB of bf16 K and V at D 16, 32, 64 and 128), so
+//   a long sequence spreads over many SMs; a block whose split starts at
+//   or past len returns at once.
+// - 128 threads.  A thread owns 8 elements of a row, and a row takes
+//   the power of two of lanes at or above its D/8 (2 at D 16, 4 at D 32,
+//   8 at D 48 and 64, 16 at D 80 to 128), so the shuffles stay inside a
+//   row; the block's 128/lanes row groups each take 2 rows of every
+//   step.  Lanes past a row's end (at D 48, 80, 96 and 112) copy
+//   nothing (a zero-size cp.async fills their slots with zeros) and add
+//   zeros.
 // - The ring: every thread copies, with 16-byte cp.async, exactly the K
 //   and V pieces it will read, STAGES steps ahead, into its own slots of
 //   a 32 KB ring in shared memory (4 steps in bf16, the whole split; 2
@@ -52,17 +56,18 @@
 //   entries are read into shared memory once.  An SM holds up to 6
 //   blocks (shared memory), up to 192 KB in flight.  A thread keeps G
 //   rows of q and of the accumulator in registers, so registers grow
-//   with G (ptxas, bf16 D 128: 74 at G 1, 128 at G 5, 168 at G 7, no
-//   spills), and from G 5 on they, not shared memory, cap the blocks an
+//   with G (ptxas, bf16 D 128: 74 at G 1, 128 at G 5, 168 at G 7, 178
+//   at G 8), and from G 5 on they, not shared memory, cap the blocks an
 //   SM holds (4 at G 5, 3 at G 7).
-// - Scores: 8 products per thread, summed over a row's lanes (4 xor
-//   shuffles at D 128 and D 80, 3 at D 64).  Each row group keeps its own online
+// - Scores: 8 products per thread, summed over a row's lanes (log2 of
+//   its lanes xor shuffles).  Each row group keeps its own online
 //   softmax (log2 domain) in registers, rescaled at most once a step
 //   and only when its max grows.
 // - Merge: the groups' states merge through shared memory at the end of
-//   the block; a sequence of one split writes its output there.
+//   the block (at D 16 the 64 groups' accumulators fill the whole
+//   ring); a sequence of one split writes its output there.
 //   Otherwise the block writes its (m, l, acc) record to ws, and the
-//   last block of its (sequence, kv head) to arrive, found by an
+//   last block of its (sequence, chunk) to arrive, found by an
 //   atomicInc ticket that wraps to 0 on the last arrival (so the
 //   counters are zero again for the next call), merges the records in
 //   split order and writes the output.  Chosen over a second merge
@@ -73,7 +78,9 @@
 #include <cuda_runtime.h>
 #include <stdint.h>
 
-namespace {
+#include <type_traits>
+
+namespace paged_attention_cu {
 
 constexpr int kThreads = 128;
 constexpr int kVec = 8;             // elements of a row one thread owns
@@ -87,7 +94,7 @@ template <typename T, int D>
 struct Shape {
   static constexpr int LIVE = D / kVec;              // lanes holding a row
   static constexpr int LANES =                       // threads per row
-      LIVE <= 8 ? 8 : LIVE <= 16 ? 16 : 32;
+      LIVE <= 2 ? 2 : LIVE <= 4 ? 4 : LIVE <= 8 ? 8 : LIVE <= 16 ? 16 : 32;
   static constexpr int GROUPS = kThreads / LANES;    // row groups
   static constexpr int STEP = GROUPS * kRows;        // positions a step
   static constexpr int SPLIT = STEP * kStepsPerSplit;
@@ -149,19 +156,24 @@ __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
 
-template <typename T, int D, int G>
+template <typename T, int D, int G, bool CHUNKED>
 __global__ void __launch_bounds__(kThreads)
 paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
                   const T* __restrict__ v_pages,
                   const int* __restrict__ tables,
                   const int* __restrict__ lens, T* __restrict__ out,
                   float* __restrict__ ws, unsigned* __restrict__ tickets,
-                  int hkv, int page, int max_pages, float scale,
-                  float softcap) {
+                  int hkv, int page, int max_pages, float scale, float softcap,
+                  int chunks) {
+  // G: the q heads of this block.  CHUNKED (groups above 8): block y
+  // takes the chunk y of G heads, `chunks` of them a kv head; otherwise
+  // y is the kv head and the code is the one kernel of groups up to 8
+  // (a division and a grid-size read here made those 0.3-0.7% slower).
   using S = Shape<T, D>;
   constexpr int REC = G * (D + 2);          // o[G][D], m[G], l[G]
   const int split = blockIdx.x;
-  const int kvh = blockIdx.y;
+  const int y = blockIdx.y;
+  const int kvh = CHUNKED ? y / chunks : y;
   const int b = blockIdx.z;
   const int len = min(lens[b], max_pages * page);
   const int n_splits = len > S::SPLIT ? (len + S::SPLIT - 1) / S::SPLIT : 1;
@@ -172,7 +184,8 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   const int lane = tid % S::LANES;          // which kVec elements of a row
   const int grp = tid / S::LANES;
   const bool live_lane = lane < S::LIVE;    // false: lanes past a row's end
-  const int hq = hkv * G;
+  const int ny = CHUNKED ? gridDim.y : hkv;  // blocks along y: Hq / G
+  const int hq = ny * G;
 
   __shared__ __align__(16) uint4 ring[S::RING];
   __shared__ int pages[S::SPLIT + 1];
@@ -192,7 +205,7 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   for (int g = 0; g < G; ++g) {
     if (live_lane) {
       unpack<T>(reinterpret_cast<const uint4*>(
-                    q + ((size_t)b * hq + kvh * G + g) * D + lane * kVec),
+                    q + ((size_t)b * hq + y * G + g) * D + lane * kVec),
                 1, qr[g]);
     } else {
 #pragma unroll
@@ -317,7 +330,7 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   }
   __syncthreads();
   float* rec = n_splits == 1 ? nullptr
-      : ws + (((size_t)b * hkv + kvh) * gridDim.x + split) * REC;
+      : ws + (((size_t)b * ny + y) * gridDim.x + split) * REC;
   for (int idx = tid; idx < G * D; idx += kThreads) {
     const int g = idx / D;
     const int d = idx % D;
@@ -332,7 +345,7 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
       sum_o += grp_acc[(h * G + g) * D + d] * f;
     }
     if (n_splits == 1) {
-      store(out + ((size_t)b * hq + kvh * G + g) * D + d,
+      store(out + ((size_t)b * hq + y * G + g) * D + d,
             sum_l > 0.f ? sum_o / sum_l : 0.f);
     } else {
       rec[idx] = sum_o;
@@ -344,11 +357,11 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   }
   if (n_splits == 1) return;
 
-  // The last block of this (sequence, kv head) merges every split.
+  // The last block of this (sequence, chunk) merges every split.
   __threadfence();
   __syncthreads();
   if (tid == 0)
-    last = atomicInc(tickets + (size_t)b * hkv + kvh, n_splits - 1) ==
+    last = atomicInc(tickets + (size_t)b * ny + y, n_splits - 1) ==
            static_cast<unsigned>(n_splits - 1);
   __syncthreads();
   if (!last) return;
@@ -356,7 +369,7 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   // A thread takes the outputs tid + k*kThreads; the loads of several
   // splits are in flight together.
   constexpr int OUTS = (G * D + kThreads - 1) / kThreads;
-  const float* recs = ws + ((size_t)b * hkv + kvh) * gridDim.x * REC;
+  const float* recs = ws + ((size_t)b * ny + y) * gridDim.x * REC;
   float mx[OUTS], sum_l[OUTS], sum_o[OUTS];
 #pragma unroll
   for (int k = 0; k < OUTS; ++k) {
@@ -386,71 +399,170 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   for (int k = 0; k < OUTS; ++k) {
     const int idx = tid + k * kThreads;
     if (idx < G * D)
-      store(out + ((size_t)b * hq + kvh * G) * D + idx, sum_o[k] / sum_l[k]);
+      store(out + ((size_t)b * hq + y * G) * D + idx, sum_o[k] / sum_l[k]);
   }
 }
 
+// A launch's arguments, from the C interface.
+struct Args {
+  const void *q, *k, *v, *tables, *lens;
+  void *out, *ws, *tickets;
+  int batch, hq, hkv, page, max_pages;
+  float scale, softcap;
+  cudaStream_t stream;
+};
+
 template <typename T, int D, int G>
-int launch(const void* q, const void* k, const void* v, const void* tables,
-           const void* lens, void* out, void* ws, void* tickets, int batch,
-           int hkv, int page, int max_pages, int splits, float scale,
-           float softcap, cudaStream_t stream) {
-  paged_attn_kernel<T, D, G><<<dim3(splits, hkv, batch), kThreads, 0,
-                               stream>>>(
-      static_cast<const T*>(q), static_cast<const T*>(k),
-      static_cast<const T*>(v), static_cast<const int*>(tables),
-      static_cast<const int*>(lens), static_cast<T*>(out),
-      static_cast<float*>(ws), static_cast<unsigned*>(tickets), hkv, page,
-      max_pages, scale, softcap);
+int launch(const Args& a) {
+  const int splits =
+      (a.max_pages * a.page + Shape<T, D>::SPLIT - 1) / Shape<T, D>::SPLIT;
+  const bool chunked = a.hq / a.hkv != G;
+  auto kernel = chunked ? paged_attn_kernel<T, D, G, true>
+                        : paged_attn_kernel<T, D, G, false>;
+  kernel<<<dim3(splits, a.hq / G, a.batch), kThreads, 0, a.stream>>>(
+      static_cast<const T*>(a.q), static_cast<const T*>(a.k),
+      static_cast<const T*>(a.v), static_cast<const int*>(a.tables),
+      static_cast<const int*>(a.lens), static_cast<T*>(a.out),
+      static_cast<float*>(a.ws), static_cast<unsigned*>(a.tickets), a.hkv,
+      a.page, a.max_pages, a.scale, a.softcap, a.hq / a.hkv / G);
   return static_cast<int>(cudaGetLastError());
 }
 
-template <typename T, int D>
-int launch_group(int group, const void* q, const void* k, const void* v,
-                 const void* tables, const void* lens, void* out, void* ws,
-                 void* tickets, int batch, int hkv, int page, int max_pages,
-                 float scale, float softcap, cudaStream_t stream) {
-  const int splits =
-      (max_pages * page + Shape<T, D>::SPLIT - 1) / Shape<T, D>::SPLIT;
-  switch (group) {
-    case 1: return launch<T, D, 1>(q, k, v, tables, lens, out, ws, tickets,
-                                   batch, hkv, page, max_pages, splits,
-                                   scale, softcap, stream);
-    case 2: return launch<T, D, 2>(q, k, v, tables, lens, out, ws, tickets,
-                                   batch, hkv, page, max_pages, splits,
-                                   scale, softcap, stream);
-    case 3: return launch<T, D, 3>(q, k, v, tables, lens, out, ws, tickets,
-                                   batch, hkv, page, max_pages, splits,
-                                   scale, softcap, stream);
-    case 4: return launch<T, D, 4>(q, k, v, tables, lens, out, ws, tickets,
-                                   batch, hkv, page, max_pages, splits,
-                                   scale, softcap, stream);
-    case 5: return launch<T, D, 5>(q, k, v, tables, lens, out, ws, tickets,
-                                   batch, hkv, page, max_pages, splits,
-                                   scale, softcap, stream);
-    case 7: return launch<T, D, 7>(q, k, v, tables, lens, out, ws, tickets,
-                                   batch, hkv, page, max_pages, splits,
-                                   scale, softcap, stream);
-    case 8: return launch<T, D, 8>(q, k, v, tables, lens, out, ws, tickets,
-                                   batch, hkv, page, max_pages, splits,
-                                   scale, softcap, stream);
+// The q heads a block takes: the largest divisor of the group up to 8.
+inline int heads_per_block(int group) {
+  for (int c = 8; c > 1; --c)
+    if (group % c == 0) return c;
+  return 1;
+}
+
+// Calls f with std::integral_constant<int, D> for a head_dim the kernel
+// takes (a multiple of 16 from 16 to 128); -1 for any other.
+template <typename F>
+int with_head_dim(int d, F&& f) {
+  switch (d) {
+    case 16: return f(std::integral_constant<int, 16>{});
+    case 32: return f(std::integral_constant<int, 32>{});
+    case 48: return f(std::integral_constant<int, 48>{});
+    case 64: return f(std::integral_constant<int, 64>{});
+    case 80: return f(std::integral_constant<int, 80>{});
+    case 96: return f(std::integral_constant<int, 96>{});
+    case 112: return f(std::integral_constant<int, 112>{});
+    case 128: return f(std::integral_constant<int, 128>{});
     default: return -1;
   }
 }
 
-}  // namespace
+// Calls f with std::integral_constant<int, C> for C = 1 .. 8.
+template <typename F>
+int with_heads(int c, F&& f) {
+  switch (c) {
+    case 1: return f(std::integral_constant<int, 1>{});
+    case 2: return f(std::integral_constant<int, 2>{});
+    case 3: return f(std::integral_constant<int, 3>{});
+    case 4: return f(std::integral_constant<int, 4>{});
+    case 5: return f(std::integral_constant<int, 5>{});
+    case 6: return f(std::integral_constant<int, 6>{});
+    case 7: return f(std::integral_constant<int, 7>{});
+    case 8: return f(std::integral_constant<int, 8>{});
+    default: return -1;
+  }
+}
+
+// Calls f with a value-initialised T of a dtype (0 = float32,
+// 1 = bfloat16); -1 for any other.
+template <typename F>
+int with_dtype(int dtype, F&& f) {
+  if (dtype == 0) return f(float{});
+  if (dtype == 1) return f(__nv_bfloat16{});
+  return -1;
+}
+
+// The 256 kernels (2 dtypes x 8 head_dims x 1-8 q heads a block x
+// chunked or not) take minutes to build in one object, so
+// kernels/build.py reads kParts below and builds that many objects of
+// this source in parallel, object P (-DREPRO_PART=P) holding the
+// (dtype, head_dim) pairs with part_of(...) == P, and links them; built
+// without REPRO_PART, one object holds them all.
+constexpr int kParts = 4;
+
+constexpr int part_of(int dtype, int head_dim) {
+  return (dtype * 8 + head_dim / 16 - 1) % kParts;
+}
+
+// Launches the kernel of (dtype, head_dim, c q heads a block), which
+// part P holds; other pairs are not instantiated here.
+template <int P>
+int launch_in_part(int dtype, int head_dim, int c, const Args& a) {
+  return with_dtype(dtype, [&](auto t) {
+    using T = decltype(t);
+    return with_head_dim(head_dim, [&](auto d) {
+      constexpr int D = decltype(d)::value;
+      if constexpr (part_of(std::is_same<T, float>::value ? 0 : 1, D) != P)
+        return -1;
+      else
+        return with_heads(c, [&](auto g) {
+          return launch<T, D, decltype(g)::value>(a);
+        });
+    });
+  });
+}
+
+// Defined in the object of part P.
+template <int P>
+int launch_part(int dtype, int head_dim, int c, const Args& a);
+template <> int launch_part<0>(int, int, int, const Args&);
+template <> int launch_part<1>(int, int, int, const Args&);
+template <> int launch_part<2>(int, int, int, const Args&);
+template <> int launch_part<3>(int, int, int, const Args&);
+static_assert(kParts == 4, "one launch_part specialisation a part");
+
+#if !defined(REPRO_PART) || REPRO_PART == 0
+template <>
+int launch_part<0>(int dtype, int head_dim, int c, const Args& a) {
+  return launch_in_part<0>(dtype, head_dim, c, a);
+}
+#endif
+#if !defined(REPRO_PART) || REPRO_PART == 1
+template <>
+int launch_part<1>(int dtype, int head_dim, int c, const Args& a) {
+  return launch_in_part<1>(dtype, head_dim, c, a);
+}
+#endif
+#if !defined(REPRO_PART) || REPRO_PART == 2
+template <>
+int launch_part<2>(int dtype, int head_dim, int c, const Args& a) {
+  return launch_in_part<2>(dtype, head_dim, c, a);
+}
+#endif
+#if !defined(REPRO_PART) || REPRO_PART == 3
+template <>
+int launch_part<3>(int dtype, int head_dim, int c, const Args& a) {
+  return launch_in_part<3>(dtype, head_dim, c, a);
+}
+#endif
+
+}  // namespace paged_attention_cu
+
+#if !defined(REPRO_PART) || REPRO_PART == 0
+using namespace paged_attention_cu;
 
 // Positions per split for a dtype (0 = float32, 1 = bfloat16) and head
 // dim, or -1 for one the kernel does not take.  The grid's x is
-// ceil(max_pages * page / split_len); ws holds B*Hkv*x*G*(D+2) floats.
+// ceil(max_pages * page / split_len).
 extern "C" int paged_attention_split_len(int dtype, int head_dim) {
-  if (dtype == 0 && head_dim == 64) return Shape<float, 64>::SPLIT;
-  if (dtype == 0 && head_dim == 80) return Shape<float, 80>::SPLIT;
-  if (dtype == 0 && head_dim == 128) return Shape<float, 128>::SPLIT;
-  if (dtype == 1 && head_dim == 64) return Shape<__nv_bfloat16, 64>::SPLIT;
-  if (dtype == 1 && head_dim == 80) return Shape<__nv_bfloat16, 80>::SPLIT;
-  if (dtype == 1 && head_dim == 128) return Shape<__nv_bfloat16, 128>::SPLIT;
-  return -1;
+  return with_dtype(dtype, [&](auto t) {
+    return with_head_dim(head_dim, [&](auto d) {
+      return Shape<decltype(t), decltype(d)::value>::SPLIT;
+    });
+  });
+}
+
+// The q heads a block takes for hq q heads over hkv kv heads (the grid's
+// y is hq over it; ws holds B*Hq*x*(D+2) floats, tickets B*y counters),
+// or -1 when hkv does not divide hq.
+extern "C" int paged_attention_heads_per_block(int hq, int hkv) {
+  if (hkv <= 0 || hq <= 0 || hq % hkv != 0) return -1;
+  return heads_per_block(hq / hkv);
 }
 
 // Returns cudaGetLastError() after the launch, or -1 for a configuration
@@ -462,33 +574,20 @@ extern "C" int paged_attention_launch(int dtype, const void* q, const void* k,
                                       int hkv, int head_dim, int page,
                                       int max_pages, float scale,
                                       float softcap, void* stream) {
-  if (hkv <= 0 || hq % hkv != 0 || page <= 0 || max_pages <= 0) return -1;
-  const int group = hq / hkv;
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (dtype == 0 && head_dim == 64)
-    return launch_group<float, 64>(group, q, k, v, tables, lens, out, ws,
-                                   tickets, batch, hkv, page, max_pages,
-                                   scale, softcap, s);
-  if (dtype == 0 && head_dim == 80)
-    return launch_group<float, 80>(group, q, k, v, tables, lens, out, ws,
-                                   tickets, batch, hkv, page, max_pages,
-                                   scale, softcap, s);
-  if (dtype == 0 && head_dim == 128)
-    return launch_group<float, 128>(group, q, k, v, tables, lens, out, ws,
-                                    tickets, batch, hkv, page, max_pages,
-                                    scale, softcap, s);
-  if (dtype == 1 && head_dim == 64)
-    return launch_group<__nv_bfloat16, 64>(group, q, k, v, tables, lens,
-                                           out, ws, tickets, batch, hkv, page,
-                                           max_pages, scale, softcap, s);
-  if (dtype == 1 && head_dim == 80)
-    return launch_group<__nv_bfloat16, 80>(group, q, k, v, tables, lens,
-                                           out, ws, tickets, batch, hkv, page,
-                                           max_pages, scale, softcap, s);
-  if (dtype == 1 && head_dim == 128)
-    return launch_group<__nv_bfloat16, 128>(group, q, k, v, tables, lens,
-                                            out, ws, tickets, batch, hkv,
-                                            page, max_pages, scale, softcap,
-                                            s);
-  return -1;
+  const int c = paged_attention_heads_per_block(hq, hkv);
+  if (c <= 0 || page <= 0 || max_pages <= 0 || batch <= 0 ||
+      batch > 65535 || hq / c > 65535 || (dtype != 0 && dtype != 1) ||
+      head_dim < 16 || head_dim > 128 || head_dim % 16 != 0)
+    return -1;
+  const Args a{q, k, v, tables, lens, out, ws, tickets, batch, hq, hkv,
+               page, max_pages, scale, softcap,
+               static_cast<cudaStream_t>(stream)};
+  switch (part_of(dtype, head_dim)) {
+    case 0: return launch_part<0>(dtype, head_dim, c, a);
+    case 1: return launch_part<1>(dtype, head_dim, c, a);
+    case 2: return launch_part<2>(dtype, head_dim, c, a);
+    case 3: return launch_part<3>(dtype, head_dim, c, a);
+    default: return -1;
+  }
 }
+#endif

@@ -13,17 +13,21 @@ masks ragged lengths itself, so none of the TPU wrapper's padding of the
 sequence to the block and of head_dim to 128 (with its rescaling of q,
 ops.py:53-60) is carried over.
 
-The kernel is written for Hopper (TMA loads into a ring of K/V tiles,
-``wgmma`` products, the softmax in registers) and takes bf16 alone, as
-the models compute, at head_dim 64, 80 (in its 128-wide tiles, the
-columns past 80 read as zeros) or 128; the fp32 plain version serves the CPU and the
+The kernels are written for Hopper and take bf16 and fp32, each at
+every head_dim that is a multiple of 16 from 16 to 128 (``HEAD_DIMS``),
+any GQA group and any lengths.  bf16: TMA loads into a ring of K/V
+tiles, ``wgmma`` products, the softmax in registers; head_dims up to 64
+run its 64-wide tiles and the wider ones its 128-wide tiles, the columns
+past head_dim read as zeros.  fp32: plain FMAs on the CUDA cores in
+64-row tiles, since the tensor cores' TF32 would miss the reference's
+fp32 tolerance.  The fp32 plain version serves the CPU and the
 comparisons.  ``flash_attention`` runs ``flash_attention_ref`` for CPU
 tensors and the kernel for CUDA tensors; on a CUDA tensor it launches or
-raises (``TypeError`` for any dtype but bf16; ``RuntimeError`` where
-autograd would record the call, since the kernel has no backward, as the
-reference's Pallas kernel has none).  Each launch counts as
-``flash_attention`` in ``kernels.counts``, and by query length under
-``("flash_attention", Sq)``.
+raises (``TypeError`` for a dtype but bf16 and fp32, ``ValueError`` for
+another head_dim; ``RuntimeError`` where autograd would record the call,
+since the kernel has no backward, as the reference's Pallas kernel has
+none).  Each launch counts as ``flash_attention`` in ``kernels.counts``,
+and by query length under ``("flash_attention", Sq)``.
 """
 from __future__ import annotations
 
@@ -34,8 +38,8 @@ import torch
 from repro_torch.kernels import build, counts
 
 NEG_INF = -1e30
-DTYPES = {torch.bfloat16: 1}   # dtype -> the C interface's dtype code
-HEAD_DIMS = (64, 80, 128)
+DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # -> the C dtype code
+HEAD_DIMS = tuple(range(16, 129, 16))
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True,
@@ -79,8 +83,8 @@ def _check(q, k, v):
         raise ValueError(f"shapes q {tuple(q.shape)} and k/v "
                          f"{tuple(k.shape)} do not fit")
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention kernel takes bf16 q/k/v, got "
-                        f"{q.dtype}/{k.dtype}/{v.dtype}")
+        raise TypeError(f"flash_attention kernel takes bf16 or fp32 q/k/v "
+                        f"of one dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
     if d not in HEAD_DIMS:
         raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
     for t in (q, k, v):

@@ -13,18 +13,23 @@ path computes what the reference's default ``gather`` path computes
 
 The kernel splits each sequence over blocks (``grid``: splits of
 ``split_len`` positions, from the shapes alone, so the wrapper reads no
-device value).  Each call takes an fp32 workspace from ``torch.empty``
-for the splits' partial softmax states, and a set of zeroed counters per
-device and stream, made once and kept: the kernel leaves them zeroed, so
-the last block of each (sequence, kv head) can merge the splits.  A
-CUDA graph takes the set of the stream it was captured on with it
-(``take_ticket_counters``), so no later stream shares the graph's.
+device value), and takes the q heads of a kv head in chunks of at most
+8 (the largest divisor of the group up to 8: the whole group up to 8,
+8 at 16/1 or 32/1), a block a chunk.  Each call takes an fp32 workspace
+from ``torch.empty`` for the splits' partial softmax states, and a set
+of zeroed counters per device and stream, made once and kept: the
+kernel leaves them zeroed, so the last block of each (sequence, chunk)
+can merge the splits.  A CUDA graph takes the set of the stream it was
+captured on with it (``take_ticket_counters``), so no later stream
+shares the graph's.
 
-The kernel takes head_dim 64, 80 (a row on 16 lanes, 10 of them live)
-and 128.  ``paged_attention`` runs ``paged_attention_ref`` for CPU
-tensors and the kernel for CUDA tensors; on a CUDA tensor it launches
-or raises (``RuntimeError`` where autograd would record the call: the
-kernel has no backward).
+The kernel takes bf16 and fp32, every head_dim that is a multiple of 16
+from 16 to 128 (``HEAD_DIMS``; a row on the power of two of lanes at or
+above head_dim/8) and any group (``hq % hkv == 0``).
+``paged_attention`` runs ``paged_attention_ref`` for CPU tensors and the
+kernel for CUDA tensors; on a CUDA tensor it launches or raises
+(``RuntimeError`` where autograd would record the call: the kernel has
+no backward).
 Each launch counts as ``paged_attention`` in ``kernels.counts`` (one a
 call: the merge is inside the kernel).
 """
@@ -38,13 +43,10 @@ from repro_torch.kernels import build, counts
 
 NEG_INF = -1e30
 DTYPES = {torch.float32: 0, torch.bfloat16: 1}
-HEAD_DIMS = (64, 80, 128)
-#: q heads per kv head: llama2-7b and opt-13b 1, granite-moe-1b 2,
-#: granite-moe-3b 3, qwen3-14b 5, qwen2-0.5b 7
-GROUPS = (1, 2, 3, 4, 5, 7, 8)
+HEAD_DIMS = tuple(range(16, 129, 16))
 
-#: (device index, stream) -> zeroed int32 counters, one per (sequence, kv
-#: head); the kernel leaves them zeroed
+#: (device index, stream) -> zeroed int32 counters, one per (sequence,
+#: chunk of q heads); the kernel leaves them zeroed
 _tickets = {}
 
 
@@ -80,19 +82,23 @@ def _lib():
                        + [ctypes.c_int] * 6 + [ctypes.c_float] * 2
                        + [ctypes.c_void_p])
         fn.restype = ctypes.c_int
-        lib.paged_attention_split_len.argtypes = [ctypes.c_int] * 2
-        lib.paged_attention_split_len.restype = ctypes.c_int
+        for name in ("paged_attention_split_len",
+                     "paged_attention_heads_per_block"):
+            getattr(lib, name).argtypes = [ctypes.c_int] * 2
+            getattr(lib, name).restype = ctypes.c_int
     return lib
 
 
 def grid(q, k_pages, block_tables):
-    """The kernel's launch grid (splits, Hkv, B) and its positions per
-    split, from the shapes alone: a block whose split starts at or past
-    its sequence's length returns at once."""
-    b, _, d = q.shape
+    """The kernel's launch grid (splits, Hq / heads a block, B) and its
+    positions per split, from the shapes alone: a block whose split
+    starts at or past its sequence's length returns at once."""
+    b, hq, d = q.shape
     _, page, hkv, _ = k_pages.shape
-    split = _lib().paged_attention_split_len(DTYPES[q.dtype], d)
-    return (-(-block_tables.shape[1] * page // split), hkv, b), split
+    lib = _lib()
+    split = lib.paged_attention_split_len(DTYPES[q.dtype], d)
+    chunks = hq // lib.paged_attention_heads_per_block(hq, hkv)
+    return (-(-block_tables.shape[1] * page // split), chunks, b), split
 
 
 def _ticket_counters(device, stream, n):
@@ -132,8 +138,9 @@ def _check(q, k_pages, v_pages, block_tables, context_lens):
         raise TypeError("block tables and context lens must be int32")
     if d not in HEAD_DIMS:
         raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
-    if hq % hkv or hq // hkv not in GROUPS:
-        raise ValueError(f"q heads per kv head {hq}/{hkv} not in {GROUPS}")
+    if hq % hkv:
+        raise ValueError(f"q heads {hq} are not a multiple of kv heads "
+                         f"{hkv}")
     for t in (q, k_pages, v_pages, block_tables, context_lens):
         if t.device != q.device:
             raise ValueError("all tensors must be on one device")
@@ -162,12 +169,14 @@ def paged_attention(q, k_pages, v_pages, block_tables, context_lens, *,
     _check(q, k_pages, v_pages, block_tables, context_lens)
     b, hq, d = q.shape
     _, page, hkv, _ = k_pages.shape
-    (splits, _, _), _ = grid(q, k_pages, block_tables)
+    (splits, chunks, _), _ = grid(q, k_pages, block_tables)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     out = torch.empty_like(q)
+    # one record of (hq / chunks) * (d + 2) floats a (sequence, chunk,
+    # split)
     ws = torch.empty(b * hq * splits * (d + 2) if splits > 1 else 1,
                      dtype=torch.float32, device=q.device)
-    tickets = _ticket_counters(q.device, stream, b * hkv)
+    tickets = _ticket_counters(q.device, stream, b * chunks)
     err = _lib().paged_attention_launch(
         DTYPES[q.dtype], q.data_ptr(), k_pages.data_ptr(),
         v_pages.data_ptr(), block_tables.data_ptr(), context_lens.data_ptr(),

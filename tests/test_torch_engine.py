@@ -121,6 +121,30 @@ def test_engine_matches_reference(arch, path):
     _same_run(te, treqs, je, jreqs)
 
 
+#: llama2-7b's smoke model in fp32 at the attention shapes the kernels
+#: were widened to: (q heads, kv heads, head_dim) of GQA group 6 at
+#: head_dim 16, multi-query 16/1 at head_dim 32, and head_dim 48
+WIDENED_SHAPES = [(12, 2, 16), (16, 1, 32), (4, 4, 48)]
+
+
+@pytest.mark.parametrize("path", ["gather", "pallas"])
+@pytest.mark.parametrize("shape", WIDENED_SHAPES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_engine_matches_reference_fp32_at_widened_shapes(shape, path):
+    """The fp32 llama2-7b smoke model with its heads reshaped, served by
+    both engines on both attention paths (the reference's Pallas kernels
+    in interpret mode on ``pallas``): greedy tokens, iteration records
+    and pages as in ``test_engine_matches_reference``."""
+    hq, hkv, d = shape
+    models = model_pair("llama2-7b", n_heads=hq, n_kv_heads=hkv, head_dim=d)
+    tcfg = models[2].cfg
+    assert (tcfg.dtype, tcfg.n_heads, tcfg.n_kv_heads, tcfg.head_dim) == \
+        ("float32", hq, hkv, d)
+    te, treqs, je, jreqs = _serve(models, path, PROMPTS, OUTPUTS, ENGINE)
+    assert sum(r.preempt_count for r in jreqs) > 0, "no preemption forced"
+    _same_run(te, treqs, je, jreqs)
+
+
 @pytest.mark.parametrize("arch", ["granite-moe-3b-a800m"])
 def test_engine_matches_reference_moe_sort(arch):
     te, treqs, je, jreqs = _serve(model_pair(arch), "pallas", PROMPTS,

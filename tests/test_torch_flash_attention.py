@@ -113,6 +113,46 @@ def test_plain_vs_jax_at_head_dim_80(case):
         rtol=tol, atol=tol)
 
 
+#: the other multiples of 16 the CUDA kernels take (16 and 32 are in
+#: FLASH_CASES in fp32): bf16 at 16 and 32 (the D-64 tiles), 48, 96 and
+#: 112 in both dtypes; ragged, GQA, non-causal with Sq != Skv
+WIDENED_HEAD_DIM_CASES = [
+    (1, 100, 100, 4, 2, 16, True, "bfloat16"),
+    (2, 64, 192, 4, 1, 32, False, "bfloat16"),
+    (1, 100, 100, 4, 2, 48, True, "float32"),
+    (1, 128, 128, 4, 4, 48, True, "bfloat16"),
+    (2, 64, 192, 4, 2, 96, False, "float32"),
+    (1, 128, 128, 4, 4, 96, True, "bfloat16"),
+    (1, 130, 130, 6, 1, 112, True, "float32"),
+    (1, 128, 128, 4, 4, 112, True, "bfloat16"),
+]
+
+
+@pytest.mark.parametrize("case", WIDENED_HEAD_DIM_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_plain_vs_jax_at_widened_head_dims(case):
+    b, sq, skv, h, hkv, d, causal, dtype = case
+    assert d in ops.HEAD_DIMS
+    q, k, v = _inputs(b, sq, skv, h, hkv, d, seed=8)
+    got = _torch(q, k, v, dtype, causal=causal)
+    assert got.dtype == getattr(torch, dtype) and got.shape == (b, sq, h, d)
+    tol = KERNEL_TOL[dtype]
+    np.testing.assert_allclose(
+        got.float().numpy(),
+        _jax(q, k, v, dtype, causal=causal, block_q=64, block_kv=64),
+        rtol=tol, atol=tol)
+
+
+def test_wrapper_tables_cover_every_multiple_of_16():
+    """The dtypes and head_dims the CUDA kernels take: bf16 and fp32, every
+    multiple of 16 from 16 to 128 (the C interface's dtype codes are the
+    paged kernel's)."""
+    from repro_torch.kernels.paged_attention import ops as paged_ops
+    assert ops.HEAD_DIMS == paged_ops.HEAD_DIMS == tuple(range(16, 129, 16))
+    assert ops.DTYPES == paged_ops.DTYPES == {torch.float32: 0,
+                                              torch.bfloat16: 1}
+
+
 def test_softcap():
     q, k, v = _inputs(1, 64, 64, 2, 2, 32, seed=1)
     got = _torch(q, k, v, "float32", causal=True, softcap=20.0)

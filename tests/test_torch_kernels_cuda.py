@@ -9,8 +9,15 @@ imports no JAX, so it runs where the card is:
 output is held against its plain version run in fp32 on the same
 values, row by row (one q head of one token): the row's largest error
 over its largest |value| stays within 1e-2 in bf16 and 1e-4 in fp32, as
-in chip_smoke.py.  The flash kernel takes bf16 alone, so every masking
-and softcap case runs in bf16.
+in chip_smoke.py.  Both attention kernels take bf16 and fp32 at every
+head_dim that is a multiple of 16 from 16 to 128, and paged every GQA
+group (in chunks of at most 8 q heads a block above 8); the fp32 cases
+are also held elementwise to the reference's fp32 tolerance
+(tests/test_kernels.py, 2e-5), and the ``test_reference_*`` tests run
+the reference's own flash, softcap, paged and permutation cases at their
+shapes and dtypes.  ``test_fp32_limits_catch_a_planted_fault`` plants
+faults in a copy of the fp32 flash kernel (its mask and its K/V ring)
+and shows that the fp32 row limit catches each.
 ``test_relative_limit_catches_an_off_by_one`` plants a fault in a copy
 of each kernel's source (a mask or length off by one, the stage of the
 flash kernel's K/V ring, the end of a paged split, the paged merge's
@@ -32,8 +39,8 @@ every row of every head, catches it.
 The ``blocked``/``blocked_causal`` attention routes launch no kernel (they
 are plain PyTorch, as the reference's are plain JAX): they are held to
 the naive route on the card, with the same row limits, at stablelm-3b's
-long prompts (head_dim 80 in bf16, and head_dim 128 in fp32, which the
-flash kernel refuses; S 4096 in blocks of 1024, and a ragged S 3000),
+long prompts (head_dim 80 in bf16, and head_dim 128 in fp32; S 4096 in
+blocks of 1024, and a ragged S 3000),
 and one of them is captured in a CUDA graph and replayed, equal to eager.
 
 The SSD scan (three kernels: chunk state, state passing, chunk scan) is
@@ -72,6 +79,10 @@ from repro_torch.kernels.ssd_scan import ops as ssd  # noqa: E402
 from repro_torch.models import attention_impl  # noqa: E402
 
 REL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+#: tests/test_kernels.py's elementwise tolerances (rtol = atol): flash
+#: and paged in fp32; flash and paged in bf16
+REF_TOL = {torch.float32: 2e-5}
+REF_TOL_BF16 = {"flash_attention": 2.5e-2, "paged_attention": 3e-2}
 
 
 def _row_rel_err(got, want):
@@ -184,6 +195,32 @@ PAGED = [
      {"lens": [1056, 1, 64, 300, 1024, 17, 640, 1]}),
     (4, 16, 4, 80, 65, 16, 16, torch.bfloat16, {}),
     (6, 8, 2, 80, 40, 16, 32, torch.float32, {"shared_pages": True}),
+    # every other multiple of 16: a row on 2, 4, 8 (6 live) and 16 (12
+    # and 14 live) lanes; at D 16 the split is 512 positions and the 64
+    # row groups' accumulators fill the ring
+    *((8, 32, 8, d, 257, 16, 32, dt, {})
+      for d in (16, 32, 48, 96, 112)
+      for dt in (torch.bfloat16, torch.float32)),
+    *((7, 8, 2, d, 673, 16, 96, torch.float32, {"lens": "split-boundary"})
+      for d in (16, 32, 48, 96, 112)),
+    (6, 8, 2, 16, 40, 16, 32, torch.bfloat16, {"shared_pages": True}),
+    (8, 16, 2, 32, 1025, 16, 128, torch.bfloat16,
+     {"lens": [2048, 3, 17, 40, 64, 5, 100, 1]}),
+    # group 6, and groups above 8 in chunks: 16/1 and 32/1 (multi-query,
+    # chunks of 8), 12/1 (two of 6), 9/1 (three of 3), 11/1 (eleven of 1)
+    (8, 24, 4, 128, 129, 16, 16, torch.bfloat16, {}),
+    (3, 12, 2, 64, 65, 16, 16, torch.float32, {}),
+    (7, 48, 8, 128, 129, 16, 16, torch.bfloat16,
+     {"lens": "split-boundary"}),
+    (8, 16, 1, 128, 129, 16, 16, torch.bfloat16, {}),
+    (8, 32, 1, 128, 129, 16, 16, torch.bfloat16, {}),
+    (3, 32, 1, 64, 65, 16, 16, torch.float32, {}),
+    (7, 32, 1, 128, 129, 16, 16, torch.float32, {"lens": "split-boundary"}),
+    (8, 32, 2, 128, 1025, 16, 128, torch.bfloat16,
+     {"lens": [2048, 3, 17, 40, 64, 5, 100, 1]}),
+    (4, 12, 1, 64, 65, 16, 16, torch.bfloat16, {}),
+    (4, 9, 1, 32, 65, 16, 16, torch.float32, {}),
+    (4, 11, 1, 16, 65, 16, 16, torch.float32, {}),
 ]
 
 
@@ -208,8 +245,11 @@ def test_paged_kernel_vs_plain(cuda, case):
     torch.cuda.synchronize()
     assert counts.get("paged_attention") == before + 1
     want = _paged_plain(args)
-    assert torch.isfinite(got).all()
+    assert got.dtype == dtype and torch.isfinite(got).all()
     assert _row_rel_err(got, want).max() <= REL_TOL[dtype]
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=REF_TOL[dtype],
+                                   atol=REF_TOL[dtype])
 
 
 def test_paged_kernel_repeats_and_leaves_its_counters_zeroed(cuda):
@@ -225,11 +265,118 @@ def test_paged_kernel_repeats_and_leaves_its_counters_zeroed(cuda):
     assert not paged._tickets[(cuda.index or 0, stream)].any()
 
 
+def test_paged_kernel_chunks_leave_their_counters_zeroed(cuda):
+    """Multi-query 32/1 runs as four chunks of 8 q heads, each with its
+    own merge ticket: two calls give the same bits, and the B * 4
+    counters end at zero."""
+    args = _paged_inputs(7, 32, 1, 128, 129, 16, 16, torch.bfloat16, cuda,
+                         lens=[1, 63, 64, 65, 200, 256, 1])
+    (splits, chunks, b), _ = paged.grid(args[0], args[1], args[3])
+    assert (chunks, b) == (4, 7) and splits > 1
+    first = paged.paged_attention(*args)
+    second = paged.paged_attention(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(first, second)
+    assert _row_rel_err(first, _paged_plain(args)).max() <= \
+        REL_TOL[torch.bfloat16]
+    stream = torch.cuda.current_stream(cuda).cuda_stream
+    tickets = paged._tickets[(cuda.index or 0, stream)]
+    assert tickets.numel() >= b * chunks and not tickets.any()
+
+
 def test_paged_kernel_softcap(cuda):
     args = _paged_inputs(4, 8, 2, 128, 33, 16, 8, torch.float32, cuda)
     got = paged.paged_attention(*args, softcap=5.0)
     want = paged.paged_attention_ref(*args, softcap=5.0)
     assert _row_rel_err(got, want).max() <= REL_TOL[torch.float32]
+
+
+#: tests/test_kernels.py's own cases, at their shapes and dtypes:
+#: FLASH_CASES and test_flash_softcap (b, sq, skv, h, hkv, d, causal,
+#: softcap, dtype); PAGED_CASES (b, hq, hkv, d, npages, page, mp, dtype)
+REF_FLASH = [
+    (2, 128, 128, 4, 2, 64, True, 0.0, torch.float32),
+    (1, 256, 256, 4, 4, 64, True, 0.0, torch.bfloat16),
+    (2, 64, 192, 4, 1, 32, False, 0.0, torch.float32),
+    (1, 100, 100, 2, 2, 16, True, 0.0, torch.float32),
+    (1, 128, 128, 8, 8, 128, True, 0.0, torch.float32),
+    (1, 64, 64, 2, 2, 32, True, 20.0, torch.float32),
+]
+REF_PAGED = [
+    (2, 4, 2, 64, 16, 16, 4, torch.float32),
+    (3, 8, 1, 32, 32, 8, 6, torch.float32),
+    (2, 4, 4, 64, 16, 16, 3, torch.bfloat16),
+    (1, 16, 2, 128, 8, 32, 2, torch.float32),
+]
+
+
+def _ref_tol(name, dtype):
+    return REF_TOL[dtype] if dtype == torch.float32 else REF_TOL_BF16[name]
+
+
+def _held(name, got, want, dtype):
+    """The reference test's elementwise tolerance and the row limit."""
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    tol = _ref_tol(name, dtype)
+    torch.testing.assert_close(got.float(), want, rtol=tol, atol=tol)
+    assert _row_rel_err(got, want).max() <= REL_TOL[dtype]
+
+
+@pytest.mark.parametrize("case", REF_FLASH, ids=lambda c: "-".join(
+    map(str, c)))
+def test_reference_flash_cases(cuda, case):
+    b, sq, skv, h, hkv, d, causal, softcap, dtype = case
+    rng = np.random.RandomState(0)
+    q, k, v = (torch.from_numpy(rng.randn(b, s, n, d).astype(np.float32))
+               .to(cuda, dtype) for s, n in ((sq, h), (skv, hkv), (skv, hkv)))
+    before = counts.get("flash_attention")
+    got = flash.flash_attention(q, k, v, causal=causal, softcap=softcap)
+    torch.cuda.synchronize()
+    assert counts.get("flash_attention") == before + 1
+    _held("flash_attention", got,
+          _flash_plain(q, k, v, causal=causal, softcap=softcap), dtype)
+
+
+@pytest.mark.parametrize("case", REF_PAGED, ids=lambda c: "-".join(
+    map(str, c)))
+def test_reference_paged_cases(cuda, case):
+    b, hq, hkv, d, npages, page, mp, dtype = case
+    rng = np.random.RandomState(2)
+    q, kp, vp = (torch.from_numpy(rng.randn(*shape).astype(np.float32))
+                 .to(cuda, dtype) for shape in
+                 ((b, hq, d), (npages, page, hkv, d), (npages, page, hkv, d)))
+    bt = torch.from_numpy(rng.randint(0, npages, size=(b, mp))
+                          .astype(np.int32)).to(cuda)
+    cl = torch.from_numpy(rng.randint(1, mp * page + 1, size=(b,))
+                          .astype(np.int32)).to(cuda)
+    before = counts.get("paged_attention")
+    got = paged.paged_attention(q, kp, vp, bt, cl)
+    torch.cuda.synchronize()
+    assert counts.get("paged_attention") == before + 1
+    _held("paged_attention", got, _paged_plain((q, kp, vp, bt, cl)), dtype)
+
+
+def test_reference_permutation_case(cuda):
+    """test_paged_attention_respects_block_table_permutation at its shape
+    (head_dim 16, 2/1): the same K/V through two page orders."""
+    b, hq, hkv, d, npages, page, mp = 1, 2, 1, 16, 8, 4, 4
+    rng = np.random.RandomState(3)
+    q, kseq, vseq = (torch.from_numpy(rng.randn(*shape).astype(np.float32))
+                     .to(cuda) for shape in
+                     ((b, hq, d), (mp * page, hkv, d), (mp * page, hkv, d)))
+    cl = torch.tensor([mp * page], dtype=torch.int32, device=cuda)
+    outs = []
+    for perm in ([0, 1, 2, 3], [3, 1, 0, 2]):
+        kp, vp = (torch.zeros(npages, page, hkv, d, device=cuda)
+                  for _ in range(2))
+        for logical, phys in enumerate(perm):
+            kp[phys] = kseq[logical * page:(logical + 1) * page]
+            vp[phys] = vseq[logical * page:(logical + 1) * page]
+        bt = torch.tensor([perm], dtype=torch.int32, device=cuda)
+        outs.append(paged.paged_attention(q, kp, vp, bt, cl))
+        _held("paged_attention", outs[-1], _paged_plain((q, kp, vp, bt, cl)),
+              torch.float32)
+    torch.testing.assert_close(outs[0], outs[1], rtol=1e-5, atol=1e-5)
 
 
 #: (b, sq, skv, h, hkv, d, causal, softcap, dtype)
@@ -265,6 +412,27 @@ FLASH = [
     (1, 1000, 1000, 32, 32, 80, True, 0.0, torch.bfloat16),
     (2, 200, 333, 8, 8, 80, False, 0.0, torch.bfloat16),
     (1, 256, 256, 4, 4, 80, True, 30.0, torch.bfloat16),
+    # every other multiple of 16 in bf16: 16, 32 and 48 in the D-64
+    # tiles, 96 and 112 in the D-128 tiles
+    *((1, 1000, 1000, 16, 4, d, True, 0.0, torch.bfloat16)
+      for d in (16, 32, 48, 96, 112)),
+    *((2, 200, 333, 8, 8, d, False, 20.0, torch.bfloat16)
+      for d in (16, 48, 96)),
+    (1, 1024, 1024, 32, 32, 96, True, 0.0, torch.bfloat16),
+    # fp32 (plain FMAs, 64-row tiles): every head_dim, the serving
+    # prefills of llama2-7b (32/32) and qwen3-14b (40/8), ragged,
+    # top-left and non-causal, softcaps
+    *((1, 300, 300, 8, 2, d, True, 0.0, torch.float32)
+      for d in (16, 32, 48, 64, 80, 96, 112, 128)),
+    (1, 1024, 1024, 32, 32, 128, True, 0.0, torch.float32),
+    (1, 1024, 1024, 40, 8, 128, True, 0.0, torch.float32),
+    (2, 2048, 2048, 4, 4, 64, True, 0.0, torch.float32),
+    (1, 100, 260, 4, 4, 64, True, 0.0, torch.float32),     # top-left
+    (1, 130, 300, 4, 4, 128, True, 0.0, torch.float32),
+    (2, 64, 192, 4, 1, 32, False, 0.0, torch.float32),     # non-causal
+    (1, 70, 1500, 8, 8, 64, False, 0.0, torch.float32),
+    (1, 256, 256, 4, 4, 128, True, 30.0, torch.float32),   # softcap
+    (1, 70, 150, 4, 2, 16, False, 20.0, torch.float32),
 ]
 
 
@@ -280,8 +448,11 @@ def test_flash_kernel_vs_plain(cuda, case):
     torch.cuda.synchronize()
     assert counts.get("flash_attention") == before + 1
     want = _flash_plain(q, k, v, causal=causal, softcap=softcap)
-    assert torch.isfinite(got).all()
+    assert got.dtype == dtype and torch.isfinite(got).all()
     assert _row_rel_err(got, want).max() <= REL_TOL[dtype]
+    if dtype == torch.float32:
+        torch.testing.assert_close(got, want, rtol=REF_TOL[dtype],
+                                   atol=REF_TOL[dtype])
 
 
 #: planted faults: source, the text replaced, its replacement
@@ -496,6 +667,61 @@ def test_relative_limit_catches_a_head_dim_80_fault(cuda, fault, tmp_path,
     assert sound <= REL_TOL[torch.bfloat16] < planted
 
 
+#: planted faults of the fp32 flash kernel: its mask (the diagonal, one
+#: key past it, the key at Skv) and the stage of its K/V ring
+FP32_FAULTS = {
+    "flash-fp32-drops-the-diagonal": (
+        "(causal && kpos > qpos)", "(causal && kpos >= qpos)"),
+    "flash-fp32-reads-one-more-position": (
+        "(causal && kpos > qpos)", "(causal && kpos > qpos + 1)"),
+    "flash-fp32-reads-past-the-kv-end": (
+        "if (kpos >= skv ||", "if (kpos > skv ||"),
+    "flash-fp32-ring-stage-off-by-one": (
+        "const float* vs = smem_f32 + L::V + stage * kBN * L::LD;",
+        "const float* vs = smem_f32 + L::V + ((stage + 1) % 2) * kBN * "
+        "L::LD;"),
+}
+
+
+def _fp32_flash_case(fault, device):
+    """The fp32 kernel at llama2-7b's causal 2048-token prefill (32/32,
+    head_dim 128), or for the KV-end fault at whisper-base's
+    cross-attention shape (non-causal, 512 x 1500, 8 heads of 64); every
+    row of every head.  Returns (kernel output, plain output)."""
+    rng = np.random.RandomState(6)
+    if fault == "flash-fp32-reads-past-the-kv-end":
+        shapes, causal = ((1, 512, 8, 64), (1, 1500, 8, 64)), False
+    else:
+        shapes, causal = ((1, 2048, 32, 128), (1, 2048, 32, 128)), True
+    q, k, v = (torch.from_numpy(rng.randn(*shape).astype(np.float32))
+               .to(device) for shape in (shapes[0], shapes[1], shapes[1]))
+    return (flash.flash_attention(q, k, v, causal=causal),
+            _flash_plain(q, k, v, causal=causal))
+
+
+@pytest.mark.parametrize("fault", sorted(FP32_FAULTS))
+def test_fp32_limits_catch_a_planted_fault(cuda, fault, tmp_path,
+                                           monkeypatch):
+    """The sound fp32 kernel reads within the fp32 row limit (and the
+    reference's elementwise 2e-5) on every row; a copy of its source
+    with a fault of its mask or its ring planted reads past the limit."""
+    old, new = FP32_FAULTS[fault]
+    got, want = _fp32_flash_case(fault, cuda)
+    sound = float(_row_rel_err(got, want).max())
+    torch.testing.assert_close(got, want, rtol=REF_TOL[torch.float32],
+                               atol=REF_TOL[torch.float32])
+    src = (build.CSRC / "flash_attention.cu").read_text()
+    assert src.count(old) == 1
+    (tmp_path / "flash_attention.cu").write_text(src.replace(old, new))
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "lib")
+    monkeypatch.setattr(build, "_loaded", {})
+    planted = float(_row_rel_err(*_fp32_flash_case(fault, cuda)).max())
+    print(f"\n{fault}: relative error, sound {sound:.3e}, planted "
+          f"{planted:.3e}, limit {REL_TOL[torch.float32]:.0e}")
+    assert sound <= REL_TOL[torch.float32] < planted
+
+
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
 def test_paged_head_dim_80_reads_pages_where_the_table_says(cuda, dtype):
     """The same K/V content through two permutations of the pages gives
@@ -524,39 +750,44 @@ def test_paged_head_dim_80_reads_pages_where_the_table_says(cuda, dtype):
 
 def test_head_dim_80_raises(cuda):
     """Both kernels take stablelm-3b's head_dim (2560/32 = 80) since they
-    run it in padded tiles and lanes; the refusal this test pinned when
-    they did not moves to head_dim 96, which neither takes: a CUDA
-    tensor launches the kernel or raises, nothing falls back."""
+    run it in padded tiles and lanes, and now every multiple of 16 up to
+    128; the refusal this test pinned when they did not moves to head_dim
+    136, which neither takes: a CUDA tensor launches the kernel or
+    raises, nothing falls back."""
     from repro_torch.configs import get_config
     assert get_config("stablelm-3b").head_dim == 80
     assert 80 in paged.HEAD_DIMS and 80 in flash.HEAD_DIMS
-    d, h = 96, 32
+    d, h = 136, 32
     q = torch.zeros(2, h, d, device=cuda, dtype=torch.bfloat16)
     kp = torch.zeros(9, 16, h, d, device=cuda, dtype=torch.bfloat16)
     bt = torch.zeros(2, 4, dtype=torch.int32, device=cuda)
     cl = torch.ones(2, dtype=torch.int32, device=cuda)
-    with pytest.raises(ValueError, match="head_dim 96"):
+    with pytest.raises(ValueError, match="head_dim 136"):
         paged.paged_attention(q, kp, kp, bt, cl)
     x = torch.zeros(1, 64, h, d, device=cuda, dtype=torch.bfloat16)
-    with pytest.raises(ValueError, match="head_dim 96"):
+    with pytest.raises(ValueError, match="head_dim 136"):
         flash.flash_attention(x, x, x)
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
-    q = torch.zeros(2, 4, 96, device=cuda)              # head_dim 96
-    kp = torch.zeros(8, 16, 2, 96, device=cuda)
+    q = torch.zeros(2, 4, 256, device=cuda)             # head_dim 256
+    kp = torch.zeros(8, 16, 2, 256, device=cuda)
     bt = torch.zeros(2, 4, dtype=torch.int32, device=cuda)
     cl = torch.ones(2, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         paged.paged_attention(q, kp, kp, bt, cl)
-    q6 = torch.zeros(2, 12, 64, device=cuda)            # group 6
-    kp6 = torch.zeros(8, 16, 2, 64, device=cuda)
-    with pytest.raises(ValueError, match="12/2"):
-        paged.paged_attention(q6, kp6, kp6, bt, cl)
-    for dtype in (torch.float16, torch.float32):
-        x = torch.zeros(1, 64, 2, 64, device=cuda, dtype=dtype)
-        with pytest.raises(TypeError):
-            flash.flash_attention(x, x, x)
+    q5 = torch.zeros(2, 12, 64, device=cuda)            # 12 q over 5 kv
+    kp5 = torch.zeros(8, 16, 5, 64, device=cuda)
+    with pytest.raises(ValueError, match="not a multiple"):
+        paged.paged_attention(q5, kp5, kp5, bt, cl)
+    x = torch.zeros(1, 64, 2, 256, device=cuda)
+    with pytest.raises(ValueError, match="head_dim"):
+        flash.flash_attention(x, x, x)
+    x = torch.zeros(1, 64, 2, 64, device=cuda, dtype=torch.float16)
+    with pytest.raises(TypeError):
+        flash.flash_attention(x, x, x)
+    with pytest.raises(TypeError):
+        paged.paged_attention(x[:, 0], x, x, bt[:1], cl[:1])
 
 
 def test_cpu_tensors_take_the_plain_version():
@@ -580,8 +811,8 @@ def test_cpu_tensors_take_the_plain_version():
 # the blocked attention routes (plain PyTorch, no kernel)
 # ---------------------------------------------------------------------------
 #: (impl, s, h, hkv, d, dtype): stablelm-3b's head_dim 80 in bf16, and
-#: head_dim 128 in fp32 (GQA 4), which the flash kernel refuses; S 4096
-#: is 4 x 4 blocks of 1024, S 3000 takes the reference's ragged fallback
+#: head_dim 128 in fp32 (GQA 4); S 4096 is 4 x 4 blocks of 1024, S 3000
+#: takes the reference's ragged fallback
 BLOCKED = [
     ("blocked", 4096, 32, 32, 80, torch.bfloat16),
     ("blocked", 4096, 32, 8, 128, torch.float32),

@@ -91,6 +91,62 @@ def test_plain_vs_jax_at_head_dim_80(case):
                                rtol=tol, atol=tol)
 
 
+#: the groups and head_dims the CUDA kernel was widened to: group 6,
+#: multi-query 16/1 and 32/1 (chunks of 8 q heads a block), 12/1 (two of
+#: 6), and head_dims 16, 32, 48, 96, 112
+WIDENED_CASES = [
+    (2, 12, 2, 64, 16, 16, 4, "float32"),
+    (2, 24, 4, 128, 16, 16, 4, "bfloat16"),
+    (2, 16, 1, 128, 16, 16, 4, "float32"),
+    (2, 32, 1, 64, 16, 16, 4, "bfloat16"),
+    (1, 32, 1, 32, 8, 32, 2, "float32"),
+    (2, 12, 1, 16, 16, 8, 6, "float32"),
+    (3, 4, 2, 16, 32, 8, 6, "bfloat16"),
+    (2, 8, 1, 48, 16, 16, 4, "float32"),
+    (2, 4, 4, 96, 16, 16, 3, "bfloat16"),
+    (1, 16, 2, 112, 8, 32, 2, "float32"),
+]
+
+
+@pytest.mark.parametrize("case", WIDENED_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_plain_vs_jax_at_widened_shapes(case):
+    dtype = case[-1]
+    q, kp, vp, bt, cl = _inputs(case, seed=9)
+    got = _torch(q, kp, vp, bt, cl, dtype)
+    assert got.dtype == getattr(torch, dtype) and got.shape == q.shape
+    tol = _tol(dtype)
+    np.testing.assert_allclose(got.float().numpy(),
+                               _jax(q, kp, vp, bt, cl, dtype),
+                               rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("d", [16, 64])
+def test_block_table_permutation_at(d):
+    """tests/test_kernels.py's permutation case (head_dim 16, 2/1) and the
+    same at head_dim 64: the same KV content through permuted page
+    tables gives the same output, which is the reference's."""
+    b, hq, hkv, npages, page, mp = 1, 2, 1, 8, 4, 4
+    rng = np.random.RandomState(3)
+    q = rng.randn(b, hq, d).astype(np.float32)
+    kseq = rng.randn(mp * page, hkv, d).astype(np.float32)
+    vseq = rng.randn(mp * page, hkv, d).astype(np.float32)
+    outs = []
+    for perm in ([0, 1, 2, 3], [3, 1, 0, 2]):
+        kp = np.zeros((npages, page, hkv, d), np.float32)
+        vp = np.zeros((npages, page, hkv, d), np.float32)
+        for logical, phys in enumerate(perm):
+            kp[phys] = kseq[logical * page:(logical + 1) * page]
+            vp[phys] = vseq[logical * page:(logical + 1) * page]
+        bt = np.asarray([perm], np.int32)
+        cl = np.asarray([mp * page], np.int32)
+        outs.append(_torch(q, kp, vp, bt, cl, "float32").numpy())
+        np.testing.assert_allclose(outs[-1],
+                                   _jax(q, kp, vp, bt, cl, "float32"),
+                                   rtol=2e-5, atol=2e-5)
+    np.testing.assert_allclose(outs[0], outs[1], rtol=1e-5, atol=1e-5)
+
+
 def test_block_table_permutation():
     """Same KV content through permuted page tables -> same output."""
     b, hq, hkv, d, npages, page, mp = 1, 2, 1, 64, 8, 4, 4
@@ -144,3 +200,17 @@ def test_softcap_matches_gather_formula():
     np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                rtol=2e-5, atol=2e-5)
 
+
+
+def test_build_parts_come_from_the_source():
+    """kernels/build.py builds the paged source as the objects its
+    ``kParts`` declares, and the source defines one ``launch_part`` for
+    each; a source without the declaration builds whole."""
+    from repro_torch.kernels import build
+    src = (build.CSRC / "paged_attention.cu").read_text()
+    parts = build._parts("paged_attention")
+    assert parts > 1
+    for p in range(parts + 1):
+        defined = f"int launch_part<{p}>(int dtype" in src
+        assert defined == (p < parts), p
+    assert build._parts("flash_attention") == 1
