@@ -15,8 +15,10 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    tolerance stated, timed beside the plain version, the bound and
    (flash) ``scaled_dot_product_attention`` (both with the card's queue
    filled ahead, and flash also back to back), flash and the SSD scan also
-   in TFLOP/s and as a share of their bound; the SSD scan also against
-   an fp64 recurrence on the card beside its plain version, and each of
+   in TFLOP/s and as a share of their bound (fp32 products bounded by the
+   faster of fp32 FMAs and 3xTF32 on the tensor cores, the route named);
+   the SSD scan also against an fp64 recurrence on the card beside its
+   plain version, and each of
    its three kernels' time and grid inside whole scans (``torch.profiler``);
    the paged kernel with the queue filled ahead and back to back, with
    its grid, its working blocks and the time of one contiguous read of
@@ -236,9 +238,14 @@ from repro_torch.training.data import DataConfig  # noqa: E402
 from repro_torch.training.optimizer import AdamWConfig  # noqa: E402
 from repro_torch.training.trainer import TrainConfig, Trainer  # noqa: E402
 
-# H100 SXM published peaks (NVIDIA data sheet, dense)
+# H100 SXM published peaks (NVIDIA data sheet, dense): bf16 on the tensor
+# cores, fp32 as FMAs on the CUDA cores, and TF32 on the tensor cores
 PEAK_BYTES_S = 3.35e12
 PEAK_FLOPS_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_TF32_S = 495e12
+#: TF32 products an fp32-grade product takes on the tensor cores
+#: (3xTF32: each operand split into hi + lo, hi·hi + hi·lo + lo·hi)
+TF32_SPLIT_PRODUCTS = 3
 #: kernel vs its plain version run in fp32 on the same (bf16-valued)
 #: inputs, per output row (one q head of one token): the row's largest
 #: error over its largest |value|, the worst row of a case.  A sound bf16
@@ -305,7 +312,7 @@ FLASH_KERNELS = ("flash_kernel", "flash_fp32_kernel")
 #: rows of one q tile of the flash kernels by dtype (kBM and f32::kBM,
 #: kernels/csrc/flash_attention.cu): the grid is (heads, batch,
 #: ceil(Sq / kBM))
-FLASH_TILE_Q = {torch.bfloat16: 128, torch.float32: 64}
+FLASH_TILE_Q = {torch.bfloat16: 128, torch.float32: 128}
 
 PAGE = 16
 NUM_BLOCKS = 1024
@@ -354,11 +361,25 @@ def row_rel_err(got, want):
     return err / want.float().abs().amax(-1).clamp_min(1e-30)
 
 
+def ops_route(flops, dtype):
+    """The least time of ``flops`` products in ``dtype`` on the card, in
+    seconds, and the route that takes it.  fp32: the faster of fp32 FMAs
+    (67 TFLOP/s) and 3xTF32 on the tensor cores (495 / 3 = 165 TFLOP/s),
+    since a kernel may take either and keep fp32's accuracy (the fp32
+    flash kernel takes 3xTF32)."""
+    if dtype == torch.float32:
+        return min((flops / PEAK_FLOPS_S[dtype], "fp32 FMAs"),
+                   (TF32_SPLIT_PRODUCTS * flops / PEAK_TF32_S,
+                    "3xTF32 tensor cores"))
+    return flops / PEAK_FLOPS_S[dtype], f"{dtype} tensor cores"
+
+
 def bound(nbytes, flops, dtype):
+    """(bound ms, "bytes" or "operations", the operations' route)."""
     t_bytes = nbytes / PEAK_BYTES_S
-    t_ops = flops / PEAK_FLOPS_S[dtype]
+    t_ops, route = ops_route(flops, dtype)
     return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+            "bytes" if t_bytes >= t_ops else "operations", route)
 
 
 def esize(dtype):
@@ -407,7 +428,7 @@ def paged_case(name, *, batch, hq, hkv, dtype, d=128, seed=0):
     nbytes = (2 * touched * hkv * d + 2 * batch * hq * d) * esize(dtype) \
         + tables.nbytes + lens.nbytes
     flops = 4 * int(lens.sum()) * hq * d
-    bound_ms, bound_by = bound(nbytes, flops, dtype)
+    bound_ms, bound_by, bound_route = bound(nbytes, flops, dtype)
     grid, split = paged_ops.grid(q, kp, t)
     # blocks whose split starts below the length (at least one a row and
     # chunk of q heads)
@@ -435,7 +456,8 @@ def paged_case(name, *, batch, hq, hkv, dtype, d=128, seed=0):
            "grid": grid, "active_blocks": active, "split_len": split,
            "plain_ms": time_ms(
                lambda: paged_ops.paged_attention_ref(q, kp, vp, t, ln), 10),
-           "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": None,
+           "bound_ms": bound_ms, "bound_by": bound_by,
+           "bound_route": bound_route, "library_ms": None,
            "bound_share": bound_ms / kernel_ms, "bytes": nbytes,
            "read_ms": read_ms}
     phase("paged_attention", **rec)
@@ -466,7 +488,7 @@ def flash_case(name, *, sq, skv, h, hkv, causal, dtype, d=128, softcap=0.0,
     pairs = sum(min(i + 1, skv) for i in range(sq)) if causal else sq * skv
     flops = 4 * h * d * pairs
     nbytes = (2 * sq * h * d + 2 * skv * hkv * d) * esize(dtype)
-    bound_ms, bound_by = bound(nbytes, flops, dtype)
+    bound_ms, bound_by, bound_route = bound(nbytes, flops, dtype)
 
     def call():
         flash_ops.flash_attention(q, k, v, **kw)
@@ -496,7 +518,7 @@ def flash_case(name, *, sq, skv, h, hkv, causal, dtype, d=128, softcap=0.0,
            "plain_ms": time_ms(
                lambda: flash_ops.flash_attention_ref(q, k, v, **kw), 5),
            "bound_ms": bound_ms, "bound_by": bound_by,
-           "library_ms": library_ms,
+           "bound_route": bound_route, "library_ms": library_ms,
            # the least flops (attended pairs only) over the kernel's time
            "tflops_s": flops / kernel_ms / 1e9,
            "bound_share": bound_ms / kernel_ms}
@@ -1627,7 +1649,7 @@ def ssd_case(name, b, s, h, p, g, n, chunk, **kw):
     nbytes = (2 * xbar.numel() + dA_log.numel() + fs.numel()
               * (2 if state0 is not None else 1)) * 4 \
         + 2 * b * s * g * n * esize(Bm.dtype)
-    bound_ms, bound_by = bound(nbytes, least, torch.float32)
+    bound_ms, bound_by, bound_route = bound(nbytes, least, torch.float32)
     # the plain version on the card: the chunked formula in fp32, on
     # inputs made contiguous as it would need them
     xc, dc, bc, cc = (t.contiguous() for t in (xbar, dA_log, Bm.float(),
@@ -1657,6 +1679,7 @@ def ssd_case(name, b, s, h, p, g, n, chunk, **kw):
            "kernel_ms": kernel_ms, "call_ms": call_ms,
            "phases": kernel_profile(scan, 20, SSD_KERNELS, "ssd_scan"),
            "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+           "bound_route": bound_route,
            "tflops_least": least / kernel_ms / 1e9,
            "bound_share": bound_ms / kernel_ms,
            "flops_least": least, "flops_pallas_count": pallas,
@@ -2292,10 +2315,10 @@ def ptxas_entries(lib):
 
 
 def flash_resources():
-    """Per (dtype, head_dim) instance of the flash kernels (bf16: and the
-    tile width it runs in, 64 up to head_dim 64 and 128 above; fp32: its
-    64-row tiles): ``ptxas_entries`` and the dynamic shared memory a
-    block takes."""
+    """Per (dtype, head_dim) instance of the flash kernels and the width
+    of its P·V product (bf16: the tile width it runs in; fp32: the rows of
+    its Vᵀ tiles; both 64 up to head_dim 64 and 128 above):
+    ``ptxas_entries`` and the dynamic shared memory a block takes."""
     lib = build.load("flash_attention")
     lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int] * 2
     out = []
@@ -2306,8 +2329,8 @@ def flash_resources():
         if bf16:
             dtype, code, (tile, d) = "bfloat16", 1, map(int, bf16.groups())
         elif fp32:
-            dtype, code = "float32", 0
-            tile = d = int(fp32.group(1))
+            dtype, code, d = "float32", 0, int(fp32.group(1))
+            tile = 64 if d <= 64 else 128
         else:
             continue
         out.append({"dtype": dtype, "head_dim": d, "tile_d": tile, **e,
@@ -3217,6 +3240,7 @@ def main():
                         "plain_ms": rec["plain_ms"],
                         "bound_ms": rec["bound_ms"],
                         "bound_by": rec["bound_by"],
+                        "bound_route": rec["bound_route"],
                         "library_ms": rec["library_ms"]})
     phase("total", seconds=time.perf_counter() - T0)
     print(json.dumps({"kernels": kernels}), flush=True)

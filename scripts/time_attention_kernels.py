@@ -8,7 +8,8 @@ Imports ``chip_smoke.py`` of the checkout at ``--root`` (default: this
 one; the script puts that checkout's ``src`` first on the path) and runs
 its ``paged_case`` at llama2-7b's decode (B 8, 32/32 heads, head_dim
 128, bf16) and qwen3-14b's (40/8), and its ``flash_case`` at a causal
-1024-token bf16 prefill (32/32, head_dim 128), ``ROUNDS`` times each.
+1024-token prefill (32/32, head_dim 128) in bf16 and in fp32, ``ROUNDS``
+times each.
 Each case prints its own phase line; the last line is one JSON object:
 the card, each case's kernel ms (CUDA events, the card's queue filled
 ahead) by round and their median, and the registers and spills
@@ -52,6 +53,9 @@ def main(argv=None):
         "flash causal S=1024": lambda: smoke.flash_case(
             "causal S=1024", sq=1024, skv=1024, h=32, hkv=32, causal=True,
             dtype=bf16),
+        "flash fp32 causal S=1024": lambda: smoke.flash_case(
+            "fp32 llama2-7b causal S=1024", sq=1024, skv=1024, h=32, hkv=32,
+            causal=True, dtype=torch.float32, seed=10),
     }
     times = {name: [] for name in cases}
     with torch.no_grad():

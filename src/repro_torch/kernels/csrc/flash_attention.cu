@@ -18,9 +18,10 @@
 //   past D with zeros, which change neither Q·K^T (its 16-column steps
 //   past D are skipped) nor the D live columns of P·V; the epilogue
 //   stores those D at a row stride of D.
-// - fp32: flash_fp32_kernel further down, plain fp32 FMAs on the CUDA
-//   cores (wgmma's TF32 rounds its inputs to 10 mantissa bits, too
-//   coarse for the reference's fp32 tolerance of 2e-5).
+// - fp32: flash_fp32_kernel further down, 3xTF32 wgmma: each operand
+//   split into two TF32 values and each product taken as three TF32
+//   products (one alone rounds its inputs to 10 mantissa bits, too coarse
+//   for the reference's fp32 tolerance of 2e-5); TMA + wgmma as in bf16.
 //
 // What bounds the bf16 kernel on this card: at the serving path's
 // prefill shapes (B 1, Sq = Skv = 64 ... 2048, H 32, D 128, causal) the
@@ -506,22 +507,25 @@ EncodeTiled encode_tiled() {
   return fn;
 }
 
-// A 4-D map over (d, heads, s, batch) of a (batch, s, heads, d) bf16
-// tensor, read in boxes of 64 columns x 128 rows of one head with the
-// 128-byte swizzle; rows past s read as zeros.
+// A 4-D map over (d, heads, s, batch) of a (batch, s, heads, d) tensor of
+// esize-byte elements, read in boxes of box_cols columns (128 bytes) x
+// box_rows rows of one head with the 128-byte swizzle; rows past s read
+// as zeros.
 bool tensor_map(CUtensorMap* map, const void* ptr, int batch, int s,
-                int heads, int d) {
+                int heads, int d, CUtensorMapDataType type, int esize,
+                int box_cols, int box_rows) {
   EncodeTiled encode = encode_tiled();
   if (encode == nullptr) return false;
   const cuuint64_t dims[4] = {(cuuint64_t)d, (cuuint64_t)heads, (cuuint64_t)s,
                               (cuuint64_t)batch};
-  const cuuint64_t strides[3] = {(cuuint64_t)d * 2, (cuuint64_t)heads * d * 2,
-                                 (cuuint64_t)s * heads * d * 2};
-  const cuuint32_t box[4] = {kBoxCols, 1, kBN, 1};
+  const cuuint64_t strides[3] = {(cuuint64_t)d * esize,
+                                 (cuuint64_t)heads * d * esize,
+                                 (cuuint64_t)s * heads * d * esize};
+  const cuuint32_t box[4] = {(cuuint32_t)box_cols, 1, (cuuint32_t)box_rows,
+                             1};
   const cuuint32_t elem[4] = {1, 1, 1, 1};
-  return encode(map, CU_TENSOR_MAP_DATA_TYPE_BFLOAT16, 4,
-                const_cast<void*>(ptr), dims, strides, box, elem,
-                CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+  return encode(map, type, 4, const_cast<void*>(ptr), dims, strides, box,
+                elem, CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
                 CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
@@ -532,10 +536,11 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch,
            float softcap, cudaStream_t stream) {
   static_assert(DV % 16 == 0 && DV <= D && D - DV < kBoxCols,
                 "the last box holds the last live column");
+  constexpr CUtensorMapDataType kBf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
   CUtensorMap tq, tk, tv;
-  if (!tensor_map(&tq, q, batch, sq, h, DV) ||
-      !tensor_map(&tk, k, batch, skv, hkv, DV) ||
-      !tensor_map(&tv, v, batch, skv, hkv, DV))
+  if (!tensor_map(&tq, q, batch, sq, h, DV, kBf16, 2, kBoxCols, kBM) ||
+      !tensor_map(&tk, k, batch, skv, hkv, DV, kBf16, 2, kBoxCols, kBN) ||
+      !tensor_map(&tv, v, batch, skv, hkv, DV, kBf16, 2, kBoxCols, kBN))
     return -2;
   constexpr int smem = Smem<D>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
@@ -549,245 +554,526 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch,
 }
 
 // ---------------------------------------------------------------------------
-// fp32: plain FMAs on the CUDA cores.
+// fp32: 3xTF32 on the tensor cores.
 //
-// What bounds it: the fp32 arithmetic, 4·D flops per attended (q,k) pair
-// over 67 TFLOP/s (at causal S 1024, H 32, D 128: 8.6e9 flops, 0.128 ms),
-// far above the bytes' time.  The design is a simple one that is right:
-// - One block of 256 threads per (64-row q tile, head, batch), longest
-//   rows first as above.  Q's tile is copied once into shared memory, and
-//   K and V in tiles of 64 rows into a 2-stage ring, with 16-byte
-//   cp.async (rows past Sq or Skv zero-filled without a read), the next
-//   tile's copy in flight while one computes.  Shared rows are D + 4
-//   floats apart, so the 16-byte reads of 8 neighbouring rows fall in
-//   different banks.
-// - Thread (ty, tx) of a 16 x 16 grid owns q rows 4ty .. 4ty+3.  S: it
-//   computes keys tx + 16j (j < 4) of those rows, four 16-byte reads of Q
-//   and four of K for 64 FMAs a 4-column step.  The online softmax runs
-//   in registers (a row's max and the P rows reduced over the 16 lanes
-//   of a half-warp by xor shuffles), in the natural base with expf.  P
-//   goes to shared memory, read back only by the half-warp that wrote
-//   it.  O: the thread owns columns tx + 16j (j < D/16) of its 4 rows,
-//   the running sum rescaled in registers; row l is summed over the
-//   lanes at the end.
-// - Tiles wholly above the diagonal are never loaded; the mask is
-//   applied only on tiles that cross the diagonal or the Skv edge.
-// Left for later: register tiles of more rows and keys a thread (fewer
-// shared reads a FMA), 3xTF32 wgmma, more blocks an SM at D 128.
+// Every fp32 operand x is split into two TF32 values, hi = tf32(x) and
+// lo = tf32(x - hi) (cvt.rna: to nearest, ties away from zero), which
+// together keep about 21 of its 24 mantissa bits, and each product a·b is
+// taken as hi_a·lo_b + lo_a·hi_b + hi_a·hi_b, the two small terms first,
+// on TF32 wgmma (m64nNk8) summed in fp32.  One TF32 product alone rounds
+// each input to 10 bits and misses the reference's fp32 tolerance of 2e-5
+// (tests/test_torch_flash_attention.py models both on the CPU).
+//
+// What bounds it: the products, 4·D flops per attended (q,k) pair, three
+// TF32 products each, over 495 TFLOP/s (at causal S 1024, H 32, D 128:
+// 3 x 8.6e9 flops, 0.052 ms), above the bytes' time (0.020 ms) and below
+// the same flops as fp32 FMAs (0.128 ms at 67 TFLOP/s).
+//
+// The design (TMA and wgmma as in the bf16 kernel; no producer warps):
+// - One block of two warpgroups (256 threads) per (128-row q tile, head,
+//   batch), the longest rows first.  Thread 0 issues the TMA loads: Q
+//   once, and K and V one raw tile of 32 keys at a time, through 4-D maps
+//   over (D, H, S, B) in boxes of 32 fp32 columns (128 bytes) with the
+//   128-byte swizzle; rows past S arrive as zeros.
+// - TF32 wgmma reads A and B only K-major.  Q (A of S = Q·K^T) and K (B)
+//   are K-major as stored.  V (B of O += P·V) is not, so each V tile is
+//   written transposed: a row of Vᵀ, 32 keys of one column, is one
+//   128-byte swizzle row.
+// - Every thread splits its share of each landed raw tile into a 2-stage
+//   ring: K into hi and lo in its own swizzled layout, V into Vᵀ hi and
+//   lo.  Tile t + 1 is split while tile t's P·V runs on the tensor cores;
+//   the block's barrier after it publishes the stage and frees the raw
+//   tile for the load of t + 2, which lands while tile t + 1 computes.
+// - Within each group of 8 keys Vᵀ holds the keys in the order 0 2 4 6 1
+//   3 5 7: a thread's S accumulator holds keys 2t and 2t+1 of a group
+//   where TF32's A fragment takes k = t and t + 4 (a0 (g, t), a1 (g+8,
+//   t), a2 (g, t+4), a3 (g+8, t+4), as a probe on the card read it), so
+//   in that order P feeds wgmma from the registers it was computed in,
+//   with no shuffle and no round trip through shared memory.
+// - Each warpgroup owns 64 q rows.  Q stays as it landed: the tensor core
+//   reads its fp32 bits truncated to TF32 (the same probe), and those
+//   serve as Q's hi; its lo, x - trunc(x) rounded to TF32, is taken into
+//   registers once, as A of Q_lo·K_hi.  S is m64n32k8 products; the
+//   online softmax runs in registers as in the bf16 kernel (exp2, log2 e
+//   folded into the scale); P is split in registers and O += P·V is
+//   m64n64k8 or m64n128k8, O in registers for the whole sweep.  Tiles
+//   wholly above a warpgroup's diagonal are not computed, those above the
+//   block's never loaded; the mask is applied only on tiles that cross
+//   the diagonal or the Skv edge.
+// - Shared memory at D 128: Q 64 KB, the ring of K hi/lo and Vᵀ hi/lo 128
+//   KB, one raw K/V tile 32 KB: 224 KB, one block an SM.  Head dims up to
+//   64 run P·V 64 columns wide, wider ones 128: the rows of Vᵀ past D are
+//   never written, and the O columns they feed never stored.
+// - Registers: O, Q's lo and P's fragments take 160 at D 128, which eight
+//   warps leave room for (up to 255 a thread; ptxas: 223, no spills).
+//   With a third, splitting warpgroup a thread has 168 (each of the SM's
+//   four 16,384-register files then holds three warps): the kernel
+//   spilled or had to reload Q's lo every tile, and moving registers to
+//   the other warpgroups with setmaxnreg (96 / 208) failed its launch on
+//   the card (PERF.md, PR 30).
+// Left for later: the two warpgroups run in step (one barrier a tile), so
+// the tensor cores idle while both take their softmax; the SS products of
+// S read Q's 2 KB k-step from shared memory twice; Vᵀ's writes and the raw
+// tile's reads conflict 2-way in the banks.
 namespace f32 {
 
-constexpr int kBM = 64;           // q rows per block
-constexpr int kBN = 64;           // kv rows per tile
-constexpr int kThreads = 256;     // 16 row groups of 16 lanes
-constexpr int kRows = 4;          // q rows a thread owns
-constexpr int kKeys = kBN / 16;   // keys of a tile a thread owns
+constexpr int kBM = 128;          // q rows per block, 64 per warpgroup
+constexpr int kBN = 32;           // keys per tile: one 128-byte row of Vᵀ
+constexpr int kStages = 2;        // depth of the split K/Vᵀ ring
+constexpr int kThreads = 256;     // two warpgroups
+constexpr int kBoxCols = 32;      // fp32 columns of a TMA box: 128 bytes
 
+// Dynamic shared memory, byte offsets from a 1024-byte aligned base.
 template <int D>
 struct Smem {
-  static constexpr int LD = D + 4;        // floats between shared rows
-  static constexpr int LDP = kBN + 4;     // floats between rows of P
-  static constexpr int Q = 0;             // offsets in floats
-  static constexpr int K = Q + kBM * LD;
-  static constexpr int V = K + 2 * kBN * LD;
-  static constexpr int P = V + 2 * kBN * LD;
-  static constexpr int BYTES = (P + kBM * LDP) * 4;
+  static constexpr int BOXES = (D + kBoxCols - 1) / kBoxCols;
+  static constexpr int PV = D <= 64 ? 64 : 128;   // columns of O and rows of Vᵀ
+  static constexpr int QBOX = kBM * 128;          // one box of the q tile
+  static constexpr int KBOX = kBN * 128;          // one box of a K or V tile
+  static constexpr int KT = BOXES * KBOX;         // a K tile (or a raw V tile)
+  static constexpr int VT = PV * 128;             // a Vᵀ tile
+  static constexpr int Q = 0;                     // the q tile, as landed
+  static constexpr int RING = Q + BOXES * QBOX;   // K hi, K lo, Vᵀ hi, Vᵀ lo
+  static constexpr int STAGE = 2 * KT + 2 * VT;
+  static constexpr int RAW = RING + kStages * STAGE;   // raw K, raw V
+  static constexpr int BAR = RAW + 2 * KT;        // q, raw
+  static constexpr int BYTES = BAR + 16 + 1024;
 };
 
-__device__ __forceinline__ void cp_async16(float* dst, const float* src,
-                                           bool live) {
-  const uint32_t d = smem_addr(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n"
-               ::"r"(d), "l"(src), "r"(live ? 16 : 0) : "memory");
+// x as hi + lo, two TF32 values in fp32 bit patterns (cvt.rna leaves the
+// 13 low bits zero).
+__device__ __forceinline__ void split(float x, uint32_t& hi, uint32_t& lo) {
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(hi) : "f"(x));
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo) : "f"(x - __uint_as_float(hi)));
 }
 
-__device__ __forceinline__ void cp_async_commit() {
-  asm volatile("cp.async.commit_group;\n" ::: "memory");
+// Shared-memory loads and stores at shared addresses.
+__device__ __forceinline__ float lds(uint32_t a) {
+  float v;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(v) : "r"(a) : "memory");
+  return v;
 }
 
-template <int N>
-__device__ __forceinline__ void cp_async_wait() {
-  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+__device__ __forceinline__ float4 lds4(uint32_t a) {
+  float4 v;
+  asm volatile("ld.shared.v4.f32 {%0, %1, %2, %3}, [%4];\n"
+               : "=f"(v.x), "=f"(v.y), "=f"(v.z), "=f"(v.w)
+               : "r"(a)
+               : "memory");
+  return v;
 }
 
-// Rows [s0, s0 + ROWS) of head hx of a (B, S, heads, D) tensor into a
-// shared tile of rows LD floats apart; rows at or past S are zeros.
-template <int D, int ROWS>
-__device__ __forceinline__ void load_rows(float* dst, const float* src,
-                                          int b, int s0, int s, int heads,
-                                          int hx) {
-  constexpr int CH = D / 4;               // 16-byte pieces a row
-  static_assert(ROWS * CH % kThreads == 0, "whole passes of the block");
-#pragma unroll
-  for (int n = 0; n < ROWS * CH / kThreads; ++n) {
-    const int i = threadIdx.x + n * kThreads;
-    const int r = i / CH;
-    const int c = i % CH;
-    const int pos = s0 + r;
-    const bool live = pos < s;
-    cp_async16(dst + r * Smem<D>::LD + 4 * c,
-               src + (((size_t)b * s + (live ? pos : 0)) * heads + hx) * D +
-                   4 * c,
-               live);
-  }
+__device__ __forceinline__ void sts4(uint32_t a, const uint4& v) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %2, %3, %4};\n" ::"r"(a),
+               "r"(v.x), "r"(v.y), "r"(v.z), "r"(v.w)
+               : "memory");
+}
+
+// x, in a way the compiler cannot see through: shared addresses derived
+// from it inside a loop are computed there, not kept in registers across
+// the loop (the tile loops would otherwise hold dozens of them).
+__device__ __forceinline__ uint32_t opaque(uint32_t x) {
+  asm volatile("" : "+r"(x));
+  return x;
+}
+
+// Component i of v (i a constant once unrolled).
+__device__ __forceinline__ float component(const float4& v, int i) {
+  return i == 0 ? v.x : i == 1 ? v.y : i == 2 ? v.z : v.w;
+}
+
+// Generic-proxy writes to shared memory made visible to wgmma's reads.
+__device__ __forceinline__ void fence_async_shared() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// S (64 x 32) (+)= A (64 x 8, smem) * B (32 x 8, smem)^T in TF32, both
+// K-major with the 128-byte swizzle; scale_d 0 overwrites S.
+__device__ __forceinline__ void wgmma_tf32_ss_n32(float (&d)[16], uint64_t da,
+                                                  uint64_t db, int scale_d) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %18, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "%16, %17, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "l"(da), "l"(db), "r"(scale_d)
+      : "memory");
+}
+
+// S (64 x 32) += A (64 x 8, TF32 registers) * B (32 x 8, smem)^T.
+__device__ __forceinline__ void wgmma_tf32_rs_n32(float (&d)[16],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %21, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n32k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15}, "
+      "{%16, %17, %18, %19}, %20, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)
+      : "memory");
+}
+
+// O (64 x 64) += A (64 x 8, TF32 registers) * B (64 x 8, smem)^T.
+__device__ __forceinline__ void wgmma_tf32_rs_n64(float (&d)[32],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n64k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "
+      "{%32, %33, %34, %35}, %36, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)
+      : "memory");
+}
+
+// O (64 x 128) += A (64 x 8, TF32 registers) * B (128 x 8, smem)^T.
+__device__ __forceinline__ void wgmma_tf32_rs_n128(float (&d)[64],
+                                                   const uint32_t (&a)[4],
+                                                   uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"
+      " %8, %9, %10, %11, %12, %13, %14, %15,"
+      " %16, %17, %18, %19, %20, %21, %22, %23,"
+      " %24, %25, %26, %27, %28, %29, %30, %31,"
+      " %32, %33, %34, %35, %36, %37, %38, %39,"
+      " %40, %41, %42, %43, %44, %45, %46, %47,"
+      " %48, %49, %50, %51, %52, %53, %54, %55,"
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "
+      "{%64, %65, %66, %67}, %68, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)
+      : "memory");
+}
+
+// O += P·V for one 8-key step of the tile: a P fragment, one Vᵀ k-step.
+template <int PV>
+__device__ __forceinline__ void pv_tf32(float (&o)[PV / 2],
+                                        const uint32_t (&p)[4], uint32_t vt) {
+  if constexpr (PV == 128)
+    wgmma_tf32_rs_n128(o, p, sw128_desc(vt, 16, 1024));
+  else
+    wgmma_tf32_rs_n64(o, p, sw128_desc(vt, 16, 1024));
+}
+
+// Key tiles that a q row up to qlast attends: all of Skv, or causally up
+// to its diagonal.
+__device__ __forceinline__ int key_tiles(int qlast, int skv, int causal) {
+  int n = (skv + kBN - 1) / kBN;
+  if (causal) n = min(n, qlast / kBN + 1);
+  return n;
 }
 
 template <int D>
 __global__ void __launch_bounds__(kThreads, 1)
-flash_fp32_kernel(const float* __restrict__ q, const float* __restrict__ k,
-                  const float* __restrict__ v, float* __restrict__ out,
-                  int sq, int skv, int h, int hkv, int causal, float scale,
-                  float softcap) {
+flash_fp32_kernel(const __grid_constant__ CUtensorMap tq,
+                  const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv,
+                  float* __restrict__ out, int sq, int skv, int h, int hkv,
+                  int causal, float scale, float softcap) {
   using L = Smem<D>;
-  constexpr int kCols = D / 16;           // O columns a thread owns
-  extern __shared__ __align__(16) float smem_f32[];
-  float* qs = smem_f32 + L::Q;
-  float* ps = smem_f32 + L::P;
+  constexpr int PV = L::PV;
+  extern __shared__ __align__(1024) unsigned char smem_f32[];
+  const uint32_t base = (smem_addr(smem_f32) + 1023u) & ~1023u;
+  const uint32_t q_full = base + L::BAR;
+  const uint32_t raw_full = q_full + 8;
 
   const int head = blockIdx.x;
   const int b = blockIdx.y;
   const int q0 = (gridDim.z - 1 - blockIdx.z) * kBM;   // longest rows first
   const int kvh = head / (h / hkv);
-  int n_tiles = (skv + kBN - 1) / kBN;
-  if (causal) n_tiles = min(n_tiles, (q0 + kBM - 1) / kBN + 1);
-  const int ty = threadIdx.x / 16;
-  const int tx = threadIdx.x % 16;
-  const int r0 = kRows * ty;              // first q row, in the tile
+  const int n_tiles = key_tiles(q0 + kBM - 1, skv, causal);
+  const auto load_raw = [&](int t) {
+    mbar_expect_tx(raw_full, 2 * L::KT);
+    for (int x = 0; x < L::BOXES; ++x) {
+      tma_load(base + L::RAW + x * L::KBOX, &tk, raw_full, x * kBoxCols, kvh,
+               t * kBN, b);
+      tma_load(base + L::RAW + L::KT + x * L::KBOX, &tv, raw_full,
+               x * kBoxCols, kvh, t * kBN, b);
+    }
+  };
 
-  load_rows<D, kBM>(qs, q, b, q0, sq, h, head);
-  load_rows<D, kBN>(smem_f32 + L::K, k, b, 0, skv, hkv, kvh);
-  load_rows<D, kBN>(smem_f32 + L::V, v, b, 0, skv, hkv, kvh);
-  cp_async_commit();
-
-  float o[kRows][kCols];
-  float m[kRows], l[kRows];
-#pragma unroll
-  for (int i = 0; i < kRows; ++i) {
-    m[i] = -INFINITY;
-    l[i] = 0.f;
-#pragma unroll
-    for (int j = 0; j < kCols; ++j) o[i][j] = 0.f;
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(raw_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect_tx(q_full, L::BOXES * L::QBOX);
+    for (int x = 0; x < L::BOXES; ++x)
+      tma_load(base + L::Q + x * L::QBOX, &tq, q_full, x * kBoxCols, head, q0,
+               b);
+    load_raw(0);
   }
+  __syncthreads();
 
-  for (int t = 0; t < n_tiles; ++t) {
-    const int stage = t % 2;
-    const int kv0 = t * kBN;
-    if (t + 1 < n_tiles) {
-      const int next = (t + 1) % 2;
-      load_rows<D, kBN>(smem_f32 + L::K + next * kBN * L::LD, k, b,
-                        kv0 + kBN, skv, hkv, kvh);
-      load_rows<D, kBN>(smem_f32 + L::V + next * kBN * L::LD, v, b,
-                        kv0 + kBN, skv, hkv, kvh);
-      cp_async_commit();
-      cp_async_wait<1>();                 // tile t has landed
-    } else {
-      cp_async_wait<0>();
+  // Splits raw tile t (landed) into its stage of the ring, this thread's
+  // share of it; the block's barrier after it makes the stage whole.
+  const auto split_tile = [&](int t) {
+    const uint32_t tb = opaque(base);
+    const uint32_t ring = tb + L::RING + (t % kStages) * L::STAGE;
+    const uint32_t raw = tb + L::RAW;
+    mbar_wait(raw_full, t & 1);
+    // K: hi and lo at the offsets the raw tile has, 16 bytes a step.
+    constexpr int kSteps = L::KT / 16 / kThreads;
+    float4 x[kSteps];
+#pragma unroll
+    for (int n = 0; n < kSteps; ++n)
+      x[n] = lds4(raw + 16 * (threadIdx.x + kThreads * n));
+#pragma unroll
+    for (int n = 0; n < kSteps; ++n) {
+      const uint32_t c = 16 * (threadIdx.x + kThreads * n);
+      uint4 hi, lo;
+      split(x[n].x, hi.x, lo.x);
+      split(x[n].y, hi.y, lo.y);
+      split(x[n].z, hi.z, lo.z);
+      split(x[n].w, hi.w, lo.w);
+      sts4(ring + c, hi);
+      sts4(ring + L::KT + c, lo);
     }
-    __syncthreads();
-    const float* ks = smem_f32 + L::K + stage * kBN * L::LD;
-    const float* vs = smem_f32 + L::V + stage * kBN * L::LD;
-
-    // S = Q K^T for rows r0 + i, keys kv0 + tx + 16 j
-    float s[kRows][kKeys];
+    // Vᵀ: item (dq, grp, half) reads keys 8 grp + half + 2m (m < 4) of
+    // columns 4 dq .. 4 dq + 3 and writes them as positions 4 half ..
+    // 4 half + 3 of key group grp in those four rows of Vᵀ.
 #pragma unroll
-    for (int i = 0; i < kRows; ++i)
+    for (int n = 0; n < (2 * D + kThreads - 1) / kThreads; ++n) {
+      const int it = threadIdx.x + kThreads * n;
+      if (it >= 2 * D) break;
+      const int half = it & 1;
+      const int grp = (it >> 1) & 3;
+      const int dq = it >> 3;
+      float4 v[4];
 #pragma unroll
-      for (int j = 0; j < kKeys; ++j) s[i][j] = 0.f;
-#pragma unroll 4
-    for (int d = 0; d < D; d += 4) {
-      float4 qv[kRows], kv[kKeys];
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-        qv[i] = *reinterpret_cast<const float4*>(qs + (r0 + i) * L::LD + d);
-#pragma unroll
-      for (int j = 0; j < kKeys; ++j)
-        kv[j] = *reinterpret_cast<const float4*>(ks + (tx + 16 * j) * L::LD +
-                                                 d);
-#pragma unroll
-      for (int i = 0; i < kRows; ++i)
-#pragma unroll
-        for (int j = 0; j < kKeys; ++j) {
-          float x = s[i][j];
-          x = fmaf(qv[i].x, kv[j].x, x);
-          x = fmaf(qv[i].y, kv[j].y, x);
-          x = fmaf(qv[i].z, kv[j].z, x);
-          x = fmaf(qv[i].w, kv[j].w, x);
-          s[i][j] = x;
-        }
-    }
-
-    // Online softmax: scale, softcap, mask; a row's max and sum over the
-    // 16 lanes of its half-warp.
-    const bool edge = (causal && kv0 + kBN - 1 > q0) || kv0 + kBN > skv;
-#pragma unroll
-    for (int i = 0; i < kRows; ++i) {
-      const int qpos = q0 + r0 + i;
-      float mx = -INFINITY;
-#pragma unroll
-      for (int j = 0; j < kKeys; ++j) {
-        float x = s[i][j] * scale;
-        if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
-        if (edge) {
-          const int kpos = kv0 + tx + 16 * j;
-          if (kpos >= skv || (causal && kpos > qpos)) x = -INFINITY;
-        }
-        s[i][j] = x;
-        mx = fmaxf(mx, x);
+      for (int m = 0; m < 4; ++m) {
+        const int key = 8 * grp + half + 2 * m;
+        v[m] = lds4(raw + L::KT + (dq / 8) * L::KBOX + key * 128 +
+                    (((dq % 8) ^ (key % 8)) << 4));
       }
 #pragma unroll
-      for (int off = 8; off > 0; off >>= 1)
-        mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, off));
-      const float m_new = fmaxf(m[i], mx);
-      const float mu = m_new == -INFINITY ? 0.f : m_new;  // no key yet
-      const float alpha = expf(m[i] - mu);
+      for (int i = 0; i < 4; ++i) {
+        const int d = 4 * dq + i;
+        const uint32_t off =
+            ring + 2 * L::KT + d * 128 + (((2 * grp + half) ^ (d % 8)) << 4);
+        uint4 hi, lo;
+        split(component(v[0], i), hi.x, lo.x);
+        split(component(v[1], i), hi.y, lo.y);
+        split(component(v[2], i), hi.z, lo.z);
+        split(component(v[3], i), hi.w, lo.w);
+        sts4(off, hi);
+        sts4(off + L::VT, lo);
+      }
+    }
+  };
+  // The split stage made visible to wgmma, and the raw tile read by
+  // every thread: the load of raw tile `next` goes out.
+  const auto tiles_split = [&](int next) {
+    fence_async_shared();
+    __syncthreads();
+    if (threadIdx.x == 0 && next < n_tiles) load_raw(next);
+  };
+
+  // Warpgroup wg owns rows [r_wg, r_wg + 64) of the q tile; a thread holds
+  // rows row0 and row0 + 8, and in each 8-column block of a product the
+  // columns cq and cq + 1.
+  const int wg = threadIdx.x / 128;
+  const int warp = threadIdx.x % 128 / 32;
+  const int lane = threadIdx.x % 32;
+  const int r_wg = wg * 64;
+  const int row0 = r_wg + warp * 16 + lane / 4;
+  const int quad = lane % 4;
+  const int cq = 2 * quad;
+  const float sl = (softcap > 0.f ? 1.f : scale) * kLog2e;
+  const int n_own = key_tiles(q0 + r_wg + 63, skv, causal);
+
+  split_tile(0);
+  tiles_split(1);
+
+  // Q stays as TMA landed it: its hi is its fp32 bits, which the tensor
+  // core reads truncated to TF32; its lo, x - trunc(x) rounded to TF32,
+  // goes into the A fragments of Q_lo·K_hi (k-step kk: rows row0 / row0 +
+  // 8, columns 8 kk + quad and 8 kk + quad + 4) once for the sweep.
+  mbar_wait(q_full, 0);
+  uint32_t q_lo[D / 8][4];
+#pragma unroll
+  for (int kk = 0; kk < D / 8; ++kk) {
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = row0 + 8 * (r & 1);
+      const int chunk = 2 * (kk % 4) + (r >> 1);
+      const float x = lds(base + L::Q + (kk / 4) * L::QBOX + row * 128 +
+                          ((chunk ^ (row % 8)) << 4) + 4 * quad);
+      asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(q_lo[kk][r])
+          : "f"(x - __uint_as_float(__float_as_uint(x) & 0xffffe000u)));
+    }
+  }
+
+  float o[PV / 2];
+#pragma unroll
+  for (int i = 0; i < PV / 2; ++i) o[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+
+  for (int t = 0; t < n_tiles; ++t) {
+    if (t >= n_own) {                 // wholly above this warpgroup's rows
+      if (t + 1 < n_tiles) split_tile(t + 1);
+      tiles_split(t + 2);
+      continue;
+    }
+    const int stage = t % kStages;
+    const int kv0 = t * kBN;
+    const uint32_t tb = opaque(base);
+    const uint32_t q_tile = tb + L::Q + r_wg * 128;   // 128 bytes a row
+    const uint32_t k_hi = tb + L::RING + stage * L::STAGE;
+    const uint32_t k_lo = k_hi + L::KT;
+    const uint32_t vt_hi = tb + L::RING + stage * L::STAGE + 2 * L::KT;
+    const uint32_t vt_lo = vt_hi + L::VT;
+
+    // S = Q K^T, the small products (Q_hi·K_lo, Q_lo·K_hi) first, then
+    // the big ones (Q_hi·K_hi); a k-step of 8 columns moves 32 bytes
+    // inside a box, every fourth step to the next box.
+    float s[kBN / 2];
+#pragma unroll
+    for (int i = 0; i < kBN / 2; ++i) s[i] = 0.f;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const uint32_t qa = q_tile + (kk / 4) * L::QBOX + (kk % 4) * 32;
+      const uint32_t kb = (kk / 4) * L::KBOX + (kk % 4) * 32;
+      wgmma_tf32_ss_n32(s, sw128_desc(qa, 16, 1024),
+                        sw128_desc(k_lo + kb, 16, 1024), kk > 0);
+      wgmma_tf32_rs_n32(s, q_lo[kk], sw128_desc(k_hi + kb, 16, 1024));
+    }
+#pragma unroll
+    for (int kk = 0; kk < D / 8; ++kk) {
+      const uint32_t qa = q_tile + (kk / 4) * L::QBOX + (kk % 4) * 32;
+      const uint32_t kb = (kk / 4) * L::KBOX + (kk % 4) * 32;
+      wgmma_tf32_ss_n32(s, sw128_desc(qa, 16, 1024),
+                        sw128_desc(k_hi + kb, 16, 1024), 1);
+    }
+    wgmma_commit();
+    wgmma_wait0();
+    keep(s);
+
+    // Online softmax in registers: s[4j + e] is row row0 + 8 (e / 2),
+    // key kv0 + 8 j + cq + e % 2.
+    if (softcap > 0.f) {
+#pragma unroll
+      for (int i = 0; i < kBN / 2; ++i)
+        s[i] = tanhf(s[i] * scale / softcap) * softcap;
+    }
+    const bool edge = (causal && kv0 + kBN - 1 > q0 + r_wg) || kv0 + kBN > skv;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < kBN / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[4 * j + e] * sl;
+        if (edge) {
+          const int qpos = q0 + row0 + 8 * (e / 2);
+          const int kpos = kv0 + 8 * j + cq + e % 2;
+          if (kpos >= skv || (causal && kpos > qpos)) x = -INFINITY;
+        }
+        s[4 * j + e] = x;
+        mx[e / 2] = fmaxf(mx[e / 2], x);
+      }
+    }
+    float mu[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      mu[i] = m_new == -INFINITY ? 0.f : m_new;   // a row with no key yet
+      const float alpha = exp2_approx(m[i] - mu[i]);
       m[i] = m_new;
       l[i] *= alpha;
 #pragma unroll
-      for (int j = 0; j < kCols; ++j) o[i][j] *= alpha;
-#pragma unroll
-      for (int j = 0; j < kKeys; ++j) {
-        const float p = expf(s[i][j] - mu);
-        l[i] += p;
-        ps[(r0 + i) * L::LDP + tx + 16 * j] = p;
+      for (int j = 0; j < PV / 8; ++j) {
+        o[4 * j + 2 * i] *= alpha;
+        o[4 * j + 2 * i + 1] *= alpha;
       }
     }
-    __syncwarp();                         // P rows: written by this half-warp
+    // P split into the A fragments of the 8-key steps: register r holds
+    // row row0 + 8 (r & 1) at k = quad + 4 (r >> 1), which is key 2 quad +
+    // (r >> 1) of the step in Vᵀ's key order, s[4 kk + e] with
+    // e = 2 (r & 1) + (r >> 1).
+    uint32_t p_hi[kBN / 8][4], p_lo[kBN / 8][4];
+#pragma unroll
+    for (int kk = 0; kk < kBN / 8; ++kk) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int e = 2 * (r & 1) + (r >> 1);
+        const float p = exp2_approx(s[4 * kk + e] - mu[e / 2]);
+        l[e / 2] += p;
+        split(p, p_hi[kk][r], p_lo[kk][r]);
+      }
+    }
 
-    // O += P V for rows r0 + i, columns tx + 16 j
-#pragma unroll 2
-    for (int n = 0; n < kBN; n += 4) {
-      float4 pv[kRows];
+    // O += P V, the small products first: an 8-key step moves 32 bytes
+    // along Vᵀ's rows.  The next tile is split while it runs.
+    keep(o);
+    wgmma_fence();
 #pragma unroll
-      for (int i = 0; i < kRows; ++i)
-        pv[i] = *reinterpret_cast<const float4*>(ps + (r0 + i) * L::LDP + n);
-#pragma unroll
-      for (int u = 0; u < 4; ++u) {
-#pragma unroll
-        for (int j = 0; j < kCols; ++j) {
-          const float x = vs[(n + u) * L::LD + tx + 16 * j];
-#pragma unroll
-          for (int i = 0; i < kRows; ++i) {
-            const float p = u == 0 ? pv[i].x : u == 1 ? pv[i].y
-                          : u == 2 ? pv[i].z : pv[i].w;
-            o[i][j] = fmaf(p, x, o[i][j]);
-          }
-        }
-      }
+    for (int kk = 0; kk < kBN / 8; ++kk) {
+      pv_tf32<PV>(o, p_hi[kk], vt_lo + 32 * kk);
+      pv_tf32<PV>(o, p_lo[kk], vt_hi + 32 * kk);
     }
-    __syncthreads();                      // the stage may be refilled
+#pragma unroll
+    for (int kk = 0; kk < kBN / 8; ++kk)
+      pv_tf32<PV>(o, p_hi[kk], vt_hi + 32 * kk);
+    wgmma_commit();
+    if (t + 1 < n_tiles) split_tile(t + 1);
+    wgmma_wait0();
+    keep(o);
+    tiles_split(t + 2);
   }
 
-  // Epilogue: O / l, rows past Sq not stored.
+  // Epilogue: O / l, rows past Sq and columns past D not stored.
 #pragma unroll
-  for (int i = 0; i < kRows; ++i) {
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
 #pragma unroll
-    for (int off = 8; off > 0; off >>= 1)
-      l[i] += __shfl_xor_sync(0xffffffffu, l[i], off);
-    const int qpos = q0 + r0 + i;
+  for (int i = 0; i < 2; ++i) {
+    const int qpos = q0 + row0 + 8 * i;
     if (qpos >= sq) continue;
     const float inv = 1.f / l[i];
-    float* dst = out + (((size_t)b * sq + qpos) * h + head) * D + tx;
+    float* dst = out + (((size_t)b * sq + qpos) * h + head) * D + cq;
 #pragma unroll
-    for (int j = 0; j < kCols; ++j) dst[16 * j] = o[i][j] * inv;
+    for (int j = 0; j < D / 8; ++j)
+      *reinterpret_cast<float2*>(dst + 8 * j) =
+          make_float2(o[4 * j + 2 * i] * inv, o[4 * j + 2 * i + 1] * inv);
   }
 }
 
@@ -795,6 +1081,12 @@ template <int D>
 int launch(const void* q, const void* k, const void* v, void* out, int batch,
            int sq, int skv, int h, int hkv, int causal, float scale,
            float softcap, cudaStream_t stream) {
+  constexpr CUtensorMapDataType kF32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  CUtensorMap tq, tk, tv;
+  if (!tensor_map(&tq, q, batch, sq, h, D, kF32, 4, kBoxCols, kBM) ||
+      !tensor_map(&tk, k, batch, skv, hkv, D, kF32, 4, kBoxCols, kBN) ||
+      !tensor_map(&tv, v, batch, skv, hkv, D, kF32, 4, kBoxCols, kBN))
+    return -2;
   constexpr int smem = Smem<D>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
       flash_fp32_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize,
@@ -802,9 +1094,8 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch,
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(h, batch, (sq + kBM - 1) / kBM);
   flash_fp32_kernel<D><<<grid, kThreads, smem, stream>>>(
-      static_cast<const float*>(q), static_cast<const float*>(k),
-      static_cast<const float*>(v), static_cast<float*>(out), sq, skv, h,
-      hkv, causal, scale, softcap);
+      tq, tk, tv, static_cast<float*>(out), sq, skv, h, hkv, causal, scale,
+      softcap);
   return static_cast<int>(cudaGetLastError());
 }
 

@@ -18,10 +18,11 @@ every head_dim that is a multiple of 16 from 16 to 128 (``HEAD_DIMS``),
 any GQA group and any lengths.  bf16: TMA loads into a ring of K/V
 tiles, ``wgmma`` products, the softmax in registers; head_dims up to 64
 run its 64-wide tiles and the wider ones its 128-wide tiles, the columns
-past head_dim read as zeros.  fp32: plain FMAs on the CUDA cores in
-64-row tiles, since the tensor cores' TF32 would miss the reference's
-fp32 tolerance.  The fp32 plain version serves the CPU and the
-comparisons.  ``flash_attention`` runs ``flash_attention_ref`` for CPU
+past head_dim read as zeros.  fp32: the same shape on TF32 ``wgmma``,
+each product taken as three TF32 products of the operands split into
+hi + lo (3xTF32), since one TF32 product would miss the reference's fp32
+tolerance; 128-row q tiles, 32-key K/V tiles split by a warpgroup of
+their own.  The fp32 plain version serves the CPU and the comparisons.  ``flash_attention`` runs ``flash_attention_ref`` for CPU
 tensors and the kernel for CUDA tensors; on a CUDA tensor it launches or
 raises (``TypeError`` for a dtype but bf16 and fp32, ``ValueError`` for
 another head_dim; ``RuntimeError`` where autograd would record the call,

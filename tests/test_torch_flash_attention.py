@@ -8,6 +8,13 @@ kernel's tile edges, and head_dim 80 (with test_kernels.py's
 tolerances).  Tolerances: 2e-5 in fp32, 3e-2 in bf16.  The CUDA kernel is held to the plain version on
 the card in tests/test_torch_kernels_cuda.py.
 
+The fp32 CUDA kernel takes each product as three TF32 products (3xTF32).
+A model of that arithmetic on the CPU (``cvt.rna.tf32.f32`` as integer
+bit operations, Q's hi as its bits truncated, which is what the kernel's
+tensor cores read) is held to the JAX reference on every fp32 case the
+reference holds to 2e-5, within 2e-5; with the hi·hi product alone it
+reads past 2e-5, which is why the kernel takes three.
+
 The ``blocked`` and ``blocked_causal`` routes of ``attend`` are plain
 loops over blocks in both packages; the port's are held to the
 reference's ``attend`` with the same impl and blocks of 32, on even
@@ -16,6 +23,10 @@ of the block, and ``sq != skv`` for ``blocked_causal``).  Tolerances:
 1e-5 in fp32; in bf16, each output row's largest error within 2e-2 of
 its largest |value| (one bf16 rounding of the output is 2^-8).
 """
+import functools
+import importlib.util
+import pathlib
+
 import numpy as np
 import pytest
 
@@ -257,3 +268,147 @@ def test_run_settings_block_sizes_reach_attend(monkeypatch):
     logits, _ = model_zoo.forward(model, params, {"tokens": tokens})
     assert torch.isfinite(logits).all()
     assert seen == [("blocked", 16, 8)] * cfg.num_layers
+
+
+# ---------------------------------------------------------------------------
+# A CPU model of the fp32 kernel's 3xTF32 arithmetic
+# ---------------------------------------------------------------------------
+def _tf32_rna(x):
+    """``cvt.rna.tf32.f32``: x rounded to TF32's 10 mantissa bits, to
+    nearest with ties away from zero, as fp32 (13 low bits zero)."""
+    return ((x.view(torch.int32) + 0x1000) & -0x2000).view(torch.float32)
+
+
+def _tf32_trunc(x):
+    """x's fp32 bits with the 13 low bits dropped: TF32 as the tensor
+    core reads an fp32 operand."""
+    return (x.view(torch.int32) & -0x2000).view(torch.float32)
+
+
+def _split(x, hi_of=_tf32_rna):
+    hi = hi_of(x)
+    return hi, _tf32_rna(x - hi)
+
+
+def _tf32_product(eq, a, b, products):
+    """einsum of two (hi, lo) pairs: hi·lo + lo·hi, then + hi·hi (three
+    products), or hi·hi alone (one)."""
+    big = torch.einsum(eq, a[0], b[0])
+    if products == 1:
+        return big
+    return (torch.einsum(eq, a[0], b[1]) + torch.einsum(eq, a[1], b[0])) \
+        + big
+
+
+def _attention_tf32(q, k, v, *, causal, softcap=0.0, products=3):
+    """The fp32 kernel's arithmetic on fp32 (B,S,H,D) tensors: Q's hi is
+    its bits truncated to TF32, K, V and P are split with cvt.rna; the
+    softmax is fp32 (unnormalised P, divided by its row sum at the end)."""
+    b, sq, h, d = q.shape
+    skv, hkv = k.shape[1], k.shape[2]
+    k = k.repeat_interleave(h // hkv, dim=2)
+    v = v.repeat_interleave(h // hkv, dim=2)
+    s = _tf32_product("bqhd,bkhd->bhqk", _split(q, _tf32_trunc), _split(k),
+                      products) * d ** -0.5
+    if softcap:
+        s = torch.tanh(s / softcap) * softcap
+    if causal:
+        mask = torch.arange(sq)[:, None] >= torch.arange(skv)[None, :]
+        s = torch.where(mask, s, torch.full_like(s, -torch.inf))
+    p = torch.exp(s - s.amax(-1, keepdim=True))
+    o = _tf32_product("bhqk,bkhd->bqhd", _split(p), _split(v), products)
+    return o / p.sum(-1).transpose(1, 2)[..., None]
+
+
+#: every fp32 case the reference holds to 2e-5 (tests/test_kernels.py's
+#: FLASH_CASES 0, 2, 3, 4 and test_flash_softcap), and the fp32 cases at
+#: the head_dims the kernel takes beyond them (48, 80, 96, 112):
+#: (b, sq, skv, h, hkv, d, causal, softcap, reference block)
+TF32_MODEL_CASES = [
+    *((*c[:7], 0.0, 64) for c in FLASH_CASES if c[7] == "float32"),
+    (1, 64, 64, 2, 2, 32, True, 20.0, 32),
+    *((*c[:7], 0.0, 64) for c in WIDENED_HEAD_DIM_CASES + HEAD_DIM_80_CASES
+      if c[7] == "float32"),
+]
+
+
+@functools.lru_cache(maxsize=None)
+def _tf32_model_case(case):
+    """(inputs, the JAX reference's output) of a TF32_MODEL_CASES entry,
+    the reference in interpret mode as tests/test_kernels.py runs it."""
+    b, sq, skv, h, hkv, d, causal, softcap, block = case
+    q, k, v = _inputs(b, sq, skv, h, hkv, d, seed=9)
+    want = _jax(q, k, v, "float32", causal=causal, softcap=softcap,
+                block_q=block, block_kv=block)
+    return tuple(map(torch.from_numpy, (q, k, v))), want
+
+
+def _elementwise_ratio(got, want, tol=2e-5):
+    """Largest |got - want| over atol + rtol |want| (rtol = atol = tol):
+    at most 1 passes the reference's check."""
+    return float((np.abs(got - want) / (tol + tol * np.abs(want))).max())
+
+
+@pytest.mark.parametrize("case", TF32_MODEL_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_three_tf32_products_meet_the_fp32_tolerance(case):
+    (q, k, v), want = _tf32_model_case(case)
+    assert q.shape[-1] in ops.HEAD_DIMS
+    got = _attention_tf32(q, k, v, causal=case[6], softcap=case[7])
+    np.testing.assert_allclose(got.numpy(), want, rtol=2e-5, atol=2e-5)
+
+
+def test_one_tf32_product_misses_the_fp32_tolerance():
+    """hi·hi alone rounds each input to 10 bits: past 2e-5 on a case
+    (read beside the three products' worst)."""
+    one, three = [], []
+    for case in TF32_MODEL_CASES:
+        (q, k, v), want = _tf32_model_case(case)
+        for n, out in ((1, one), (3, three)):
+            out.append(_elementwise_ratio(_attention_tf32(
+                q, k, v, causal=case[6], softcap=case[7], products=n)
+                .numpy(), want))
+    print(f"\nworst |error| over the 2e-5 allowance: three products "
+          f"{max(three):.3f}, one product {min(one):.1f}-{max(one):.1f}")
+    assert max(three) <= 1.0 < max(one), (three, one)
+
+
+def test_tf32_rounding_model():
+    """The model's cvt.rna: ties away from zero at the 13th bit, exact
+    TF32 values unchanged, and hi + lo within 2^-21 of x."""
+    x = torch.tensor([1 + 2 ** -11, -(1 + 2 ** -11), 1 + 2 ** -12, 1.5, 0.0])
+    assert _tf32_rna(x).tolist() == [1 + 2 ** -10, -(1 + 2 ** -10), 1.0, 1.5,
+                                     0.0]
+    assert _tf32_trunc(torch.tensor([1 + 2 ** -11 + 2 ** -12])).item() == 1.0
+    y = torch.from_numpy(np.random.RandomState(3).randn(4096)
+                         .astype(np.float32))
+    for hi_of in (_tf32_rna, _tf32_trunc):
+        hi, lo = _split(y, hi_of)
+        assert ((hi + lo - y).abs() <= 2 ** -21 * y.abs()).all()
+
+
+def _chip_smoke():
+    spec = importlib.util.spec_from_file_location(
+        "chip_smoke", pathlib.Path(__file__).resolve().parents[1]
+        / "chip_smoke.py")
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def test_fp32_bound_takes_the_faster_route():
+    """chip_smoke.py's bound of fp32 work: the faster of fp32 FMAs and
+    3xTF32 on the tensor cores.  Causal S 1024, 32/32 heads of 128 (8.6e9
+    flops): 0.0521 ms on the tensor cores against 0.128 ms as FMAs, the
+    bytes 0.020 ms; bf16 keeps its bound, and a bytes-bound case too."""
+    cs = _chip_smoke()
+    flops = 4 * 32 * 128 * (1024 * 1025 // 2)
+    nbytes = 4 * 1024 * 32 * 128 * 4
+    ms, by, route = cs.bound(nbytes, flops, torch.float32)
+    assert (by, route) == ("operations", "3xTF32 tensor cores")
+    assert ms == pytest.approx(3 * flops / 495e12 * 1e3)
+    assert ms == pytest.approx(0.0521, abs=1e-4)
+    ms, by, _ = cs.bound(nbytes // 2, flops, torch.bfloat16)
+    assert by == "bytes" and ms == pytest.approx(nbytes / 2 / 3.35e12 * 1e3)
+    ms, by, _ = cs.bound(100 * nbytes, flops, torch.float32)
+    assert by == "bytes" and ms == pytest.approx(100 * nbytes / 3.35e12 * 1e3)

@@ -16,8 +16,11 @@ are also held elementwise to the reference's fp32 tolerance
 (tests/test_kernels.py, 2e-5), and the ``test_reference_*`` tests run
 the reference's own flash, softcap, paged and permutation cases at their
 shapes and dtypes.  ``test_fp32_limits_catch_a_planted_fault`` plants
-faults in a copy of the fp32 flash kernel (its mask and its K/V ring)
-and shows that the fp32 row limit catches each.
+faults in a copy of the fp32 flash kernel (its mask, its K/V ring, one
+of the three TF32 products of P·V dropped) and shows that the fp32 row
+limit catches each fault of the mask or the ring, and the reference's
+elementwise 2e-5 the dropped product, an error of about 2^-12 of a
+weight that the row limit need not see.
 ``test_relative_limit_catches_an_off_by_one`` plants a fault in a copy
 of each kernel's source (a mask or length off by one, the stage of the
 flash kernel's K/V ring, the end of a paged split, the paged merge's
@@ -419,7 +422,7 @@ FLASH = [
     *((2, 200, 333, 8, 8, d, False, 20.0, torch.bfloat16)
       for d in (16, 48, 96)),
     (1, 1024, 1024, 32, 32, 96, True, 0.0, torch.bfloat16),
-    # fp32 (plain FMAs, 64-row tiles): every head_dim, the serving
+    # fp32 (3xTF32 wgmma, 128-row tiles): every head_dim, the serving
     # prefills of llama2-7b (32/32) and qwen3-14b (40/8), ragged,
     # top-left and non-causal, softcaps
     *((1, 300, 300, 8, 2, d, True, 0.0, torch.float32)
@@ -668,18 +671,26 @@ def test_relative_limit_catches_a_head_dim_80_fault(cuda, fault, tmp_path,
 
 
 #: planted faults of the fp32 flash kernel: its mask (the diagonal, one
-#: key past it, the key at Skv) and the stage of its K/V ring
+#: key past it, the key at Skv), the stage of its K/V ring (P·V reads Vᵀ
+#: from the other stage), each caught by the fp32 row limit; and one of
+#: the three TF32 products of P·V dropped (lo·hi), an error of about
+#: 2^-12 of a weight that the row limit may not see, caught by the
+#: reference's elementwise 2e-5.  (text replaced, its replacement, the
+#: limit that catches it)
 FP32_FAULTS = {
     "flash-fp32-drops-the-diagonal": (
-        "(causal && kpos > qpos)", "(causal && kpos >= qpos)"),
+        "(causal && kpos > qpos)", "(causal && kpos >= qpos)", "row"),
     "flash-fp32-reads-one-more-position": (
-        "(causal && kpos > qpos)", "(causal && kpos > qpos + 1)"),
+        "(causal && kpos > qpos)", "(causal && kpos > qpos + 1)", "row"),
     "flash-fp32-reads-past-the-kv-end": (
-        "if (kpos >= skv ||", "if (kpos > skv ||"),
+        "if (kpos >= skv ||", "if (kpos > skv ||", "row"),
     "flash-fp32-ring-stage-off-by-one": (
-        "const float* vs = smem_f32 + L::V + stage * kBN * L::LD;",
-        "const float* vs = smem_f32 + L::V + ((stage + 1) % 2) * kBN * "
-        "L::LD;"),
+        "const uint32_t vt_hi = tb + L::RING + stage * L::STAGE + 2 * "
+        "L::KT;",
+        "const uint32_t vt_hi = tb + L::RING + ((stage + 1) % kStages) * "
+        "L::STAGE + 2 * L::KT;", "row"),
+    "flash-fp32-drops-a-split-product": (
+        "pv_tf32<PV>(o, p_lo[kk], vt_hi + 32 * kk);", "", "elementwise"),
 }
 
 
@@ -699,27 +710,40 @@ def _fp32_flash_case(fault, device):
             _flash_plain(q, k, v, causal=causal))
 
 
+def _elementwise_ratio(got, want):
+    """Largest |error| over the reference's allowance, atol + rtol
+    |want| at rtol = atol = 2e-5: above 1 fails its elementwise check."""
+    tol = REF_TOL[torch.float32]
+    err = (got.float() - want.float()).abs() / (tol + tol * want.abs())
+    return float(torch.nan_to_num(err, nan=float("inf")).max())
+
+
 @pytest.mark.parametrize("fault", sorted(FP32_FAULTS))
 def test_fp32_limits_catch_a_planted_fault(cuda, fault, tmp_path,
                                            monkeypatch):
-    """The sound fp32 kernel reads within the fp32 row limit (and the
-    reference's elementwise 2e-5) on every row; a copy of its source
-    with a fault of its mask or its ring planted reads past the limit."""
-    old, new = FP32_FAULTS[fault]
+    """The sound fp32 kernel reads within the fp32 row limit and the
+    reference's elementwise 2e-5 on every row; a copy of its source with
+    one fault planted reads past the limit named beside the fault."""
+    old, new, limit = FP32_FAULTS[fault]
     got, want = _fp32_flash_case(fault, cuda)
-    sound = float(_row_rel_err(got, want).max())
-    torch.testing.assert_close(got, want, rtol=REF_TOL[torch.float32],
-                               atol=REF_TOL[torch.float32])
+    sound = {"row": float(_row_rel_err(got, want).max()),
+             "elementwise": _elementwise_ratio(got, want)}
+    assert sound["row"] <= REL_TOL[torch.float32]
+    assert sound["elementwise"] <= 1.0
     src = (build.CSRC / "flash_attention.cu").read_text()
     assert src.count(old) == 1
     (tmp_path / "flash_attention.cu").write_text(src.replace(old, new))
     monkeypatch.setattr(build, "CSRC", tmp_path)
     monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "lib")
     monkeypatch.setattr(build, "_loaded", {})
-    planted = float(_row_rel_err(*_fp32_flash_case(fault, cuda)).max())
-    print(f"\n{fault}: relative error, sound {sound:.3e}, planted "
-          f"{planted:.3e}, limit {REL_TOL[torch.float32]:.0e}")
-    assert sound <= REL_TOL[torch.float32] < planted
+    got, want = _fp32_flash_case(fault, cuda)
+    planted = {"row": float(_row_rel_err(got, want).max()),
+               "elementwise": _elementwise_ratio(got, want)}
+    bar = {"row": REL_TOL[torch.float32], "elementwise": 1.0}[limit]
+    print(f"\n{fault}: sound {sound}, planted {planted}; caught by the "
+          f"{limit} limit ({bar:.0e}; elementwise reads error over "
+          f"2e-5 + 2e-5 |want|)")
+    assert sound[limit] <= bar < planted[limit]
 
 
 @pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
