@@ -84,7 +84,23 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    every layer's MoE, timed apart).  Every main path launches the paged
    kernel once a layer a decode iteration and flash once a layer a
    prefill.  Each model frees its weights and pages before the next
-   one loads;
+   one loads.  On llama2-7b's weights, drawn once for its phases and
+   these, the serve-then-simulate example
+   (``repro_torch.examples.serve_smoke``): its ``main`` as a user runs
+   it (the smoke config on the card; its four lines), then through its
+   functions (``serve``, ``simulate``, ``throughput_error``) (a) the
+   smoke config as written (default routes, graphed: no kernel
+   launches), (b) the smoke config on the kernel routes, (c) llama2-7b
+   at full width and depth on the kernel routes, the example's request
+   set cold and two more, drawn with seeds 1 and 2, warm on the same
+   engine.  The kernel routes must launch paged once a layer a decode
+   iteration and flash once a layer a request's prefill.  Each set
+   prints the finished requests and iterations of engine and
+   simulator, real and simulated req/s, the error, the graphs captured
+   and their seconds, the capturing iterations' walls and share of the
+   engine clock, and the predictions the tabular fit clamps; (c) also
+   the held-out error (fitted to set 1's records, simulating seed 2's
+   workload, against set 2's throughput);
 5. serving: mamba2-130m at full width and depth (random weights from
    ``init_params(seed=0)``) through ``launch/serve.py``'s engine on the
    slot path (graphed on the card), 16 requests of 20-990 prompt tokens
@@ -178,7 +194,8 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    nothing of jax or of the reference package;
 12. the script's total seconds, the ``kernels`` JSON line (each
    kernel's launches summed over the main paths that run it, the
-   sharded phases' among them, with ``launches_by_path``; its times at
+   sharded phases' and the serve-then-simulate example's kernel routes
+   among them, with ``launches_by_path``; its times at
    the llama2-7b case; the fp32 flash kernel a line of its own, its
    launches those of the fp32 llama2-7b run), then the result line.
 
@@ -187,10 +204,12 @@ before printing a result.
 """
 from __future__ import annotations
 
+import contextlib
 import ctypes
 import dataclasses
 import functools
 import gc
+import io
 import json
 import os
 import re
@@ -208,8 +227,11 @@ from torch.distributed.tensor import DTensor, distribute_tensor
 
 sys.path.insert(0, str(Path(__file__).resolve().parent / "src"))
 
-from repro_torch.configs import get_config  # noqa: E402
+from repro_torch.configs import get_config, get_smoke_config  # noqa: E402
+from repro_torch.core.costmodel.backends import TabularBackend  # noqa: E402
+from repro_torch.core.metrics import Results  # noqa: E402
 from repro_torch.core.request import Request  # noqa: E402
+from repro_torch.core.workload import generate  # noqa: E402
 from repro_torch.kernels import build  # noqa: E402
 from repro_torch.kernels import counts as launch_counts  # noqa: E402
 from repro_torch.kernels.flash_attention import ops as flash_ops  # noqa: E402
@@ -222,6 +244,7 @@ from repro_torch.launch.mesh import make_host_mesh  # noqa: E402
 from repro_torch.configs.base import MOE  # noqa: E402
 from repro_torch.distributed import shard_plan  # noqa: E402
 from repro_torch.distributed.api import placements, use_rules  # noqa: E402
+from repro_torch.examples import serve_smoke as ex_serve  # noqa: E402
 from repro_torch.examples import train_100m as ex100m  # noqa: E402
 from repro_torch.models import attention_impl  # noqa: E402
 from repro_torch.models import model_zoo as zoo  # noqa: E402
@@ -680,15 +703,52 @@ def held_to_reference(kernel, case, got, want, dtype):
     return rec
 
 
-def launched(kernel, fn):
-    """``fn()``, which must launch ``kernel`` once (not its plain
-    version)."""
+def launched(kernel, fn, times=1):
+    """``fn()``, which must launch ``kernel`` ``times`` times (not its
+    plain version)."""
     before = launch_counts.get(kernel)
     out = fn()
     torch.cuda.synchronize()
-    if launch_counts.get(kernel) != before + 1:
-        raise AssertionError(f"{kernel} did not launch its kernel")
+    n = launch_counts.get(kernel) - before
+    if n != times:
+        raise AssertionError(f"{kernel} launched {n} times, expected "
+                             f"{times}")
     return out
+
+
+def flash_reference_case(name, b, sq, skv, h, hkv, d, causal, softcap,
+                         dtype):
+    """One flash case with numpy inputs, through the kernel (its launch
+    counted) against the plain version: ``held_to_reference``."""
+    rng = np.random.RandomState(0)
+    q, k, v = (torch.from_numpy(rng.randn(b, s, n, d).astype(np.float32))
+               .to("cuda", dtype)
+               for s, n in ((sq, h), (skv, hkv), (skv, hkv)))
+    kw = dict(causal=causal, softcap=softcap)
+    got = launched("flash_attention",
+                   lambda: flash_ops.flash_attention(q, k, v, **kw))
+    want = flash_ops.flash_attention_ref(q.float(), k.float(), v.float(),
+                                         **kw)
+    return held_to_reference("flash_attention", name, got, want, dtype)
+
+
+def paged_reference_case(name, b, hq, hkv, d, npages, page, mp, dtype):
+    """One paged case as the reference draws it (tables with replacement,
+    lengths 1 to ``mp * page``), numpy inputs, through the kernel against
+    the plain version: ``held_to_reference``."""
+    rng = np.random.RandomState(2)
+    q, kp, vp = (torch.from_numpy(rng.randn(*shape).astype(np.float32))
+                 .to("cuda", dtype) for shape in
+                 ((b, hq, d), (npages, page, hkv, d), (npages, page, hkv, d)))
+    bt = torch.from_numpy(rng.randint(0, npages, size=(b, mp))
+                          .astype(np.int32)).cuda()
+    cl = torch.from_numpy(rng.randint(1, mp * page + 1, size=(b,))
+                          .astype(np.int32)).cuda()
+    got = launched("paged_attention",
+                   lambda: paged_ops.paged_attention(q, kp, vp, bt, cl))
+    want = paged_ops.paged_attention_ref(q.float(), kp.float(), vp.float(),
+                                         bt, cl)
+    return held_to_reference("paged_attention", name, got, want, dtype)
 
 
 def check_reference_cases():
@@ -696,36 +756,8 @@ def check_reference_cases():
     softcap test and its permutation test, and the widened serving
     shapes, through the kernels (each launch counted) against their
     plain versions on the card."""
-    recs = []
-    for name, b, sq, skv, h, hkv, d, causal, softcap, dtype in \
-            REF_FLASH_CASES:
-        rng = np.random.RandomState(0)
-        q, k, v = (torch.from_numpy(rng.randn(b, s, n, d).astype(np.float32))
-                   .to("cuda", dtype)
-                   for s, n in ((sq, h), (skv, hkv), (skv, hkv)))
-        kw = dict(causal=causal, softcap=softcap)
-        got = launched("flash_attention",
-                       lambda: flash_ops.flash_attention(q, k, v, **kw))
-        want = flash_ops.flash_attention_ref(q.float(), k.float(), v.float(),
-                                             **kw)
-        recs.append(held_to_reference("flash_attention", name, got, want,
-                                      dtype))
-    for name, b, hq, hkv, d, npages, page, mp, dtype in REF_PAGED_CASES:
-        rng = np.random.RandomState(2)
-        q, kp, vp = (torch.from_numpy(rng.randn(*shape).astype(np.float32))
-                     .to("cuda", dtype) for shape in
-                     ((b, hq, d), (npages, page, hkv, d),
-                      (npages, page, hkv, d)))
-        bt = torch.from_numpy(rng.randint(0, npages, size=(b, mp))
-                              .astype(np.int32)).cuda()
-        cl = torch.from_numpy(rng.randint(1, mp * page + 1, size=(b,))
-                              .astype(np.int32)).cuda()
-        got = launched("paged_attention",
-                       lambda: paged_ops.paged_attention(q, kp, vp, bt, cl))
-        want = paged_ops.paged_attention_ref(q.float(), kp.float(),
-                                             vp.float(), bt, cl)
-        recs.append(held_to_reference("paged_attention", name, got, want,
-                                      dtype))
+    recs = [flash_reference_case(*case) for case in REF_FLASH_CASES]
+    recs += [paged_reference_case(*case) for case in REF_PAGED_CASES]
     # test_paged_attention_respects_block_table_permutation: head_dim 16,
     # 2/1, the same K/V through two page orders
     b, hq, hkv, d, npages, page, mp = 1, 2, 1, 16, 8, 4, 4
@@ -813,13 +845,9 @@ def free_memory():
     torch.cuda.empty_cache()
 
 
-def instrument(eng):
-    """Log the key of every step ``eng`` runs (``("prefill", bucket)`` or
-    ``("decode",)``), and the index of each iteration record whose step
-    captured a graph."""
-    log = {"keys": [], "captured": set()}
-    run = eng._step
-
+def _logged(eng, run, log):
+    """``run`` (``eng``'s step), logging into ``log`` as ``instrument``
+    says."""
     def step(key, fn):
         n = len(eng.graphs) if eng.graphs is not None else 0
         out = run(key, fn)
@@ -828,8 +856,73 @@ def instrument(eng):
             log["captured"].add(len(eng.records))
         return out
 
-    eng._step = step
+    return step
+
+
+def instrument(eng):
+    """Log the key of every step ``eng`` runs (``("prefill", bucket)`` or
+    ``("decode",)``), and the index of each iteration record whose step
+    captured a graph."""
+    log = {"keys": [], "captured": set()}
+    eng._step = _logged(eng, eng._step, log)
     return log
+
+
+class StepLog:
+    """``instrument`` for the engines built inside the ``with`` block (the
+    example builds its engine inside ``serve``): a hook on
+    ``ServingEngine._step``; yields the log."""
+
+    def __enter__(self):
+        log = {"keys": [], "captured": set()}
+        self._step = run = ServingEngine._step
+        ServingEngine._step = lambda eng, key, fn: _logged(
+            eng, functools.partial(run, eng), log)(key, fn)
+        return log
+
+    def __exit__(self, *exc):
+        ServingEngine._step = self._step
+
+
+def set_stats(eng, reqs, log, start, n_keys, run_s):
+    """What the request set ``reqs`` shows, served on ``eng`` in
+    ``run_s`` seconds with its iteration records from ``start`` and its
+    step keys in ``log`` from ``n_keys`` on: counts, walls, the walls of
+    the iterations that captured a graph and their share of the set's
+    clock.  Raises unless every request finished."""
+    if any(r.tokens_generated != r.output_len for r in reqs):
+        raise AssertionError("not every request finished")
+    recs = eng.records[start:]
+    captured = {i - start for i in log["captured"] if i >= start}
+
+    def mean_ms(kind, warm=None):
+        w = [r.wall for i, r in enumerate(recs) if r.kind == kind
+             and (warm is None or (i not in captured) == warm)]
+        return 1e3 * float(np.mean(w)) if w else None
+
+    walls = sum(r.wall for r in recs)
+    capture_walls = [recs[i].wall for i in sorted(captured)]
+    new_keys = set(log["keys"][n_keys:]) - set(log["keys"][:n_keys])
+    generated = sum(r.tokens_generated for r in reqs)
+    prompt = sum(r.prompt_len for r in reqs)
+    return {"graphed": eng.graphs is not None,
+            "iterations": len(recs),
+            "prefill_iterations": sum(r.kind == "prefill" for r in recs),
+            "decode_iterations": sum(r.kind == "decode" for r in recs),
+            "mean_prefill_wall_ms": mean_ms("prefill"),
+            "mean_decode_wall_ms": mean_ms("decode"),
+            "capture_iterations": len(captured),
+            "graphs_captured": len(new_keys) if eng.graphs is not None
+            else 0,
+            "capture_walls_s": capture_walls,
+            "capture_share": sum(capture_walls) / walls,
+            "mean_prefill_wall_ms_without_capture": mean_ms("prefill", True),
+            "mean_decode_wall_ms_without_capture": mean_ms("decode", True),
+            "generated_tokens": generated, "prompt_tokens": prompt,
+            "generated_tokens_per_s": generated / walls,
+            "all_tokens_per_s": (generated + prompt) / walls,
+            "run_s": run_s,
+            "preemptions": sum(r.preempt_count for r in reqs)}
 
 
 def serve_set(eng, reqs, prompts, log, serve_fn=None):
@@ -850,40 +943,15 @@ def serve_set(eng, reqs, prompts, log, serve_fn=None):
     torch.cuda.synchronize()
     run_s = time.perf_counter() - t0
     launches = launches_now()
-    if any(r.tokens_generated != r.output_len for r in reqs):
-        raise AssertionError("not every request finished")
-    recs = eng.records[start:]
-    captured = {i - start for i in log["captured"] if i >= start}
-
-    def mean_ms(kind, warm=None):
-        w = [r.wall for i, r in enumerate(recs) if r.kind == kind
-             and (warm is None or (i not in captured) == warm)]
-        return 1e3 * float(np.mean(w)) if w else None
-
-    walls = sum(r.wall for r in recs)
-    generated = sum(r.tokens_generated for r in reqs)
-    prompt = sum(r.prompt_len for r in reqs)
-    stats = {"graphed": eng.graphs is not None,
-             "iterations": len(recs),
-             "prefill_iterations": sum(r.kind == "prefill" for r in recs),
-             "decode_iterations": sum(r.kind == "decode" for r in recs),
-             "mean_prefill_wall_ms": mean_ms("prefill"),
-             "mean_decode_wall_ms": mean_ms("decode"),
-             "capture_iterations": len(captured),
-             "mean_prefill_wall_ms_without_capture": mean_ms("prefill", True),
-             "mean_decode_wall_ms_without_capture": mean_ms("decode", True),
-             "generated_tokens": generated, "prompt_tokens": prompt,
-             "generated_tokens_per_s": generated / walls,
-             "all_tokens_per_s": (generated + prompt) / walls,
-             "run_s": run_s,
-             "preemptions": sum(r.preempt_count for r in reqs)}
+    stats = set_stats(eng, reqs, log, start, n_keys, run_s)
     return {"stats": stats, "launches": launches,
             "buckets": [k[1] for k in log["keys"][n_keys:]
                         if k[0] == "prefill"],
             "tokens": {r.id - offset: list(eng.tokens_by_req[r.id])
                        for r in reqs},
             "records": [(r.kind, tuple(b - offset for b in r.batch_ids),
-                         dataclasses.asdict(r.mix)) for r in recs]}
+                         dataclasses.asdict(r.mix))
+                        for r in eng.records[start:]]}
 
 
 def runtime_launches(prof):
@@ -1301,17 +1369,19 @@ def compare_logits(label, got, want, vocab, routing=None,
                              f"{rel_l2} of the plain path's")
 
 
-def decode_state(model, params):
+def decode_state(model, params, *, page=PAGE, batch=MAX_BATCH,
+                 max_pages=MAX_PAGES, prompt_range=PROMPT_RANGE):
     """A full decode batch on real KV: prompts of lengths drawn like the
     serving run's, each prefilled and scattered into its own pages, plus
-    room for one more 1024-token prompt (``free_row``)."""
+    room for one more longest prompt (``free_row``).  The keywords give
+    another engine's page size, batch, table width and prompt lengths."""
     rng = np.random.RandomState(1)
-    lens = rng.randint(PROMPT_RANGE[0], PROMPT_RANGE[1] + 1, size=MAX_BATCH)
-    need = [-(-(int(n) + 1) // PAGE) for n in lens]
-    trash = sum(need) + PROMPT_RANGE[1] // PAGE
-    pages = paged_model.init_pages(model, trash + 1, PAGE, MAX_BATCH,
-                                   MAX_PAGES, "cuda")
-    tables = np.full((MAX_BATCH, MAX_PAGES), trash, np.int32)
+    lens = rng.randint(prompt_range[0], prompt_range[1] + 1, size=batch)
+    need = [-(-(int(n) + 1) // page) for n in lens]
+    trash = sum(need) + prompt_range[1] // page
+    pages = paged_model.init_pages(model, trash + 1, page, batch, max_pages,
+                                   "cuda")
+    tables = np.full((batch, max_pages), trash, np.int32)
     start = 0
     for b, n in enumerate(need):
         tables[b, :n] = np.arange(start, start + n)
@@ -1320,18 +1390,18 @@ def decode_state(model, params):
     for b, n in enumerate(lens):
         n = int(n)
         toks = torch.zeros((1, min(ServingEngine._bucket(n),
-                                   MAX_PAGES * PAGE)),
+                                   max_pages * page)),
                            dtype=torch.long, device="cuda")
         toks[0, :n] = torch.from_numpy(
             rng.randint(0, model.cfg.vocab_size, size=n))
         _, k, v = paged_model.prefill_forward(model, params, toks)
         paged_model.scatter_prefill(model, pages, k, v, pages["tables"][b], n)
-    free_row = torch.full((MAX_PAGES,), trash, dtype=torch.long,
+    free_row = torch.full((max_pages,), trash, dtype=torch.long,
                           device="cuda")
-    free_row[:PROMPT_RANGE[1] // PAGE] = torch.arange(
-        start, start + PROMPT_RANGE[1] // PAGE)
+    free_row[:prompt_range[1] // page] = torch.arange(
+        start, start + prompt_range[1] // page)
     toks = torch.from_numpy(rng.randint(0, model.cfg.vocab_size,
-                                        size=MAX_BATCH)).cuda()
+                                        size=batch)).cuda()
     return (pages, torch.from_numpy(lens.astype(np.int32)).cuda(), toks,
             free_row)
 
@@ -3130,6 +3200,211 @@ def check_simulator():
                              "finished")
 
 
+# -- the serve-then-simulate example (repro_torch.examples.serve_smoke) -------
+#: workload seeds of the request sets the full-width run serves warm on
+#: the engine after the example's own (cold); set k's ids start at
+#: k * SET_IDS
+SERVE_SMOKE_WARM_SEEDS = (1, 2)
+#: the tabular cost model's floor: a fitted wall at or below it is clamped
+TABULAR_FLOOR = 1e-6
+
+
+def clamped_predictions(samples, mixes):
+    """How many of ``mixes`` the tabular fit to ``samples`` predicts at its
+    floor, where ``TabularBackend`` clamps."""
+    tb = TabularBackend.fit(samples)
+    return sum(tb.iteration_time(m) <= TABULAR_FLOOR for m in mixes)
+
+
+def example_set(eng, log, workload, reqs, start, n_keys, run_s):
+    """A request set of the example served on ``eng`` (records from
+    ``start``, step keys from ``n_keys``): its workload, requests,
+    records, real results and ``set_stats``."""
+    return {"workload": workload, "reqs": reqs,
+            "records": eng.records[start:],
+            "real": Results(requests=reqs, sim_time=eng.clock),
+            "stats": set_stats(eng, reqs, log, start, n_keys, run_s)}
+
+
+def serve_warm_set(eng, log, seed, offset):
+    """Serve the example's workload drawn with ``seed`` on the warm engine
+    ``eng``: ids ``offset`` past set 0's, arrivals moved to the engine
+    clock when the set is added; returns its ``example_set``."""
+    wl = dataclasses.replace(ex_serve.WORKLOAD, seed=seed)
+    reqs = generate(wl)
+    start, n_keys, now = len(eng.records), len(log["keys"]), eng.clock
+    t0 = time.perf_counter()
+    for r in reqs:
+        r.id += offset
+        r.arrival_time += now
+        eng.add_request(r)
+    eng.run()
+    torch.cuda.synchronize()
+    return example_set(eng, log, wl, reqs, start, n_keys,
+                       time.perf_counter() - t0)
+
+
+def simulated(cfg, workload, samples, recs, reqs, real):
+    """The example's comparison: ``workload`` simulated with the tabular
+    fit to ``samples`` against the engine's run of it (``reqs``, its
+    iteration records ``recs``, real results ``real``).  Raises if the
+    two finished counts differ or the error is not finite."""
+    sim, res = ex_serve.simulate(cfg, workload, samples)
+    err = ex_serve.throughput_error(res, real)
+    finished = sum(r.finished for r in reqs)
+    if len(res.finished) != finished or not np.isfinite(err):
+        raise AssertionError(f"serve_smoke: simulator {len(res.finished)} "
+                             f"finished against the engine's {finished}, "
+                             f"error {err}")
+    return {"finished": [finished, len(res.finished)],
+            "iterations": [len(recs), sim.workers[0].iterations],
+            "real_req_s": real.throughput(), "sim_req_s": res.throughput(),
+            "error_pct": 100 * err,
+            "clamped_predictions": clamped_predictions(
+                samples, [r.mix for r in recs])}
+
+
+def serve_smoke_run(label, cfg, model, params, attn_path, kernels,
+                    warm_seeds=()):
+    """The example's functions on the card: ``serve`` (graphed, launch
+    counts from zero), then (``warm_seeds``) more request sets on the
+    same engine; per set the example's comparison and ``set_stats``;
+    with two warm sets, the held-out error (fitted to the first's
+    records, simulating the second's workload).  ``kernels``: the routes
+    must launch paged once a layer a decode iteration and flash once a
+    layer a prefill, else neither may launch.  Returns the engine, the
+    launches and the prefill buckets."""
+    t0 = time.perf_counter()
+    launch_counts.reset()
+    with StepLog() as log:
+        eng, reqs, _ = ex_serve.serve(model, params, attn_path=attn_path)
+        torch.cuda.synchronize()
+        sets = [example_set(eng, log, ex_serve.WORKLOAD, reqs, 0, 0,
+                            time.perf_counter() - t0)]
+        sets += [serve_warm_set(eng, log, seed, k * SET_IDS)
+                 for k, seed in enumerate(warm_seeds, 1)]
+    launches = launches_now()
+    seconds = time.perf_counter() - t0
+
+    def compared(s, fitted=None):
+        fitted = fitted or s
+        return simulated(cfg, s["workload"],
+                         [(r.mix, r.wall) for r in fitted["records"]],
+                         s["records"], s["reqs"], s["real"])
+
+    per_set = [{"seed": s["workload"].seed, **s["stats"],
+                "engine_clock_s": sum(r.wall for r in s["records"]),
+                **compared(s)} for s in sets]
+    held_out = None
+    if len(sets) >= 3:
+        held_out = {"fitted_on_seed": sets[1]["workload"].seed,
+                    "simulated_seed": sets[2]["workload"].seed,
+                    **compared(sets[2], fitted=sets[1])}
+
+    buckets = [key[1] for key in log["keys"] if key[0] == "prefill"]
+    decodes = sum(r.kind == "decode" for r in eng.records)
+    got = {k: launches[k] for k in ("paged_attention", "flash_attention")}
+    expect = {"paged_attention": cfg.num_layers * decodes if kernels else 0,
+              "flash_attention": cfg.num_layers * len(buckets)
+              if kernels else 0}
+    phase(label, model=cfg.name, dtype=cfg.dtype, layers=cfg.num_layers,
+          d_model=cfg.d_model, n_heads=cfg.n_heads, head_dim=cfg.head_dim,
+          attn_impl=model.settings.attn_impl, attn_path=attn_path,
+          graphed=eng.graphs is not None, sets=per_set, held_out=held_out,
+          launches=got, prefill_steps=len(buckets),
+          prefill_buckets=sorted(set(buckets)), decode_iterations=decodes,
+          flash_launches_per_prefill=got["flash_attention"] / len(buckets),
+          paged_launches_per_decode=got["paged_attention"] / decodes,
+          graphs=len(eng.graphs), capture_s=eng.graphs.capture_seconds,
+          seconds=seconds)
+    if got != expect:
+        raise AssertionError(f"{label}: launches {got}, expected {expect}")
+    return eng, got, buckets
+
+
+def check_serve_smoke_values(label, model, params, eng, buckets):
+    """The kernel routes of a ``serve_smoke_run`` (``eng``, its prefill
+    ``buckets``) held to the plain versions at that run's shapes: flash
+    at every prefill bucket and paged at the engine's page store (page
+    size, batch, table width), each with numpy inputs within the
+    reference's elementwise tolerance and the row limit; then the
+    logits of the first token of every prompt the run served and of one
+    decode step at the engine's page size, kernel routes against plain
+    routes on the same weights, within LOGIT_LIMITS (the kernel routes
+    launching flash once a layer a prompt and paged once a layer)."""
+    cfg, ec = model.cfg, ex_serve.ENGINE
+    dtype = model.compute_dtype
+    for s in sorted(set(buckets)):
+        flash_reference_case(f"{label} prefill S={s}", 1, s, s, cfg.n_heads,
+                             cfg.n_kv_heads, cfg.head_dim, True,
+                             cfg.attn_logit_softcap, dtype)
+    paged_reference_case(f"{label} decode", ec.max_batch, cfg.n_heads,
+                         cfg.n_kv_heads, cfg.head_dim, ec.num_blocks + 1,
+                         ec.block_size, ec.max_pages_per_seq, dtype)
+    plain = model.with_settings(attn_impl="naive")
+    limits = LOGIT_LIMITS[dtype]
+    prompts = [eng.prompt_tokens[rid] for rid in sorted(eng.prompt_tokens)]
+    compare_logits(f"{label}_first_token_logits",
+                   launched("flash_attention",
+                            lambda: first_token_logits(model, params,
+                                                       prompts),
+                            cfg.num_layers * len(prompts)),
+                   first_token_logits(plain, params, prompts),
+                   cfg.vocab_size, limits=limits)
+    pages, lens, toks, _ = decode_state(
+        model, params, page=ec.block_size, batch=ec.max_batch,
+        max_pages=ec.max_pages_per_seq,
+        prompt_range=(1, ex_serve.WORKLOAD.max_prompt_len))
+    compare_logits(f"{label}_decode_logits",
+                   *launched("paged_attention",
+                             lambda: decode_logits(model, params, pages,
+                                                   lens, toks),
+                             cfg.num_layers),
+                   cfg.vocab_size, limits=limits)
+
+
+def check_serve_smoke(params):
+    """``repro_torch.examples.serve_smoke`` on the card: its ``main`` as a
+    user runs it (its four lines); then through its functions (a) the
+    smoke config as written (default routes, no kernel), (b) the smoke
+    config on the kernel routes, (c) ``params``, the example's arch at
+    full width and depth, on the kernel routes, the example's request
+    set cold and SERVE_SMOKE_WARM_SEEDS' warm on one engine; (b) and (c)
+    each held to the plain versions (``check_serve_smoke_values``).
+    Returns the kernel routes' launches by path."""
+    t0 = time.perf_counter()
+    out = io.StringIO()
+    with contextlib.redirect_stdout(out):
+        err = ex_serve.main([])
+    lines = out.getvalue().splitlines()
+    phase("serve_smoke_main", lines=lines, error_pct=100 * err,
+          seconds=time.perf_counter() - t0)
+    if len(lines) != 4 or not np.isfinite(err):
+        raise AssertionError(f"serve_smoke main printed {lines}, "
+                             f"error {err}")
+
+    cfg = get_smoke_config(ex_serve.ARCH)
+    plain = zoo.build(cfg)
+    kernel = zoo.build(cfg, settings=RunSettings(attn_impl="pallas"))
+    smoke_params = zoo.init_params(plain, seed=ex_serve.SEED)
+    serve_smoke_run("serve_smoke_as_written", cfg, plain, smoke_params,
+                    "gather", kernels=False)
+    full = get_config(ex_serve.ARCH)
+    paths = {}
+    for label, cfg, model, weights, warm_seeds in (
+            ("serve_smoke_kernel_routes", cfg, kernel, smoke_params, ()),
+            (f"serve_smoke_{ex_serve.ARCH}", full,
+             zoo.build(full, settings=RunSettings(attn_impl="pallas")),
+             params, SERVE_SMOKE_WARM_SEEDS)):
+        eng, paths[label], buckets = serve_smoke_run(
+            label, cfg, model, weights, "pallas", kernels=True,
+            warm_seeds=warm_seeds)
+        check_serve_smoke_values(label, model, weights, eng, buckets)
+        del eng
+        free_memory()
+    return paths
+
+
 #: the paged models served at full width and depth, in this order
 PAGED_MODELS = ("llama2-7b", "opt-13b", "qwen3-14b", "granite-moe-3b-a800m",
                 "granite-moe-1b-a400m")
@@ -3176,7 +3451,15 @@ def main():
         # one model at a time: each frees its weights and pages before
         # the next loads
         for arch in PAGED_MODELS:
-            served[arch] = check_serving(arch)["launches"]
+            if arch == ex_serve.ARCH:
+                # drawn once, for its serving phases and the example's
+                params = zoo.init_params(zoo.build(get_config(arch)),
+                                         seed=SEED)
+                served[arch] = check_serving(arch, params)["launches"]
+                serve_smoke = check_serve_smoke(params)
+                del params
+            else:
+                served[arch] = check_serving(arch)["launches"]
             free_memory()
         served_fp32 = check_serving(FP32_ARCH, dtype="float32")["launches"]
         free_memory()
@@ -3199,8 +3482,9 @@ def main():
     check_simulator()
 
     kernels = []
-    # the main paths' runs: each paged model's, mamba2-130m's,
-    # whisper-base's and zamba2-2.7b's, and mamba2-130m's training run
+    # the main paths' runs: each paged model's, the serve-then-simulate
+    # example's kernel routes, mamba2-130m's, whisper-base's and
+    # zamba2-2.7b's, and mamba2-130m's training run
     by_path = {name: {arch: n[name] for arch, n in served.items()}
                for name in ("paged_attention", "flash_attention")}
     # the fp32 run: its flash launches are the fp32 kernel's
@@ -3213,6 +3497,9 @@ def main():
     by_path["flash_attention"][HYBRID_ARCH] = \
         zamba["launches"]["flash_attention"]
     by_path["flash_attention"]["llama2-7b_sharded_serve"] = sharded_flash
+    for path, n in serve_smoke.items():
+        for name in ("paged_attention", "flash_attention"):
+            by_path[name][path] = n[name]
     by_path["ssd_scan"] = {"mamba2-130m": mamba["launches"]["ssd_scan"],
                            HYBRID_ARCH: zamba["launches"]["ssd_scan"],
                            "mamba2-130m_train": ssd_train,

@@ -21,8 +21,11 @@ run its 64-wide tiles and the wider ones its 128-wide tiles, the columns
 past head_dim read as zeros.  fp32: the same shape on TF32 ``wgmma``,
 each product taken as three TF32 products of the operands split into
 hi + lo (3xTF32), since one TF32 product would miss the reference's fp32
-tolerance; 128-row q tiles, 32-key K/V tiles split by a warpgroup of
-their own.  The fp32 plain version serves the CPU and the comparisons.  ``flash_attention`` runs ``flash_attention_ref`` for CPU
+tolerance; 128-row q tiles over two warpgroups, every thread of which
+splits its share of each raw 32-key K/V tile into hi/lo K and a
+transposed hi/lo Vᵀ while the tile before it is multiplied.  The fp32
+plain version serves the CPU and the comparisons.
+``flash_attention`` runs ``flash_attention_ref`` for CPU
 tensors and the kernel for CUDA tensors; on a CUDA tensor it launches or
 raises (``TypeError`` for a dtype but bf16 and fp32, ``ValueError`` for
 another head_dim; ``RuntimeError`` where autograd would record the call,

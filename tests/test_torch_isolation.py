@@ -40,11 +40,13 @@ def test_no_jax_or_reference_imports(path):
     "repro_torch.examples.train_100m",
     "repro_torch.distributed.api, repro_torch.distributed.shard_plan, "
     "repro_torch.launch.mesh",
+    "repro_torch.examples.serve_smoke",
 ])
 def test_engine_import_loads_no_jax(modules):
     """Importing the serving engine, the simulator and its entry points,
-    the trainer and its entry points, or the sharding plan and its
-    meshes, loads nothing of jax or of the reference."""
+    the trainer and its entry points, the sharding plan and its meshes,
+    or the serve-then-simulate example, loads nothing of jax or of the
+    reference."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     code = (f"import sys, {modules}; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "

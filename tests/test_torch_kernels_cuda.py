@@ -1189,3 +1189,101 @@ def test_remat_modes_agree_through_the_ssd_kernel(cuda, remat):
     for a, b in zip(g0, g1):
         assert torch.equal(a, b)
     assert all(bool(g.isfinite().all()) for g in g0)
+
+
+def _serve_smoke_models(device):
+    from repro_torch.configs import get_smoke_config
+    from repro_torch.examples import serve_smoke as ex
+    from repro_torch.models import model_zoo as zoo
+    from repro_torch.models.common import RunSettings
+
+    cfg = get_smoke_config(ex.ARCH)
+    model = zoo.build(cfg, settings=RunSettings(attn_impl="pallas"))
+    params = zoo.init_params(model, seed=ex.SEED, device=device)
+    return ex, cfg, model, params
+
+
+def test_serve_smoke_example_on_the_kernel_routes(cuda):
+    """The serve-then-simulate example's ``serve`` at the smoke config on
+    the kernel routes (graphed): every request finishes, the paged kernel
+    launches once a layer a decode iteration and flash once a layer a
+    request's prefill, and the simulator fitted to the run's records
+    finishes as many requests with a finite error.  The first-token
+    logits of every prompt served, through the engine's prefill at its
+    bucket, agree with the plain route's on the same weights."""
+    from repro_torch.serving import paged_model
+    from repro_torch.serving.engine import ServingEngine
+
+    ex, cfg, model, params = _serve_smoke_models(cuda)
+    before = counts.snapshot()
+    eng, reqs, real = ex.serve(model, params, attn_path="pallas")
+    after = counts.snapshot()
+    assert eng.graphs is not None
+    assert all(r.tokens_generated == r.output_len for r in reqs)
+    decodes = sum(r.kind == "decode" for r in eng.records)
+    prefills = sum(len(r.batch_ids) for r in eng.records
+                   if r.kind == "prefill")
+    assert prefills == len(reqs) and decodes > 0
+    for name, n in (("paged_attention", decodes),
+                    ("flash_attention", prefills)):
+        assert after.get(name, 0) - before.get(name, 0) == cfg.num_layers * n
+    sim, res = ex.simulate(cfg, ex.WORKLOAD,
+                           [(r.mix, r.wall) for r in eng.records])
+    assert len(res.finished) == len(eng.finished) == len(reqs)
+    assert np.isfinite(ex.throughput_error(res, real))
+
+    plain = model.with_settings(attn_impl="naive")
+    for rid, prompt in eng.prompt_tokens.items():
+        n = len(prompt)
+        toks = torch.zeros((1, ServingEngine._bucket(n)), dtype=torch.long,
+                           device=cuda)
+        toks[0, :n] = torch.from_numpy(prompt.astype(np.int64))
+        got, want = (paged_model.prefill_forward(m, params, toks)[0]
+                     [0, n - 1, :cfg.vocab_size].float()
+                     for m in (model, plain))
+        assert torch.isfinite(got).all()
+        # the serving logits' limit (chip_smoke.LOGIT_REL_MAX)
+        assert (got - want).abs().max() <= 0.1 * want.abs().max(), rid
+
+
+def test_kernels_at_the_serve_smoke_shapes(cuda):
+    """The kernels at the shapes the example's kernel routes give them at
+    the smoke config (bf16, 4/4 heads, head_dim 16): flash at every
+    prefill bucket of the example's prompts, paged at the engine's page
+    store (page size, batch, table width), each with the reference's
+    inputs drawn with numpy, within its elementwise tolerance and the
+    row limit."""
+    from repro_torch.core.workload import generate
+    from repro_torch.serving.engine import ServingEngine
+
+    ex, cfg, model, _ = _serve_smoke_models(cuda)
+    dtype, ec = model.compute_dtype, ex.ENGINE
+    h, hkv, d = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
+    buckets = sorted({ServingEngine._bucket(r.prompt_len)
+                      for r in generate(ex.WORKLOAD)})
+    assert len(buckets) > 1
+    for s in buckets:
+        rng = np.random.RandomState(0)
+        q, k, v = (torch.from_numpy(rng.randn(1, s, n, d).astype(np.float32))
+                   .to(cuda, dtype) for n in (h, hkv, hkv))
+        before = counts.get("flash_attention")
+        got = flash.flash_attention(q, k, v, causal=True)
+        torch.cuda.synchronize()
+        assert counts.get("flash_attention") == before + 1
+        _held("flash_attention", got, _flash_plain(q, k, v, causal=True),
+              dtype)
+    b, npages, page, mp = (ec.max_batch, ec.num_blocks + 1, ec.block_size,
+                           ec.max_pages_per_seq)
+    rng = np.random.RandomState(2)
+    q, kp, vp = (torch.from_numpy(rng.randn(*shape).astype(np.float32))
+                 .to(cuda, dtype) for shape in
+                 ((b, h, d), (npages, page, hkv, d), (npages, page, hkv, d)))
+    bt = torch.from_numpy(rng.randint(0, npages, size=(b, mp))
+                          .astype(np.int32)).to(cuda)
+    cl = torch.from_numpy(rng.randint(1, mp * page + 1, size=(b,))
+                          .astype(np.int32)).to(cuda)
+    before = counts.get("paged_attention")
+    got = paged.paged_attention(q, kp, vp, bt, cl)
+    torch.cuda.synchronize()
+    assert counts.get("paged_attention") == before + 1
+    _held("paged_attention", got, _paged_plain((q, kp, vp, bt, cl)), dtype)
