@@ -31,17 +31,21 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    widened shapes: bf16 flash at head_dim 16, 32 and 96, the fp32 flash
    kernel at llama2-7b's and qwen3-14b's 1024-token prefills (SDPA on
    the same fp32 tensors beside it), paged at head_dim 16 and 32, group
-   6, multi-query 16/1 and 32/1, and in fp32 at llama2-7b's decode; the
+   6, multi-query 16/1 and 32/1, and in fp32 at llama2-7b's decode; in
+   fp16 (the bf16 kernels' templates) paged at llama2-7b's decode and
+   at head_dim 16 (32/8) and 80 (32/32), flash at llama2-7b's and
+   qwen3-14b's 1024-token prefills and at head_dim 16 and 80; the
    SSD scan also at zamba2-2.7b's prefill (80 heads, N 64) and at the
    training CLI's mamba2-130m shape (B 4, S 1024); then every case of
    the reference's tests/test_kernels.py flash, softcap, paged and
    permutation tests at its shape, dtype, causal flag and softcap
    (inputs drawn with numpy), with group 6, 16/1 and 32/1 paged at D
-   128, fp32 flash at S 1024 (32/32, 40/8) and bf16 flash at D 96, each
+   128, fp32 flash at S 1024 (32/32, 40/8), bf16 flash at D 96, and the
+   reference's bf16 flash and paged cases once more in fp16, each
    launched through the kernel (counted) and held to its plain version
    on the card within the reference test's elementwise tolerance (2e-5
-   fp32, 2.5e-2 bf16 flash, 3e-2 bf16 paged) and the row limit, the two
-   permuted outputs within 1e-5;
+   fp32, 2.5e-2 bf16 flash, 3e-2 bf16 paged; fp16 held to bf16's) and
+   the row limit, the two permuted outputs within 1e-5;
 4. serving: llama2-7b at full width and depth (random weights from
    ``init_params(seed=0)``) behind ``ServingEngine``, 16 requests of
    64-1024 prompt tokens and 32 output tokens, on the kernel path; the
@@ -68,7 +72,10 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    step), its first-token and decode-step logits against the plain
    routes within 1e-4 (largest error and L2, over the plain route's),
    the graphed decode-step and 1024-token prefill profiles and the peak
-   memory.  opt-13b (learned positions, LayerNorm, GELU; MHA 40/40)
+   memory; then the same in fp16 (13.5 GB of weights; the dtype of
+   llama2-7b's published checkpoint) through both kernels' fp16
+   instances, its logits within ``LOGIT_LIMITS[torch.float16]`` of the
+   plain routes.  opt-13b (learned positions, LayerNorm, GELU; MHA 40/40)
    and qwen3-14b (qk-norm, GQA 40/8) at full width and depth run the
    main path (one graphed engine on the kernel routes), the two logit
    comparisons and the profiles; so do granite-moe-3b (MoE, 40 experts
@@ -191,13 +198,18 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    1000 requests at 8 QPS) twice, each in its own process: the two
    summaries must be equal apart from the host's wall time; a third
    process imports the port's simulator, sweep and CLI and must load
-   nothing of jax or of the reference package;
+   nothing of jax or of the reference package; then the five
+   simulator-only examples (quickstart, multi_tenant,
+   disaggregated_serving, speculative, observability), each ``main()``
+   in this process: its wall and its lines, as many as the reference's;
 12. the script's total seconds, the ``kernels`` JSON line (each
    kernel's launches summed over the main paths that run it, the
    sharded phases' and the serve-then-simulate example's kernel routes
    among them, with ``launches_by_path``; its times at
    the llama2-7b case; the fp32 flash kernel a line of its own, its
-   launches those of the fp32 llama2-7b run), then the result line.
+   launches those of the fp32 llama2-7b run; the fp16 run's launches
+   under the paged and flash lines' ``llama2-7b-float16`` path), then
+   the result line.
 
 Without a CUDA device, or without the rest of the checkout, it fails
 before printing a result.
@@ -209,6 +221,7 @@ import ctypes
 import dataclasses
 import functools
 import gc
+import importlib
 import io
 import json
 import os
@@ -261,10 +274,12 @@ from repro_torch.training.data import DataConfig  # noqa: E402
 from repro_torch.training.optimizer import AdamWConfig  # noqa: E402
 from repro_torch.training.trainer import TrainConfig, Trainer  # noqa: E402
 
-# H100 SXM published peaks (NVIDIA data sheet, dense): bf16 on the tensor
-# cores, fp32 as FMAs on the CUDA cores, and TF32 on the tensor cores
+# H100 SXM published peaks (NVIDIA data sheet, dense): bf16 and fp16 on
+# the tensor cores, fp32 as FMAs on the CUDA cores, and TF32 on the tensor
+# cores
 PEAK_BYTES_S = 3.35e12
-PEAK_FLOPS_S = {torch.bfloat16: 989e12, torch.float32: 67e12}
+PEAK_FLOPS_S = {torch.bfloat16: 989e12, torch.float16: 989e12,
+                torch.float32: 67e12}
 PEAK_TF32_S = 495e12
 #: TF32 products an fp32-grade product takes on the tensor cores
 #: (3xTF32: each operand split into hi + lo, hi·hi + hi·lo + lo·hi)
@@ -276,8 +291,9 @@ TF32_SPLIT_PRODUCTS = 3
 #: weights; a kernel that drops one attended position, or reads one too
 #: many, is caught on rows thousands of positions long.  The limit lies
 #: between the two readings (PERF.md, PR 11; the planted faults are in
-#: tests/test_torch_kernels_cuda.py).
-REL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+#: tests/test_torch_kernels_cuda.py).  fp16 rounds as finely or more
+#: finely (10 mantissa bits to bf16's 7) and is held to the same limit.
+REL_TOL = {torch.bfloat16: 1e-2, torch.float16: 1e-2, torch.float32: 1e-4}
 #: logits, kernel path vs plain path (first tokens of the served
 #: requests, and one decode step of a full batch), per row, relative
 #: to the plain path's largest |logit| (max) and norm (L2).  bf16 through
@@ -289,8 +305,12 @@ LOGIT_REL_MAX = 0.1
 LOGIT_REL_L2 = 0.1
 #: (max, L2) logit limits by the model's compute dtype: in fp32 both
 #: attention routes compute in fp32 and differ in summation order only,
-#: so the kernels' fp32 row limit holds the logits
+#: so the kernels' fp32 row limit holds the logits; fp16 rounds where
+#: bf16 does with 3 more mantissa bits, so its differences are about 8x
+#: smaller than bf16's (llama2-7b's first-token logits at full width
+#: read 0.0252 in bf16; PERF.md §6) and its limit a quarter of bf16's
 LOGIT_LIMITS = {torch.bfloat16: (LOGIT_REL_MAX, LOGIT_REL_L2),
+                torch.float16: (LOGIT_REL_MAX / 4, LOGIT_REL_L2 / 4),
                 torch.float32: (1e-4, 1e-4)}
 
 #: mamba2-130m, kernel route vs ``impl="recurrent"`` on the card, per
@@ -330,12 +350,14 @@ SSD_KERNELS = ("chunk_state_kernel", "state_passing_kernel",
 #: the paged kernel (kernels/csrc/paged_attention.cu; the merge of the
 #: splits is inside it)
 PAGED_KERNELS = ("paged_attn_kernel",)
-#: the flash kernels, bf16 and fp32 (kernels/csrc/flash_attention.cu)
+#: the flash kernels, bf16 and fp16 (one template) and fp32
+#: (kernels/csrc/flash_attention.cu)
 FLASH_KERNELS = ("flash_kernel", "flash_fp32_kernel")
 #: rows of one q tile of the flash kernels by dtype (kBM and f32::kBM,
 #: kernels/csrc/flash_attention.cu): the grid is (heads, batch,
 #: ceil(Sq / kBM))
-FLASH_TILE_Q = {torch.bfloat16: 128, torch.float32: 128}
+FLASH_TILE_Q = {torch.bfloat16: 128, torch.float16: 128,
+                torch.float32: 128}
 
 PAGE = 16
 NUM_BLOCKS = 1024
@@ -636,6 +658,25 @@ def check_kernels():
                    hq=hq, hkv=hkv, dtype=bf16, seed=30 + hq + hkv)
     paged_case("fp32 llama2-7b decode", batch=MAX_BATCH, hq=32, hkv=32,
                dtype=f32, seed=13)
+    # fp16 (the bf16 kernels' templates): llama2-7b's decode and prefill
+    # (the fp16 serving phase's), qwen3-14b's 40/8 prefill, and head_dim
+    # 16 and 80 in both kernels
+    f16 = torch.float16
+    # at the bf16 case's seed: the same lengths, a like-for-like time
+    paged_case("fp16 llama2-7b decode", batch=MAX_BATCH, hq=32, hkv=32,
+               dtype=f16)
+    paged_case("fp16 head_dim 16 decode 32/8", batch=MAX_BATCH, hq=32, hkv=8,
+               d=16, dtype=f16, seed=15)
+    paged_case("fp16 head_dim 80 decode 32/32", batch=MAX_BATCH, hq=32,
+               hkv=32, d=80, dtype=f16, seed=16)
+    flash_case("fp16 llama2-7b causal S=1024", sq=1024, skv=1024, h=32,
+               hkv=32, causal=True, dtype=f16, seed=12)
+    flash_case("fp16 qwen3-14b causal S=1024", sq=1024, skv=1024, h=40,
+               hkv=8, causal=True, dtype=f16, seed=13)
+    flash_case("fp16 head_dim 16 causal S=1024 32/8", sq=1024, skv=1024,
+               h=32, hkv=8, d=16, causal=True, dtype=f16, seed=14)
+    flash_case("fp16 head_dim 80 causal S=1024 32/32", sq=1024, skv=1024,
+               h=32, hkv=32, d=80, causal=True, dtype=f16, seed=15)
     # the rows of the kernels line: the serving path's shapes
     return paged[0], flash[PROMPT_RANGE[1]], flash32
 
@@ -658,6 +699,10 @@ REF_FLASH_CASES = [
      torch.float32),
     ("bf16 head_dim 96 causal S=1024", 1, 1024, 1024, 32, 32, 96, True, 0.0,
      torch.bfloat16),
+    # the reference's bf16 case once more in fp16 (its wrapper takes any
+    # dtype; its tests run no fp16 case)
+    ("FLASH_CASES[1] in fp16", 1, 256, 256, 4, 4, 64, True, 0.0,
+     torch.float16),
 ]
 #: paged: (name, b, hq, hkv, d, npages, page, mp, dtype)
 REF_PAGED_CASES = [
@@ -671,13 +716,16 @@ REF_PAGED_CASES = [
      MAX_PAGES, torch.bfloat16),
     ("multi-query 32/1 d128", MAX_BATCH, 32, 1, 128, NUM_BLOCKS + 1, PAGE,
      MAX_PAGES, torch.bfloat16),
+    ("PAGED_CASES[2] in fp16", 2, 4, 4, 64, 16, 16, 3, torch.float16),
 ]
 #: tests/test_kernels.py's elementwise tolerances (rtol = atol) by kernel
-#: and dtype
+#: and dtype; it has none for fp16, which is held to bf16's
 REF_TOL = {("flash_attention", torch.float32): 2e-5,
            ("flash_attention", torch.bfloat16): 2.5e-2,
+           ("flash_attention", torch.float16): 2.5e-2,
            ("paged_attention", torch.float32): 2e-5,
-           ("paged_attention", torch.bfloat16): 3e-2}
+           ("paged_attention", torch.bfloat16): 3e-2,
+           ("paged_attention", torch.float16): 3e-2}
 #: the permutation test's limit between its two outputs
 PERMUTATION_TOL = 1e-5
 
@@ -790,7 +838,8 @@ def check_reference_cases():
           worst_err_over_tol=max(r["max_err_over_tol"] for r in recs),
           worst_rel_err={str(dt): max((r["max_rel_err"] for r in recs
                                        if r["dtype"] == str(dt)), default=None)
-                         for dt in (torch.bfloat16, torch.float32)})
+                         for dt in (torch.bfloat16, torch.float16,
+                                    torch.float32)})
     if ratio > 1:
         raise AssertionError(f"the permuted tables differ: {ratio} of the "
                              f"tolerance")
@@ -1339,7 +1388,8 @@ def compare_logits(label, got, want, vocab, routing=None,
     errs = {True: [], False: []}
     argmax_same = 0
     for a, b, same in zip(got, want, agree):
-        if not (torch.isfinite(a).all() and a.shape == (vocab,)):
+        if not (torch.isfinite(a).all() and torch.isfinite(b).all()
+                and a.shape == b.shape == (vocab,)):
             raise AssertionError(f"{label}: logits not finite or misshapen")
         err = float((a - b).abs().max())
         errs[same].append((err, err / float(b.abs().max()),
@@ -2386,18 +2436,20 @@ def ptxas_entries(lib):
 
 def flash_resources():
     """Per (dtype, head_dim) instance of the flash kernels and the width
-    of its P·V product (bf16: the tile width it runs in; fp32: the rows of
-    its Vᵀ tiles; both 64 up to head_dim 64 and 128 above):
+    of its P·V product (bf16 and fp16: the tile width they run in; fp32:
+    the rows of its Vᵀ tiles; all 64 up to head_dim 64 and 128 above):
     ``ptxas_entries`` and the dynamic shared memory a block takes."""
     lib = build.load("flash_attention")
     lib.flash_attention_smem_bytes.argtypes = [ctypes.c_int] * 2
     out = []
     for e in ptxas_entries("flash_attention"):
         name = e.pop("entry")
-        bf16 = re.search(r"flash_kernelILi(\d+)ELi(\d+)E", name)
+        half = re.search(r"flash_kernelI(\w+?)Li(\d+)ELi(\d+)E", name)
         fp32 = re.search(r"flash_fp32_kernelILi(\d+)E", name)
-        if bf16:
-            dtype, code, (tile, d) = "bfloat16", 1, map(int, bf16.groups())
+        if half:
+            dtype, code = (("bfloat16", 1) if "bfloat16" in half.group(1)
+                           else ("float16", 2))
+            tile, d = int(half.group(2)), int(half.group(3))
         elif fp32:
             dtype, code, d = "float32", 0, int(fp32.group(1))
             tile = 64 if d <= 64 else 128
@@ -2420,8 +2472,10 @@ def paged_resources():
         m = re.search(r"paged_attn_kernelI(\w+?)Li(\d+)ELi(\d+)ELb([01])E",
                       e.pop("entry"))
         if m:
-            out.append({"dtype": "bfloat16" if "bfloat16" in m.group(1)
-                        else "float32", "head_dim": int(m.group(2)),
+            t = m.group(1)
+            out.append({"dtype": "bfloat16" if "bfloat16" in t else
+                        "float16" if "half" in t else "float32",
+                        "head_dim": int(m.group(2)),
                         "group": int(m.group(3)),
                         "chunked": m.group(4) == "1", **e})
     if not out:
@@ -3150,6 +3204,46 @@ def check_sharded(unsharded_training):
 
 SIM_ARGS = ("--arch", "llama2-7b", "--hw", "A100", "--requests", "1000",
             "--qps", "8", "--seed", "0")
+#: the simulator-only examples (``python -m repro_torch.examples.<name>``)
+#: and the lines each prints (tests/test_torch_examples.py holds them to
+#: the reference's, line for line)
+SIM_EXAMPLES = {"quickstart": 19, "multi_tenant": 10,
+                "disaggregated_serving": 9, "speculative": 4,
+                "observability": 25}
+WALL_FIGURE = re.compile(r"in \d+\.\d+s wall")
+
+
+def check_simulator_examples():
+    """Run each simulator-only example's ``main()`` in this process, on
+    the card's host, in a directory of the build tree (``observability``
+    writes ``results/obs/`` under the working directory): its wall, its
+    lines (the wall figure masked), which must be as many as the
+    reference's, and ``observability``'s two files."""
+    out_dir = Path(__file__).resolve().parent / "build" / \
+        "repro_torch_examples"
+    out_dir.mkdir(parents=True, exist_ok=True)
+    walls = {}
+    for name, n_lines in SIM_EXAMPLES.items():
+        module = importlib.import_module(f"repro_torch.examples.{name}")
+        buf = io.StringIO()
+        t0 = time.perf_counter()
+        with contextlib.chdir(out_dir), contextlib.redirect_stdout(buf):
+            module.main()
+        walls[name] = time.perf_counter() - t0
+        lines = WALL_FIGURE.sub("in <wall>s wall", buf.getvalue()).splitlines()
+        files = {}
+        if name == "observability":
+            obs = out_dir / module.OUT_DIR
+            files = {f: (obs / f).stat().st_size
+                     for f in ("example_trace.json",
+                               "example_timeseries.csv")}
+        phase(f"simulator_example_{name}", seconds=walls[name],
+              lines=lines, files_bytes=files)
+        if len(lines) != n_lines:
+            raise AssertionError(f"example {name} printed {len(lines)} "
+                                 f"lines, expected {n_lines}")
+    phase("simulator_examples", examples=len(walls), seconds=walls,
+          total_seconds=sum(walls.values()))
 
 
 def check_simulator():
@@ -3415,6 +3509,9 @@ PAGED_MODELS = ("llama2-7b", "opt-13b", "qwen3-14b", "granite-moe-3b-a800m",
 FP32_ARCH = "llama2-7b"
 FP32_REQUESTS = 8
 FP32_OUTPUT_LEN = 16
+#: and once more in fp16 (the dtype of llama2-7b's published checkpoint),
+#: as many requests of as many tokens: both kernels in fp16
+FP16_ARCH = "llama2-7b"
 #: those that also run eager against graphed engines and the plain path
 FULL_PHASE_SET = {"llama2-7b"}
 #: the MoE model that also serves one request set on the ``sort`` route
@@ -3463,6 +3560,8 @@ def main():
             free_memory()
         served_fp32 = check_serving(FP32_ARCH, dtype="float32")["launches"]
         free_memory()
+        served_fp16 = check_serving(FP16_ARCH, dtype="float16")["launches"]
+        free_memory()
         # stablelm-3b (head_dim 80) on the paged path, then its 4096-token
         # prefill on the blocked route, on the same weights
         params = zoo.init_params(zoo.build(get_config(BLOCKED_ARCH)),
@@ -3480,6 +3579,7 @@ def main():
     ssd_train, llama_train = check_training()
     sharded_flash, sharded_ssd = check_sharded(llama_train)
     check_simulator()
+    check_simulator_examples()
 
     kernels = []
     # the main paths' runs: each paged model's, the serve-then-simulate
@@ -3492,6 +3592,10 @@ def main():
     by_path["paged_attention"][fp32_path] = served_fp32["paged_attention"]
     by_path["flash_attention_fp32"] = {
         fp32_path: served_fp32["flash_attention"]}
+    # the fp16 run: its kernels are the bf16 ones' fp16 instances
+    fp16_path = f"{FP16_ARCH}-float16"
+    for name in ("paged_attention", "flash_attention"):
+        by_path[name][fp16_path] = served_fp16[name]
     by_path["flash_attention"][WHISPER_ARCH] = \
         whisper["launches"]["flash_attention"]
     by_path["flash_attention"][HYBRID_ARCH] = \

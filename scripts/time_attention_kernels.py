@@ -5,15 +5,19 @@ Usage, from the root of a checkout on a machine with an H100:
     python3 scripts/time_attention_kernels.py [--root DIR]
 
 Imports ``chip_smoke.py`` of the checkout at ``--root`` (default: this
-one; the script puts that checkout's ``src`` first on the path) and runs
-its ``paged_case`` at llama2-7b's decode (B 8, 32/32 heads, head_dim
-128, bf16) and qwen3-14b's (40/8), and its ``flash_case`` at a causal
-1024-token prefill (32/32, head_dim 128) in bf16 and in fp32, ``ROUNDS``
-times each.
+one; the script puts that checkout's ``src`` first on the path), first
+builds each of its kernel sources alone into a fresh directory, timing
+each build (a source of parts builds them in parallel, as
+``chip_smoke.py``'s build does), then runs its ``paged_case`` at
+llama2-7b's decode (B 8, 32/32 heads, head_dim 128, bf16) and
+qwen3-14b's (40/8), and its ``flash_case`` at a causal 1024-token
+prefill (32/32, head_dim 128) in bf16 and in fp32, and in fp16 where the
+checkout's kernels take it, ``ROUNDS`` times each.
 Each case prints its own phase line; the last line is one JSON object:
-the card, each case's kernel ms (CUDA events, the card's queue filled
-ahead) by round and their median, and the registers and spills
-(``ptxas -v``) of the bf16 paged kernels at head_dim 128.
+the card, each source's build seconds, each case's kernel ms (CUDA
+events, the card's queue filled ahead) by round and their median, and
+the registers and spills (``ptxas -v``) of the bf16 paged kernels at
+head_dim 128.
 
 To compare two checkouts, run it on each in turns in one call (parent,
 change, change, parent): times from two cards differ.
@@ -26,6 +30,7 @@ import json
 import statistics
 import subprocess
 import sys
+import time
 from pathlib import Path
 
 ROUNDS = 5
@@ -44,7 +49,17 @@ def main(argv=None):
     card = subprocess.run(["nvidia-smi", "--query-gpu=name,power.limit",
                            "--format=csv,noheader"], capture_output=True,
                           text=True, check=True, timeout=60).stdout.strip()
-    bf16 = torch.bfloat16
+    build = smoke.build
+    build.BUILD_DIR = build.BUILD_DIR.with_name("repro_torch_kernels_timed")
+    if build.BUILD_DIR.exists():
+        for old in build.BUILD_DIR.iterdir():
+            old.unlink()
+    build_s = {}
+    for name in build.sources():
+        t0 = time.perf_counter()
+        build.build([name])
+        build_s[name] = time.perf_counter() - t0
+    bf16, f16 = torch.bfloat16, torch.float16
     cases = {
         "paged llama2-7b decode": lambda: smoke.paged_case(
             "llama2-7b decode", batch=8, hq=32, hkv=32, dtype=bf16),
@@ -57,13 +72,19 @@ def main(argv=None):
             "fp32 llama2-7b causal S=1024", sq=1024, skv=1024, h=32, hkv=32,
             causal=True, dtype=torch.float32, seed=10),
     }
+    if f16 in smoke.paged_ops.DTYPES and f16 in smoke.flash_ops.DTYPES:
+        cases["paged fp16 llama2-7b decode"] = lambda: smoke.paged_case(
+            "fp16 llama2-7b decode", batch=8, hq=32, hkv=32, dtype=f16)
+        cases["flash fp16 causal S=1024"] = lambda: smoke.flash_case(
+            "fp16 llama2-7b causal S=1024", sq=1024, skv=1024, h=32, hkv=32,
+            causal=True, dtype=f16, seed=12)
     times = {name: [] for name in cases}
     with torch.no_grad():
         for _ in range(ROUNDS):
             for name, case in cases.items():
                 times[name].append(case()["kernel_ms"])
     print(json.dumps({
-        "card": card, "root": str(root),
+        "card": card, "root": str(root), "build_s": build_s,
         "kernel_ms": {n: {"rounds": t, "median": statistics.median(t)}
                       for n, t in times.items()},
         "paged_registers_bf16_d128": [

@@ -27,8 +27,9 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-Xcompiler", "-fPIC", "-lineinfo", "-Xptxas", "-v"]
 #: a source's declaration of the objects it is built as, in parallel
 #: (``-DREPRO_PART=0`` .. ``n-1``, each holding a share of its kernels),
-#: then linked into one library: the paged source's kernels take about
-#: 93 s in one nvcc on the H100 machine.  (``--split-compile`` builds
+#: then linked into one library: the paged source's 256 bf16 and fp32
+#: kernels took about 93 s in one nvcc on an H100 host, its 384 with fp16
+#: 75-79 s in four parts.  (``--split-compile`` builds
 #: faster too, but made the paged kernel 7.7% slower at llama2-7b's
 #: decode; PERF.md.)
 PARTS_DECL = re.compile(rb"^constexpr int kParts = (\d+);", re.M)

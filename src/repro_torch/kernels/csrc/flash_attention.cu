@@ -10,9 +10,13 @@
 // optionally soft-capped (tanh(s/c)*c) before masking.  Causal masking is
 // top-left aligned, qpos >= kpos, as in the Pallas kernel; positions
 // kpos >= Skv are always masked, so ragged lengths need no padding by the
-// caller.  Two kernels, one a dtype, each at every head_dim D that is a
-// multiple of 16 from 16 to 128:
-// - bf16: flash_kernel below (TMA + wgmma).  D 16, 32 and 48 run its
+// caller.  Two kernels, each at every head_dim D that is a multiple of 16
+// from 16 to 128:
+// - bf16 and fp16: flash_kernel<T, ...> below (TMA + wgmma), one
+//   template for both 2-byte types, which differ only in the wgmma
+//   instruction's input type (.bf16 or .f16), P's packing, the output's
+//   rounding and the TMA maps' data type; tiles, shared memory and
+//   registers are the same.  D 16, 32 and 48 run its
 //   D-64 tiles, D 80, 96 and 112 its D-128 tiles: the TMA maps span the
 //   real D columns, so the box that holds column D-1 fills the columns
 //   past D with zeros, which change neither Q·K^T (its 16-column steps
@@ -30,6 +34,14 @@
 // attended (q,k) pair, about Sq·Skv/2 pairs, over 989 TFLOP/s of bf16
 // tensor cores).  Met in practice: the tensor cores' rate, and below 512
 // tokens the host's cost of a call (PERF.md).
+//
+// Precision of the 2-byte kernels: S and O accumulate in fp32 in either
+// type.  P is rounded to the input type before P·V: fp16 keeps 10
+// mantissa bits of each probability where bf16 keeps 7, but keeps those
+// below 2^-14 with fewer bits and rounds those below 2^-25 to zero
+// (fp16's smallest subnormal is 2^-24), where bf16's 8-bit exponent
+// keeps them; l, the softmax's denominator, sums the unrounded fp32
+// values in both.  The output is rounded once, to the input type.
 //
 // What the bf16 design does about it (FlashAttention-3's shape, without
 // its overlap tricks):
@@ -66,6 +78,7 @@
 // warpgroups, a persistent tile scheduler, a TMA store of O, and fp8.
 #include <cuda.h>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
@@ -78,7 +91,7 @@ constexpr int kBM = 128;          // q rows per block, 64 per consumer warpgroup
 constexpr int kBN = 128;          // kv rows per tile
 constexpr int kStages = 2;        // depth of the K/V ring
 constexpr int kThreads = 384;     // producer warpgroup + two consumers
-constexpr int kBoxCols = 64;      // bf16 columns of a TMA box: 128 bytes
+constexpr int kBoxCols = 64;      // 2-byte columns of a TMA box: 128 bytes
 constexpr int kBoxBytes = kBN * kBoxCols * 2;
 constexpr int kConsumerWarps = 8;
 constexpr float kLog2e = 1.4426950408889634f;
@@ -87,7 +100,7 @@ constexpr float kLog2e = 1.4426950408889634f;
 // 128-byte swizzle repeats every 1024 bytes).
 template <int D>
 struct Smem {
-  static constexpr int TILE = kBN * D * 2;   // one 128-row tile, bf16
+  static constexpr int TILE = kBN * D * 2;   // one 128-row tile, 2 bytes
   static constexpr int Q = 0;
   static constexpr int K = Q + TILE;
   static constexpr int V = K + kStages * TILE;
@@ -183,111 +196,162 @@ __device__ __forceinline__ float exp2_approx(float x) {
   return y;
 }
 
-__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
-  __nv_bfloat162 v = __floats2bfloat162_rn(lo, hi);
+// The 2-byte element types of flash_kernel: a pair of them from two
+// fp32 values (rounded to nearest), and the TMA maps' data type.
+template <typename T>
+struct Elem;
+
+template <>
+struct Elem<__nv_bfloat16> {
+  using Pair = __nv_bfloat162;
+  static constexpr CUtensorMapDataType kMap = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  static __device__ __forceinline__ Pair pair(float lo, float hi) {
+    return __floats2bfloat162_rn(lo, hi);
+  }
+};
+
+template <>
+struct Elem<__half> {
+  using Pair = __half2;
+  static constexpr CUtensorMapDataType kMap = CU_TENSOR_MAP_DATA_TYPE_FLOAT16;
+  static __device__ __forceinline__ Pair pair(float lo, float hi) {
+    return __floats2half2_rn(lo, hi);
+  }
+};
+
+template <typename T>
+__device__ __forceinline__ uint32_t pack(float lo, float hi) {
+  typename Elem<T>::Pair v = Elem<T>::pair(lo, hi);
   return *reinterpret_cast<uint32_t*>(&v);
 }
 
+template <typename T>
+constexpr bool kHalf = std::is_same<T, __half>::value;
+
+// The 2-byte kernel's three wgmma products, each below as the asm
+// statement of an input type AB ("bf16" or "f16"), which the instruction
+// names, and a function of T that picks one.
+#define FLASH_WGMMA_SS_N128(AB)                                          \
+  asm volatile(                                                          \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"                       \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." AB "." AB " "       \
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"                                 \
+      " %8, %9, %10, %11, %12, %13, %14, %15,"                           \
+      " %16, %17, %18, %19, %20, %21, %22, %23,"                         \
+      " %24, %25, %26, %27, %28, %29, %30, %31,"                         \
+      " %32, %33, %34, %35, %36, %37, %38, %39,"                         \
+      " %40, %41, %42, %43, %44, %45, %46, %47,"                         \
+      " %48, %49, %50, %51, %52, %53, %54, %55,"                         \
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "                       \
+      "%64, %65, p, 1, 1, 0, 0;\n}\n"                                    \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),      \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),      \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), \
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), \
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), \
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), \
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), \
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])               \
+      : "l"(da), "l"(db), "r"(scale_d)                                   \
+      : "memory")
+
 // D (64 x 128, fp32) (+)= A (64 x 16, smem) * B (128 x 16, smem)^T, both
 // K-major with the 128-byte swizzle; scale_d 0 overwrites D.
+template <typename T>
 __device__ __forceinline__ void wgmma_ss_n128(float (&d)[64], uint64_t da,
                                             uint64_t db, int scale_d) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %66, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39,"
-      " %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55,"
-      " %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "%64, %65, p, 1, 1, 0, 0;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db), "r"(scale_d)
-      : "memory");
+  if constexpr (kHalf<T>)
+    FLASH_WGMMA_SS_N128("f16");
+  else
+    FLASH_WGMMA_SS_N128("bf16");
 }
 
-// D (64 x 128, fp32) += A (64 x 16, bf16 registers) * B (16 x 128, smem),
+#define FLASH_WGMMA_RS_N128(AB)                                          \
+  asm volatile(                                                          \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"                       \
+      "wgmma.mma_async.sync.aligned.m64n128k16.f32." AB "." AB " "       \
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"                                 \
+      " %8, %9, %10, %11, %12, %13, %14, %15,"                           \
+      " %16, %17, %18, %19, %20, %21, %22, %23,"                         \
+      " %24, %25, %26, %27, %28, %29, %30, %31,"                         \
+      " %32, %33, %34, %35, %36, %37, %38, %39,"                         \
+      " %40, %41, %42, %43, %44, %45, %46, %47,"                         \
+      " %48, %49, %50, %51, %52, %53, %54, %55,"                         \
+      " %56, %57, %58, %59, %60, %61, %62, %63}, "                       \
+      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"                      \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),      \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),      \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), \
+        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), \
+        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]), \
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), \
+        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]), \
+        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), \
+        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), \
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])               \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)      \
+      : "memory")
+
+// D (64 x 128, fp32) += A (64 x 16, T registers) * B (16 x 128, smem),
 // B MN-major (transposed) with the 128-byte swizzle.
+template <typename T>
 __device__ __forceinline__ void wgmma_rs_n128(float (&d)[64],
                                             const uint32_t (&a)[4],
                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %69, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31,"
-      " %32, %33, %34, %35, %36, %37, %38, %39,"
-      " %40, %41, %42, %43, %44, %45, %46, %47,"
-      " %48, %49, %50, %51, %52, %53, %54, %55,"
-      " %56, %57, %58, %59, %60, %61, %62, %63}, "
-      "{%64, %65, %66, %67}, %68, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31]), "+f"(d[32]), "+f"(d[33]), "+f"(d[34]),
-        "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]),
-        "+f"(d[45]), "+f"(d[46]), "+f"(d[47]), "+f"(d[48]), "+f"(d[49]),
-        "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]),
-        "+f"(d[55]), "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)
-      : "memory");
+  if constexpr (kHalf<T>)
+    FLASH_WGMMA_RS_N128("f16");
+  else
+    FLASH_WGMMA_RS_N128("bf16");
 }
 
-// D (64 x 64, fp32) += A (64 x 16, bf16 registers) * B (16 x 64, smem),
+#define FLASH_WGMMA_RS_N64(AB)                                           \
+  asm volatile(                                                          \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"                       \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." AB "." AB " "        \
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"                                 \
+      " %8, %9, %10, %11, %12, %13, %14, %15,"                           \
+      " %16, %17, %18, %19, %20, %21, %22, %23,"                         \
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "                       \
+      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"                      \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),      \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),      \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), \
+        "+f"(d[30]), "+f"(d[31])                                         \
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)      \
+      : "memory")
+
+// D (64 x 64, fp32) += A (64 x 16, T registers) * B (16 x 64, smem),
 // B MN-major (transposed) with the 128-byte swizzle.
+template <typename T>
 __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
                                             const uint32_t (&a)[4],
                                             uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %37, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7,"
-      " %8, %9, %10, %11, %12, %13, %14, %15,"
-      " %16, %17, %18, %19, %20, %21, %22, %23,"
-      " %24, %25, %26, %27, %28, %29, %30, %31}, "
-      "{%32, %33, %34, %35}, %36, p, 1, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
-        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
-        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]),
-        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]),
-        "+f"(d[30]), "+f"(d[31])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)
-      : "memory");
+  if constexpr (kHalf<T>)
+    FLASH_WGMMA_RS_N64("f16");
+  else
+    FLASH_WGMMA_RS_N64("bf16");
 }
 
 
 // O += P·V for one 16-row slice of the tile's keys.
-template <int D>
+template <typename T, int D>
 __device__ __forceinline__ void pv(float (&o)[D / 2], const uint32_t (&p)[4],
                                    uint64_t dv) {
   if constexpr (D == 128)
-    wgmma_rs_n128(o, p, dv);
+    wgmma_rs_n128<T>(o, p, dv);
   else
-    wgmma_rs_n64(o, p, dv);
+    wgmma_rs_n64<T>(o, p, dv);
 }
 
 __device__ __forceinline__ int kv_tiles(int q0, int skv, int causal) {
@@ -296,16 +360,17 @@ __device__ __forceinline__ int kv_tiles(int q0, int skv, int causal) {
   return n;
 }
 
-// D: the tile width (64 or 128); DV: the tensors' head_dim (D, or a
-// narrower multiple of 16 whose last live column lies in the tile's last
-// box), the row stride of out and the columns stored.
-template <int D, int DV>
+// T: the element type (__nv_bfloat16 or __half); D: the tile width (64
+// or 128); DV: the tensors' head_dim (D, or a narrower multiple of 16
+// whose last live column lies in the tile's last box), the row stride of
+// out and the columns stored.
+template <typename T, int D, int DV>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_kernel(const __grid_constant__ CUtensorMap tq,
              const __grid_constant__ CUtensorMap tk,
-             const __grid_constant__ CUtensorMap tv,
-             __nv_bfloat16* __restrict__ out, int sq, int skv, int h, int hkv,
-             int causal, float scale, float softcap) {
+             const __grid_constant__ CUtensorMap tv, T* __restrict__ out,
+             int sq, int skv, int h, int hkv, int causal, float scale,
+             float softcap) {
   using L = Smem<D>;
   constexpr int kBoxes = D / kBoxCols;
   extern __shared__ __align__(1024) unsigned char smem[];
@@ -391,7 +456,7 @@ flash_kernel(const __grid_constant__ CUtensorMap tq,
 #pragma unroll
     for (int kk = 0; kk < (DV + 15) / 16; ++kk) {
       const uint32_t off = (kk / 4) * kBoxBytes + (kk % 4) * 32;
-      wgmma_ss_n128(s, sw128_desc(q_tile + off, 16, 1024),
+      wgmma_ss_n128<T>(s, sw128_desc(q_tile + off, 16, 1024),
                     sw128_desc(k_tile + off, 16, 1024), kk > 0);
     }
     wgmma_commit();
@@ -438,7 +503,7 @@ flash_kernel(const __grid_constant__ CUtensorMap tq,
         o[4 * j + 2 * i + 1] *= alpha;
       }
     }
-    // P in bf16 as the A operand: registers 8kk .. 8kk+7 of S are the
+    // P in T as the A operand: registers 8kk .. 8kk+7 of S are the
     // fragment of keys 16kk .. 16kk+15, in order.
     uint32_t p[kBN / 16][4];
 #pragma unroll
@@ -448,7 +513,7 @@ flash_kernel(const __grid_constant__ CUtensorMap tq,
         const float p0 = exp2_approx(s[8 * kk + 2 * r] - mu[r % 2]);
         const float p1 = exp2_approx(s[8 * kk + 2 * r + 1] - mu[r % 2]);
         l[r % 2] += p0 + p1;
-        p[kk][r] = pack_bf16(p0, p1);
+        p[kk][r] = pack<T>(p0, p1);
       }
     }
 
@@ -458,7 +523,8 @@ flash_kernel(const __grid_constant__ CUtensorMap tq,
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < kBN / 16; ++kk)
-      pv<D>(o, p[kk], sw128_desc(v_tile + kk * 16 * 128, kBoxBytes, 1024));
+      pv<T, D>(o, p[kk],
+               sw128_desc(v_tile + kk * 16 * 128, kBoxBytes, 1024));
     wgmma_commit();
     wgmma_wait0();
     keep(o);
@@ -466,7 +532,7 @@ flash_kernel(const __grid_constant__ CUtensorMap tq,
     if (lane == 0) mbar_arrive(empty + 8 * stage);   // the stage is free
   }
 
-  // Epilogue: O / l in bf16, rows past Sq and columns past DV not
+  // Epilogue: O / l in T, rows past Sq and columns past DV not
   // stored; rows DV apart.
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -478,12 +544,11 @@ flash_kernel(const __grid_constant__ CUtensorMap tq,
     const int qpos = q0 + row0 + 8 * i;
     if (qpos >= sq) continue;
     const float inv = 1.f / l[i];
-    __nv_bfloat16* dst = out + (((size_t)blockIdx.y * sq + qpos) * h + head)
-                         * DV + cq;
+    T* dst = out + (((size_t)blockIdx.y * sq + qpos) * h + head) * DV + cq;
 #pragma unroll
     for (int j = 0; j < DV / 8; ++j)
-      *reinterpret_cast<__nv_bfloat162*>(dst + 8 * j) = __floats2bfloat162_rn(
-          o[4 * j + 2 * i] * inv, o[4 * j + 2 * i + 1] * inv);
+      *reinterpret_cast<typename Elem<T>::Pair*>(dst + 8 * j) =
+          Elem<T>::pair(o[4 * j + 2 * i] * inv, o[4 * j + 2 * i + 1] * inv);
   }
 }
 
@@ -530,26 +595,28 @@ bool tensor_map(CUtensorMap* map, const void* ptr, int batch, int s,
                 CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
-template <int D, int DV = D>
+template <typename T, int D, int DV = D>
 int launch(const void* q, const void* k, const void* v, void* out, int batch,
            int sq, int skv, int h, int hkv, int causal, float scale,
            float softcap, cudaStream_t stream) {
   static_assert(DV % 16 == 0 && DV <= D && D - DV < kBoxCols,
                 "the last box holds the last live column");
-  constexpr CUtensorMapDataType kBf16 = CU_TENSOR_MAP_DATA_TYPE_BFLOAT16;
+  static_assert(sizeof(T) == 2, "the 2-byte kernel");
+  constexpr CUtensorMapDataType kMap = Elem<T>::kMap;
   CUtensorMap tq, tk, tv;
-  if (!tensor_map(&tq, q, batch, sq, h, DV, kBf16, 2, kBoxCols, kBM) ||
-      !tensor_map(&tk, k, batch, skv, hkv, DV, kBf16, 2, kBoxCols, kBN) ||
-      !tensor_map(&tv, v, batch, skv, hkv, DV, kBf16, 2, kBoxCols, kBN))
+  if (!tensor_map(&tq, q, batch, sq, h, DV, kMap, 2, kBoxCols, kBM) ||
+      !tensor_map(&tk, k, batch, skv, hkv, DV, kMap, 2, kBoxCols, kBN) ||
+      !tensor_map(&tv, v, batch, skv, hkv, DV, kMap, 2, kBoxCols, kBN))
     return -2;
   constexpr int smem = Smem<D>::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_kernel<D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+      flash_kernel<T, D, DV>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(h, batch, (sq + kBM - 1) / kBM);
-  flash_kernel<D, DV><<<grid, kThreads, smem, stream>>>(
-      tq, tk, tv, static_cast<__nv_bfloat16*>(out), sq, skv, h, hkv, causal,
-      scale, softcap);
+  flash_kernel<T, D, DV><<<grid, kThreads, smem, stream>>>(
+      tq, tk, tv, static_cast<T*>(out), sq, skv, h, hkv, causal, scale,
+      softcap);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1118,33 +1185,33 @@ int with_head_dim(int d, F&& f) {
   }
 }
 
-// The bf16 kernel's tile width for a head_dim: 64 up to 64, else 128.
-constexpr int bf16_tile(int d) { return d <= 64 ? 64 : 128; }
+// The 2-byte kernel's tile width for a head_dim: 64 up to 64, else 128.
+constexpr int tile_width(int d) { return d <= 64 ? 64 : 128; }
 
 }  // namespace
 
 // Dynamic shared memory of one block for a dtype (0 = float32,
-// 1 = bfloat16) and head_dim, in bytes; -1 for a pair the kernels do not
-// take.
+// 1 = bfloat16, 2 = float16) and head_dim, in bytes; -1 for a pair the
+// kernels do not take.
 extern "C" int flash_attention_smem_bytes(int dtype, int head_dim) {
   return with_head_dim(head_dim, [&](auto d) {
     constexpr int D = decltype(d)::value;
-    return dtype == 0   ? f32::Smem<D>::BYTES
-           : dtype == 1 ? Smem<bf16_tile(D)>::BYTES
-                        : -1;
+    return dtype == 0                 ? f32::Smem<D>::BYTES
+           : dtype == 1 || dtype == 2 ? Smem<tile_width(D)>::BYTES
+                                      : -1;
   });
 }
 
-// dtype: 0 = float32, 1 = bfloat16.  Returns cudaGetLastError() after the
-// launch, -1 for a configuration the kernels do not take, or -2 when a
-// TMA map cannot be encoded.
+// dtype: 0 = float32, 1 = bfloat16, 2 = float16.  Returns
+// cudaGetLastError() after the launch, -1 for a configuration the kernels
+// do not take, or -2 when a TMA map cannot be encoded.
 extern "C" int flash_attention_launch(int dtype, const void* q, const void* k,
                                       const void* v, void* out, int batch,
                                       int sq, int skv, int h, int hkv,
                                       int head_dim, int causal, float scale,
                                       float softcap, void* stream) {
   const int tile_q = dtype == 0 ? f32::kBM : kBM;
-  if ((dtype != 0 && dtype != 1) || batch <= 0 || hkv <= 0 || h % hkv != 0 ||
+  if (dtype < 0 || dtype > 2 || batch <= 0 || hkv <= 0 || h % hkv != 0 ||
       sq <= 0 || skv <= 0 || batch > 65535 ||
       (sq + tile_q - 1) / tile_q > 65535)
     return -1;
@@ -1154,7 +1221,10 @@ extern "C" int flash_attention_launch(int dtype, const void* q, const void* k,
     if (dtype == 0)
       return f32::launch<D>(q, k, v, out, batch, sq, skv, h, hkv, causal,
                             scale, softcap, s);
-    return launch<bf16_tile(D), D>(q, k, v, out, batch, sq, skv, h, hkv,
-                                   causal, scale, softcap, s);
+    if (dtype == 1)
+      return launch<__nv_bfloat16, tile_width(D), D>(
+          q, k, v, out, batch, sq, skv, h, hkv, causal, scale, softcap, s);
+    return launch<__half, tile_width(D), D>(q, k, v, out, batch, sq, skv, h,
+                                            hkv, causal, scale, softcap, s);
   });
 }

@@ -14,10 +14,12 @@
 //
 // Layout: q (B,Hq,D); k/v pages (NP,P,Hkv,D) token-major, read in place
 // (a row of one kv head is D contiguous elements, rows Hkv*D apart);
-// tables (B,MP) int32; lens (B,) int32; out (B,Hq,D).  bf16 or fp32, D
-// any multiple of 16 from 16 to 128, any G, any page size.  A block
-// takes C q heads of one kv head together, C the largest divisor of G
-// up to 8 (C = G up to 8; 8 for multi-query groups such as 16/1 and
+// tables (B,MP) int32; lens (B,) int32; out (B,Hq,D).  fp32, bf16 or
+// fp16, D any multiple of 16 from 16 to 128, any G, any page size; bf16
+// and fp16, both 2 bytes, share every shape below, each widened to fp32
+// exactly as it is read and only the output rounded to its type.  A
+// block takes C q heads of one kv head together, C the largest divisor
+// of G up to 8 (C = G up to 8; 8 for multi-query groups such as 16/1 and
 // 32/1, whose G/C chunks each read their kv head's pages), so the
 // grid's y runs over the Hq/C chunks.  Scratch from the wrapper: ws,
 // fp32, one record of C*(D+2) floats per (sequence, chunk, split);
@@ -48,9 +50,9 @@
 //   zeros.
 // - The ring: every thread copies, with 16-byte cp.async, exactly the K
 //   and V pieces it will read, STAGES steps ahead, into its own slots of
-//   a 32 KB ring in shared memory (4 steps in bf16, the whole split; 2
-//   in fp32).  So K and V of later steps are in flight while a step
-//   computes, V no longer waits for the softmax, and steps need no
+//   a 32 KB ring in shared memory (4 steps in bf16 and fp16, the whole
+//   split; 2 in fp32).  So K and V of later steps are in flight while a
+//   step computes, V no longer waits for the softmax, and steps need no
 //   barrier: a thread waits on its own commit groups only.  Rows at or
 //   past len are zero-filled without a read.  The split's block-table
 //   entries are read into shared memory once.  An SM holds up to 6
@@ -75,6 +77,7 @@
 //   merge overlaps other blocks' loads; the fixed order keeps the
 //   result independent of which block comes last.
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
@@ -142,6 +145,19 @@ __device__ __forceinline__ void unpack<__nv_bfloat16>(const uint4* p, int,
 }
 
 template <>
+__device__ __forceinline__ void unpack<__half>(const uint4* p, int,
+                                               float (&x)[kVec]) {
+  const uint4 u = p[0];
+  const uint32_t w[4] = {u.x, u.y, u.z, u.w};
+#pragma unroll
+  for (int i = 0; i < 4; ++i) {
+    const float2 f = __half22float2(*reinterpret_cast<const __half2*>(&w[i]));
+    x[2 * i] = f.x;
+    x[2 * i + 1] = f.y;
+  }
+}
+
+template <>
 __device__ __forceinline__ void unpack<float>(const uint4* p, int stride,
                                               float (&x)[kVec]) {
   const uint4 a = p[0];
@@ -155,6 +171,17 @@ __device__ __forceinline__ void store(float* p, float v) { *p = v; }
 __device__ __forceinline__ void store(__nv_bfloat16* p, float v) {
   *p = __float2bfloat16(v);
 }
+__device__ __forceinline__ void store(__half* p, float v) {
+  *p = __float2half(v);
+}
+
+// The C interface's code of an element type: 0 = float32, 1 = bfloat16,
+// 2 = float16.
+template <typename T>
+constexpr int kDtype = std::is_same<T, float>::value           ? 0
+                       : std::is_same<T, __nv_bfloat16>::value ? 1
+                                                               : 2;
+static_assert(kDtype<__half> == 2, "fp16 is code 2");
 
 template <typename T, int D, int G, bool CHUNKED>
 __global__ void __launch_bounds__(kThreads)
@@ -468,22 +495,26 @@ int with_heads(int c, F&& f) {
   }
 }
 
-// Calls f with a value-initialised T of a dtype (0 = float32,
-// 1 = bfloat16); -1 for any other.
+// Calls f with a value-initialised T of a dtype (kDtype<T>); -1 for any
+// other.
 template <typename F>
 int with_dtype(int dtype, F&& f) {
-  if (dtype == 0) return f(float{});
-  if (dtype == 1) return f(__nv_bfloat16{});
+  if (dtype == kDtype<float>) return f(float{});
+  if (dtype == kDtype<__nv_bfloat16>) return f(__nv_bfloat16{});
+  if (dtype == kDtype<__half>) return f(__half{});
   return -1;
 }
 
-// The 256 kernels (2 dtypes x 8 head_dims x 1-8 q heads a block x
+// The 384 kernels (3 dtypes x 8 head_dims x 1-8 q heads a block x
 // chunked or not) take minutes to build in one object, so
 // kernels/build.py reads kParts below and builds that many objects of
 // this source in parallel, object P (-DREPRO_PART=P) holding the
 // (dtype, head_dim) pairs with part_of(...) == P, and links them; built
-// without REPRO_PART, one object holds them all.
-constexpr int kParts = 4;
+// without REPRO_PART, one object holds them all.  Six parts of four pairs
+// each: with the flash and SSD sources, eight compiles, one for each core
+// of an 8-core host (four parts of six pairs each took 75-79 s there and
+// set the build's wall; PERF.md).
+constexpr int kParts = 6;
 
 constexpr int part_of(int dtype, int head_dim) {
   return (dtype * 8 + head_dim / 16 - 1) % kParts;
@@ -497,7 +528,7 @@ int launch_in_part(int dtype, int head_dim, int c, const Args& a) {
     using T = decltype(t);
     return with_head_dim(head_dim, [&](auto d) {
       constexpr int D = decltype(d)::value;
-      if constexpr (part_of(std::is_same<T, float>::value ? 0 : 1, D) != P)
+      if constexpr (part_of(kDtype<T>, D) != P)
         return -1;
       else
         return with_heads(c, [&](auto g) {
@@ -514,7 +545,9 @@ template <> int launch_part<0>(int, int, int, const Args&);
 template <> int launch_part<1>(int, int, int, const Args&);
 template <> int launch_part<2>(int, int, int, const Args&);
 template <> int launch_part<3>(int, int, int, const Args&);
-static_assert(kParts == 4, "one launch_part specialisation a part");
+template <> int launch_part<4>(int, int, int, const Args&);
+template <> int launch_part<5>(int, int, int, const Args&);
+static_assert(kParts == 6, "one launch_part specialisation a part");
 
 #if !defined(REPRO_PART) || REPRO_PART == 0
 template <>
@@ -540,15 +573,27 @@ int launch_part<3>(int dtype, int head_dim, int c, const Args& a) {
   return launch_in_part<3>(dtype, head_dim, c, a);
 }
 #endif
+#if !defined(REPRO_PART) || REPRO_PART == 4
+template <>
+int launch_part<4>(int dtype, int head_dim, int c, const Args& a) {
+  return launch_in_part<4>(dtype, head_dim, c, a);
+}
+#endif
+#if !defined(REPRO_PART) || REPRO_PART == 5
+template <>
+int launch_part<5>(int dtype, int head_dim, int c, const Args& a) {
+  return launch_in_part<5>(dtype, head_dim, c, a);
+}
+#endif
 
 }  // namespace paged_attention_cu
 
 #if !defined(REPRO_PART) || REPRO_PART == 0
 using namespace paged_attention_cu;
 
-// Positions per split for a dtype (0 = float32, 1 = bfloat16) and head
-// dim, or -1 for one the kernel does not take.  The grid's x is
-// ceil(max_pages * page / split_len).
+// Positions per split for a dtype (0 = float32, 1 = bfloat16,
+// 2 = float16) and head dim, or -1 for one the kernel does not take.  The
+// grid's x is ceil(max_pages * page / split_len).
 extern "C" int paged_attention_split_len(int dtype, int head_dim) {
   return with_dtype(dtype, [&](auto t) {
     return with_head_dim(head_dim, [&](auto d) {
@@ -576,7 +621,7 @@ extern "C" int paged_attention_launch(int dtype, const void* q, const void* k,
                                       float softcap, void* stream) {
   const int c = paged_attention_heads_per_block(hq, hkv);
   if (c <= 0 || page <= 0 || max_pages <= 0 || batch <= 0 ||
-      batch > 65535 || hq / c > 65535 || (dtype != 0 && dtype != 1) ||
+      batch > 65535 || hq / c > 65535 || dtype < 0 || dtype > 2 ||
       head_dim < 16 || head_dim > 128 || head_dim % 16 != 0)
     return -1;
   const Args a{q, k, v, tables, lens, out, ws, tickets, batch, hq, hkv,
@@ -587,6 +632,8 @@ extern "C" int paged_attention_launch(int dtype, const void* q, const void* k,
     case 1: return launch_part<1>(dtype, head_dim, c, a);
     case 2: return launch_part<2>(dtype, head_dim, c, a);
     case 3: return launch_part<3>(dtype, head_dim, c, a);
+    case 4: return launch_part<4>(dtype, head_dim, c, a);
+    case 5: return launch_part<5>(dtype, head_dim, c, a);
     default: return -1;
   }
 }

@@ -13,25 +13,27 @@ masks ragged lengths itself, so none of the TPU wrapper's padding of the
 sequence to the block and of head_dim to 128 (with its rescaling of q,
 ops.py:53-60) is carried over.
 
-The kernels are written for Hopper and take bf16 and fp32, each at
-every head_dim that is a multiple of 16 from 16 to 128 (``HEAD_DIMS``),
-any GQA group and any lengths.  bf16: TMA loads into a ring of K/V
-tiles, ``wgmma`` products, the softmax in registers; head_dims up to 64
-run its 64-wide tiles and the wider ones its 128-wide tiles, the columns
-past head_dim read as zeros.  fp32: the same shape on TF32 ``wgmma``,
-each product taken as three TF32 products of the operands split into
-hi + lo (3xTF32), since one TF32 product would miss the reference's fp32
-tolerance; 128-row q tiles over two warpgroups, every thread of which
-splits its share of each raw 32-key K/V tile into hi/lo K and a
-transposed hi/lo Vᵀ while the tile before it is multiplied.  The fp32
-plain version serves the CPU and the comparisons.
-``flash_attention`` runs ``flash_attention_ref`` for CPU
-tensors and the kernel for CUDA tensors; on a CUDA tensor it launches or
-raises (``TypeError`` for a dtype but bf16 and fp32, ``ValueError`` for
-another head_dim; ``RuntimeError`` where autograd would record the call,
-since the kernel has no backward, as the reference's Pallas kernel has
-none).  Each launch counts as ``flash_attention`` in ``kernels.counts``,
-and by query length under ``("flash_attention", Sq)``.
+The kernels are written for Hopper and take bf16, fp16 and fp32, each
+at every head_dim that is a multiple of 16 from 16 to 128
+(``HEAD_DIMS``), any GQA group and any lengths.  bf16 and fp16, one
+kernel template for both: TMA loads into a ring of K/V tiles, ``wgmma``
+products accumulated in fp32, the softmax in registers, P rounded to the
+input type for the P·V product; head_dims up to 64 run its 64-wide tiles
+and the wider ones its 128-wide tiles, the columns past head_dim read as
+zeros.  fp32: the same shape on TF32 ``wgmma``, each product taken as
+three TF32 products of the operands split into hi + lo (3xTF32), since
+one TF32 product would miss the reference's fp32 tolerance; 128-row q
+tiles over two warpgroups, every thread of which splits its share of
+each raw 32-key K/V tile into hi/lo K and a transposed hi/lo Vᵀ while
+the tile before it is multiplied.  The fp32 plain version serves the CPU
+and the comparisons.  ``flash_attention`` runs ``flash_attention_ref``
+for CPU tensors and the kernel for CUDA tensors; on a CUDA tensor it
+launches or raises (``TypeError`` for a dtype but bf16, fp16 and fp32,
+``ValueError`` for another head_dim; ``RuntimeError`` where autograd
+would record the call, since the kernel has no backward, as the
+reference's Pallas kernel has none).  Each launch counts as
+``flash_attention`` in ``kernels.counts``, and by query length under
+``("flash_attention", Sq)``.
 """
 from __future__ import annotations
 
@@ -42,7 +44,8 @@ import torch
 from repro_torch.kernels import build, counts
 
 NEG_INF = -1e30
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}   # -> the C dtype code
+#: -> the C dtype code
+DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 HEAD_DIMS = tuple(range(16, 129, 16))
 
 
@@ -87,8 +90,9 @@ def _check(q, k, v):
         raise ValueError(f"shapes q {tuple(q.shape)} and k/v "
                          f"{tuple(k.shape)} do not fit")
     if q.dtype not in DTYPES or k.dtype != q.dtype or v.dtype != q.dtype:
-        raise TypeError(f"flash_attention kernel takes bf16 or fp32 q/k/v "
-                        f"of one dtype, got {q.dtype}/{k.dtype}/{v.dtype}")
+        raise TypeError(f"flash_attention kernel takes bf16, fp16 or fp32 "
+                        f"q/k/v of one dtype, got {q.dtype}/{k.dtype}/"
+                        f"{v.dtype}")
     if d not in HEAD_DIMS:
         raise ValueError(f"head_dim {d} not in {HEAD_DIMS}")
     for t in (q, k, v):

@@ -23,9 +23,10 @@ can merge the splits.  A CUDA graph takes the set of the stream it was
 captured on with it (``take_ticket_counters``), so no later stream
 shares the graph's.
 
-The kernel takes bf16 and fp32, every head_dim that is a multiple of 16
-from 16 to 128 (``HEAD_DIMS``; a row on the power of two of lanes at or
-above head_dim/8) and any group (``hq % hkv == 0``).
+The kernel takes bf16, fp16 and fp32 (each widened to fp32 as it is
+read, the output rounded once to the input type), every head_dim that is
+a multiple of 16 from 16 to 128 (``HEAD_DIMS``; a row on the power of
+two of lanes at or above head_dim/8) and any group (``hq % hkv == 0``).
 ``paged_attention`` runs ``paged_attention_ref`` for CPU tensors and the
 kernel for CUDA tensors; on a CUDA tensor it launches or raises
 (``RuntimeError`` where autograd would record the call: the kernel has
@@ -42,7 +43,7 @@ import torch
 from repro_torch.kernels import build, counts
 
 NEG_INF = -1e30
-DTYPES = {torch.float32: 0, torch.bfloat16: 1}
+DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 HEAD_DIMS = tuple(range(16, 129, 16))
 
 #: (device index, stream) -> zeroed int32 counters, one per (sequence,
@@ -131,8 +132,8 @@ def _check(q, k_pages, v_pages, block_tables, context_lens):
         raise ValueError("tables and lens need one row per sequence")
     if q.dtype not in DTYPES or k_pages.dtype != q.dtype \
             or v_pages.dtype != q.dtype:
-        raise TypeError(f"paged_attention kernel takes bf16 or fp32 q/k/v "
-                        f"of one dtype, got {q.dtype}/{k_pages.dtype}/"
+        raise TypeError(f"paged_attention kernel takes bf16, fp16 or fp32 "
+                        f"q/k/v of one dtype, got {q.dtype}/{k_pages.dtype}/"
                         f"{v_pages.dtype}")
     if block_tables.dtype != torch.int32 or context_lens.dtype != torch.int32:
         raise TypeError("block tables and context lens must be int32")

@@ -5,8 +5,12 @@ the JAX wrapper ``repro.kernels.flash_attention.ops.flash_attention``
 (the Pallas kernel in interpret mode, as tests/test_kernels.py runs it)
 on the reference's FLASH_CASES, its softcap case, shapes at the CUDA
 kernel's tile edges, and head_dim 80 (with test_kernels.py's
-tolerances).  Tolerances: 2e-5 in fp32, 3e-2 in bf16.  The CUDA kernel is held to the plain version on
-the card in tests/test_torch_kernels_cuda.py.
+tolerances).  Tolerances: 2e-5 in fp32, 3e-2 in bf16.  fp16, which the
+reference's wrapper takes though its tests run none, on the bf16 case's
+shape and at head_dim 80: 1e-2 (both versions compute in fp32 from the
+same fp16 inputs and round the output once, so they differ by at most
+about one fp16 rounding, 2^-11 of a value).  The CUDA kernel is held to
+the plain version on the card in tests/test_torch_kernels_cuda.py.
 
 The fp32 CUDA kernel takes each product as three TF32 products (3xTF32).
 A model of that arithmetic on the CPU (``cvt.rna.tf32.f32`` as integer
@@ -57,6 +61,11 @@ TILE_EDGE_CASES = [
     (1, 300, 300, 4, 2, 128, True, "float32"),
     (1, 130, 260, 4, 4, 64, True, "float32"),
 ]
+#: fp16 on FLASH_CASES[1]'s shape (the reference's bf16 case)
+FP16_CASES = [(*FLASH_CASES[1][:7], "float16")]
+#: tests/test_kernels.py's FLASH_CASES tolerances; fp16 (which it does
+#: not test) within 1e-2
+KERNEL_TOL = {"bfloat16": 2.5e-2, "float32": 2e-5, "float16": 1e-2}
 
 
 def _inputs(b, sq, skv, h, hkv, d, seed=0):
@@ -67,7 +76,8 @@ def _inputs(b, sq, skv, h, hkv, d, seed=0):
 
 
 def _tol(dtype):
-    return 3e-2 if dtype == "bfloat16" else 2e-5
+    return {"bfloat16": 3e-2, "float16": KERNEL_TOL["float16"]}.get(dtype,
+                                                                  2e-5)
 
 
 def _jax(q, k, v, dtype, **kw):
@@ -84,7 +94,7 @@ def _torch(q, k, v, dtype, device="cpu", **kw):
         **kw)
 
 
-@pytest.mark.parametrize("case", FLASH_CASES + TILE_EDGE_CASES)
+@pytest.mark.parametrize("case", FLASH_CASES + TILE_EDGE_CASES + FP16_CASES)
 def test_plain_vs_jax(case):
     b, sq, skv, h, hkv, d, causal, dtype = case
     q, k, v = _inputs(b, sq, skv, h, hkv, d)
@@ -105,9 +115,8 @@ HEAD_DIM_80_CASES = [
     (1, 100, 100, 2, 2, 80, True, "float32"),     # ragged
     (2, 64, 192, 4, 2, 80, False, "float32"),     # non-causal, GQA
     (1, 256, 256, 4, 1, 80, True, "float32"),     # GQA 4, two kv blocks
+    (1, 128, 128, 4, 4, 80, True, "float16"),
 ]
-#: tests/test_kernels.py's FLASH_CASES tolerances
-KERNEL_TOL = {"bfloat16": 2.5e-2, "float32": 2e-5}
 
 
 @pytest.mark.parametrize("case", HEAD_DIM_80_CASES,
@@ -155,13 +164,14 @@ def test_plain_vs_jax_at_widened_head_dims(case):
 
 
 def test_wrapper_tables_cover_every_multiple_of_16():
-    """The dtypes and head_dims the CUDA kernels take: bf16 and fp32, every
-    multiple of 16 from 16 to 128 (the C interface's dtype codes are the
-    paged kernel's)."""
+    """The dtypes and head_dims the CUDA kernels take: fp32, bf16 and
+    fp16, every multiple of 16 from 16 to 128 (the C interface's dtype
+    codes are the paged kernel's)."""
     from repro_torch.kernels.paged_attention import ops as paged_ops
     assert ops.HEAD_DIMS == paged_ops.HEAD_DIMS == tuple(range(16, 129, 16))
     assert ops.DTYPES == paged_ops.DTYPES == {torch.float32: 0,
-                                              torch.bfloat16: 1}
+                                              torch.bfloat16: 1,
+                                              torch.float16: 2}
 
 
 def test_softcap():

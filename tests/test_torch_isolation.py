@@ -41,12 +41,15 @@ def test_no_jax_or_reference_imports(path):
     "repro_torch.distributed.api, repro_torch.distributed.shard_plan, "
     "repro_torch.launch.mesh",
     "repro_torch.examples.serve_smoke",
+    "repro_torch.examples.quickstart, repro_torch.examples.multi_tenant, "
+    "repro_torch.examples.disaggregated_serving, "
+    "repro_torch.examples.speculative, repro_torch.examples.observability",
 ])
 def test_engine_import_loads_no_jax(modules):
     """Importing the serving engine, the simulator and its entry points,
     the trainer and its entry points, the sharding plan and its meshes,
-    or the serve-then-simulate example, loads nothing of jax or of the
-    reference."""
+    the serve-then-simulate example or the simulator-only examples,
+    loads nothing of jax or of the reference."""
     env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
     code = (f"import sys, {modules}; "
             "bad = [m for m in sys.modules if m.split('.')[0] in "

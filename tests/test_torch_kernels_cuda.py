@@ -8,10 +8,13 @@ imports no JAX, so it runs where the card is:
 (``--noconftest`` because tests/conftest.py imports jax).  The kernel's
 output is held against its plain version run in fp32 on the same
 values, row by row (one q head of one token): the row's largest error
-over its largest |value| stays within 1e-2 in bf16 and 1e-4 in fp32, as
-in chip_smoke.py.  Both attention kernels take bf16 and fp32 at every
-head_dim that is a multiple of 16 from 16 to 128, and paged every GQA
-group (in chunks of at most 8 q heads a block above 8); the fp32 cases
+over its largest |value| stays within 1e-2 in bf16 and fp16 and 1e-4 in
+fp32, as in chip_smoke.py.  Both attention kernels take bf16, fp16 and
+fp32 at every head_dim that is a multiple of 16 from 16 to 128, and
+paged every GQA group (in chunks of at most 8 q heads a block above 8);
+the fp16 cases are the serving shapes of llama2-7b, qwen3-14b and
+stablelm-3b, the narrowest head_dim and the edges of the splits and
+tiles; the fp32 cases
 are also held elementwise to the reference's fp32 tolerance
 (tests/test_kernels.py, 2e-5), and the ``test_reference_*`` tests run
 the reference's own flash, softcap, paged and permutation cases at their
@@ -29,6 +32,9 @@ prints both readings.  ``test_relative_limit_catches_a_kv_tail_fault``
 plants one in the non-causal tail (the key at position Skv, a row past
 the end that TMA fills with zeros, joins the softmax) and shows that the
 limit catches it at whisper-base's Skv of 1500.
+``test_fp16_limit_catches_an_off_by_one`` plants one fault in each
+kernel and runs it in fp16, the dtype that shares its code with bf16
+but for the rounding of P and of the output.
 
 Both attention kernels take head_dim 80 (stablelm-3b, zamba2-2.7b's
 shared block) in padded tiles and lanes: flash in its D-128 tiles, paged
@@ -81,9 +87,10 @@ from repro_torch.kernels.paged_attention import ops as paged  # noqa: E402
 from repro_torch.kernels.ssd_scan import ops as ssd  # noqa: E402
 from repro_torch.models import attention_impl  # noqa: E402
 
-REL_TOL = {torch.bfloat16: 1e-2, torch.float32: 1e-4}
+REL_TOL = {torch.bfloat16: 1e-2, torch.float16: 1e-2, torch.float32: 1e-4}
 #: tests/test_kernels.py's elementwise tolerances (rtol = atol): flash
-#: and paged in fp32; flash and paged in bf16
+#: and paged in fp32; flash and paged in bf16, which hold fp16 too (the
+#: reference's tests run no fp16 case)
 REF_TOL = {torch.float32: 2e-5}
 REF_TOL_BF16 = {"flash_attention": 2.5e-2, "paged_attention": 3e-2}
 
@@ -224,6 +231,17 @@ PAGED = [
     (4, 12, 1, 64, 65, 16, 16, torch.bfloat16, {}),
     (4, 9, 1, 32, 65, 16, 16, torch.float32, {}),
     (4, 11, 1, 16, 65, 16, 16, torch.float32, {}),
+    # fp16: llama2-7b's decode, the split edges, qwen3-14b's 40/8 at
+    # contexts up to 2048, stablelm-3b's head_dim 80, head_dim 16,
+    # multi-query chunks, shared pages
+    (8, 32, 32, 128, 129, 16, 16, torch.float16, {}),
+    (7, 32, 32, 128, 129, 16, 16, torch.float16, {"lens": "split-boundary"}),
+    (8, 40, 8, 128, 1025, 16, 128, torch.float16,
+     {"lens": [2048, 3, 17, 40, 64, 5, 100, 1]}),
+    (8, 32, 32, 80, 129, 16, 16, torch.float16, {}),
+    (8, 32, 8, 16, 257, 16, 32, torch.float16, {}),
+    (8, 32, 1, 128, 129, 16, 16, torch.float16, {}),
+    (6, 8, 2, 64, 40, 16, 32, torch.float16, {"shared_pages": True}),
 ]
 
 
@@ -304,12 +322,15 @@ REF_FLASH = [
     (1, 100, 100, 2, 2, 16, True, 0.0, torch.float32),
     (1, 128, 128, 8, 8, 128, True, 0.0, torch.float32),
     (1, 64, 64, 2, 2, 32, True, 20.0, torch.float32),
+    # the bf16 case once more in fp16
+    (1, 256, 256, 4, 4, 64, True, 0.0, torch.float16),
 ]
 REF_PAGED = [
     (2, 4, 2, 64, 16, 16, 4, torch.float32),
     (3, 8, 1, 32, 32, 8, 6, torch.float32),
     (2, 4, 4, 64, 16, 16, 3, torch.bfloat16),
     (1, 16, 2, 128, 8, 32, 2, torch.float32),
+    (2, 4, 4, 64, 16, 16, 3, torch.float16),
 ]
 
 
@@ -436,6 +457,18 @@ FLASH = [
     (1, 70, 1500, 8, 8, 64, False, 0.0, torch.float32),
     (1, 256, 256, 4, 4, 128, True, 30.0, torch.float32),   # softcap
     (1, 70, 150, 4, 2, 16, False, 20.0, torch.float32),
+    # fp16 (the bf16 kernel's template): the serving prefills of
+    # llama2-7b (32/32) and qwen3-14b (40/8), stablelm-3b's head_dim 80,
+    # head_dim 16 in the D-64 tiles, a ragged Sq, top-left, whisper-base's
+    # encoder, a non-causal softcap
+    (1, 1024, 1024, 32, 32, 128, True, 0.0, torch.float16),
+    (1, 1024, 1024, 40, 8, 128, True, 0.0, torch.float16),
+    (1, 1024, 1024, 32, 32, 80, True, 0.0, torch.float16),
+    (1, 1000, 1000, 16, 4, 16, True, 0.0, torch.float16),
+    (2, 200, 200, 8, 2, 128, True, 0.0, torch.float16),
+    (1, 100, 260, 4, 4, 64, True, 0.0, torch.float16),
+    (1, 1500, 1500, 8, 8, 64, False, 0.0, torch.float16),
+    (2, 200, 333, 8, 8, 48, False, 20.0, torch.float16),
 ]
 
 
@@ -489,14 +522,14 @@ FAULTS = {
 }
 
 
-def _serving_shape_case(name, device, hq=32, hkv=32, d=128):
+def _serving_shape_case(name, device, hq=32, hkv=32, d=128,
+                        dtype=torch.bfloat16):
     """Run kernel ``name`` once at the serving path's shape (llama2-7b,
-    bf16; paged also at other decode shapes: qwen3-14b's 40/8,
-    granite-moe-3b's 24/8 at d 64); returns (kernel output, fp32 plain
-    output, the long rows).  Long rows: paged, every row but the padded
-    one (contexts up to 2048); flash, causal S 2048, the rows at
+    bf16 unless asked; paged also at other decode shapes: qwen3-14b's
+    40/8, granite-moe-3b's 24/8 at d 64); returns (kernel output, fp32
+    plain output, the long rows).  Long rows: paged, every row but the
+    padded one (contexts up to 2048); flash, causal S 2048, the rows at
     positions 512 and later."""
-    dtype = torch.bfloat16
     if name == "paged_attention":
         args = _paged_inputs(8, hq, hkv, d, 1025, 16, 128, dtype, device)
         return paged.paged_attention(*args), _paged_plain(args), \
@@ -576,9 +609,10 @@ def test_relative_limit_catches_a_kv_tail_fault(cuda, sq, tmp_path,
     assert sound <= REL_TOL[torch.bfloat16] < planted
 
 
-def _planted_paged_fault(fault, device, tmp_path, monkeypatch, **shape):
-    """(sound, planted) long-row errors of the paged kernel at ``shape``
-    (``_serving_shape_case``'s), before and after planting ``fault``."""
+def _planted_fault(fault, device, tmp_path, monkeypatch, **shape):
+    """(sound, planted) long-row errors of the kernel of ``fault`` at
+    ``shape`` (``_serving_shape_case``'s), before and after planting
+    ``fault``."""
     name, old, new = FAULTS[fault]
     got, want, rows = _serving_shape_case(name, device, **shape)
     sound = float(_row_rel_err(got, want)[rows].max())
@@ -596,7 +630,7 @@ def _planted_paged_fault(fault, device, tmp_path, monkeypatch, **shape):
 def test_relative_limit_catches_an_off_by_one_at_group_5(
         cuda, fault, tmp_path, monkeypatch):
     """The paged faults again at qwen3-14b's decode shape (GQA 40/8)."""
-    sound, planted = _planted_paged_fault(fault, cuda, tmp_path,
+    sound, planted = _planted_fault(fault, cuda, tmp_path,
                                           monkeypatch, hq=40, hkv=8)
     print(f"\n{fault} at G 5: long-row relative error, sound {sound:.3e}, "
           f"planted {planted:.3e}, limit {REL_TOL[torch.bfloat16]:.0e}")
@@ -609,11 +643,26 @@ def test_relative_limit_catches_an_off_by_one_at_group_3(
         cuda, fault, tmp_path, monkeypatch):
     """The paged faults again at granite-moe-3b's decode shape (GQA 24/8,
     head_dim 64)."""
-    sound, planted = _planted_paged_fault(fault, cuda, tmp_path,
+    sound, planted = _planted_fault(fault, cuda, tmp_path,
                                           monkeypatch, hq=24, hkv=8, d=64)
     print(f"\n{fault} at G 3: long-row relative error, sound {sound:.3e}, "
           f"planted {planted:.3e}, limit {REL_TOL[torch.bfloat16]:.0e}")
     assert sound <= REL_TOL[torch.bfloat16] < planted
+
+
+@pytest.mark.parametrize("fault", ["flash-drops-the-diagonal",
+                                   "paged-drops-last-position"])
+def test_fp16_limit_catches_an_off_by_one(cuda, fault, tmp_path,
+                                          monkeypatch):
+    """An off-by-one of each kernel again, in fp16 at llama2-7b's
+    serving shape: the fp16 row limit holds the sound kernel and catches
+    the planted one."""
+    limit = REL_TOL[torch.float16]
+    sound, planted = _planted_fault(fault, cuda, tmp_path,
+                                          monkeypatch, dtype=torch.float16)
+    print(f"\n{fault} in fp16: long-row relative error, sound {sound:.3e}, "
+          f"planted {planted:.3e}, limit {limit:.0e}")
+    assert sound <= limit < planted
 
 
 #: planted faults of head_dim 80: the flash epilogue stores all 128
@@ -807,7 +856,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     x = torch.zeros(1, 64, 2, 256, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         flash.flash_attention(x, x, x)
-    x = torch.zeros(1, 64, 2, 64, device=cuda, dtype=torch.float16)
+    x = torch.zeros(1, 64, 2, 64, device=cuda, dtype=torch.float64)
     with pytest.raises(TypeError):
         flash.flash_attention(x, x, x)
     with pytest.raises(TypeError):

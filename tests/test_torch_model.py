@@ -33,6 +33,10 @@ cross-attention caches (``k``, ``v``, ``xk``, ``xv``), three
 ``unembed``; the embedding table, the decoder's output table too, in
 fp32).
 
+llama2-7b's smoke model runs the same comparisons once more in fp16
+(``model_pair(..., dtype="float16")``), on both attention routes, within
+``FP16_TOL``.
+
 A decode past the end of opt's learned position table reads the table's
 last row, as the reference's gather does (JAX clamps the index; torch
 indexing would raise): held on the contiguous decode step, at a
@@ -88,11 +92,11 @@ def _overrides(arch):
     return arch, {}
 
 
-def case_pair(arch, seed=0):
+def case_pair(arch, seed=0, dtype="float32"):
     """``model_pair`` of an arch of ``ARCHS``, ``ENCDEC_ARCHS`` or the
     slot path's mamba2-130m."""
     name, overrides = _overrides(arch)
-    return model_pair(name, seed, **overrides)
+    return model_pair(name, seed, dtype, **overrides)
 
 
 def case_config(arch):
@@ -108,13 +112,12 @@ def frame_embeds(cfg, batch, seed=0):
 
 
 @functools.lru_cache(maxsize=None)
-def model_pair(arch, seed=0, **overrides):
-    """The reference's fp32 smoke model and its weights, and the port's
-    with the same weights loaded; made once per arguments (no test
-    writes into the weights)."""
-    jcfg = dataclasses.replace(JAX_SMOKE[arch], dtype="float32",
-                               **overrides)
-    tcfg = dataclasses.replace(get_smoke_config(arch), dtype="float32",
+def model_pair(arch, seed=0, dtype="float32", **overrides):
+    """The reference's smoke model in ``dtype`` (fp32 unless asked) and
+    its weights, and the port's with the same weights loaded; made once
+    per arguments (no test writes into the weights)."""
+    jcfg = dataclasses.replace(JAX_SMOKE[arch], dtype=dtype, **overrides)
+    tcfg = dataclasses.replace(get_smoke_config(arch), dtype=dtype,
                                **overrides)
     jmodel = jzoo.build(jcfg)
     params = jzoo.init_params(jmodel, jax.random.key(seed))
@@ -132,9 +135,10 @@ def _leaves(tree, path=()):
             yield path + (k,), v
 
 
-def _close(got, want):
-    np.testing.assert_allclose(got.detach().numpy(), np.asarray(want),
-                               rtol=TOL, atol=TOL)
+def _close(got, want, tol=TOL):
+    np.testing.assert_allclose(got.detach().float().numpy(),
+                               np.asarray(want, np.float32),
+                               rtol=tol, atol=tol)
 
 
 def test_every_dense_and_vlm_arch_is_registered():
@@ -227,8 +231,24 @@ def test_forward_prefill_decode_moe_sort(arch, impl):
     _forward_prefill_decode(arch, attn_impl=impl, moe_impl="sort")
 
 
-def _forward_prefill_decode(arch, **settings):
-    jmodel, params, tmodel, tparams = case_pair(arch, seed=1)
+#: llama2-7b's smoke model in fp16 (the dtype of the published llama2-7b
+#: checkpoint): fp16 activations, K/V and attention inputs, fp32 logits
+#: (the unembedding's).  One fp16 rounding of a value near 1 is 2^-11, and
+#: the two libraries round in other places, so 1e-3 (read: 2.3e-4 for
+#: ``forward`` and ``prefill`` on ``naive``, 0.0 on ``pallas``, at most
+#: 1.8e-7 for the decode steps; K within 6.1e-5)
+FP16_TOL = 1e-3
+
+
+@pytest.mark.parametrize("impl", ["naive", "pallas"])
+def test_forward_prefill_decode_fp16(impl):
+    _forward_prefill_decode("llama2-7b", tol=FP16_TOL, dtype="float16",
+                            attn_impl=impl)
+
+
+def _forward_prefill_decode(arch, tol=TOL, dtype="float32", **settings):
+    jmodel, params, tmodel, tparams = case_pair(arch, seed=1, dtype=dtype)
+    assert tmodel.cfg.dtype == dtype
     jm = jmodel.with_settings(attn_block_q=8, attn_block_kv=8, **settings)
     tm = tmodel.with_settings(**settings)
     tokens = np.random.RandomState(0).randint(0, tm.cfg.vocab_size,
@@ -244,21 +264,21 @@ def _forward_prefill_decode(arch, **settings):
 
     want, want_aux = FORWARD(jm, params, jbatch)
     got, got_aux = tzoo.forward(tm, tparams, tbatch)
-    _close(got, want)
+    _close(got, want, tol)
     assert set(got_aux) == set(want_aux) == \
         ({"aux", "zloss"} if tm.cfg.family == MOE else set())
     for key in got_aux:
-        _close(got_aux[key], want_aux[key])
+        _close(got_aux[key], want_aux[key], tol)
 
     max_len = S + 4
     jcache = jzoo.init_cache(jm, 2, max_len)
     tcache = tzoo.init_cache(tm, 2, max_len, device="cpu")
     want, jcache = PREFILL(jm, params, jbatch, jcache)
     got, tcache = tzoo.prefill(tm, tparams, tbatch, tcache)
-    _close(got, want)
+    _close(got, want, tol)
     assert set(tcache) == set(jcache) == set(cache_keys) | {"len"}
     for key in cache_keys:
-        _close(tcache[key], jcache[key])
+        _close(tcache[key], jcache[key], tol)
     assert tcache["len"].tolist() == np.asarray(jcache["len"]).tolist()
 
     tok = np.asarray(jnp.argmax(want[:, -1], -1), np.int32)
@@ -266,10 +286,10 @@ def _forward_prefill_decode(arch, **settings):
         want, jcache = DECODE(jm, params, jcache, jnp.asarray(tok))
         got, tcache = tzoo.decode_step(tm, tparams, tcache,
                                        torch.from_numpy(tok.astype(np.int64)))
-        _close(got, want)
+        _close(got, want, tol)
         tok = np.asarray(jnp.argmax(want, -1), np.int32)
     for key in cache_keys:
-        _close(tcache[key], jcache[key])
+        _close(tcache[key], jcache[key], tol)
 
 
 @pytest.mark.parametrize("arch", ["llama2-7b", "whisper-base",

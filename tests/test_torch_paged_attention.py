@@ -3,9 +3,12 @@
 On the CPU the wrapper runs the kernel's plain version; it is held to
 the JAX wrapper ``repro.kernels.paged_attention.ops.paged_attention``
 (the Pallas kernel in interpret mode, as tests/test_kernels.py runs it)
-on the reference's PAGED_CASES and at head_dim 80.  Tolerances as there: 2e-5 in fp32,
-3e-2 in bf16.  The CUDA kernel is held to the plain version on
-the card in tests/test_torch_kernels_cuda.py.
+on the reference's PAGED_CASES and at head_dim 80.  Tolerances as there:
+2e-5 in fp32, 3e-2 in bf16.  fp16, which the reference's wrapper takes
+though its tests run none, on the bf16 case's shape and at head_dim 80:
+1e-2 (both versions compute in fp32 from the same fp16 inputs and round
+the output once).  The CUDA kernel is held to the plain version on the
+card in tests/test_torch_kernels_cuda.py.
 """
 import numpy as np
 import pytest
@@ -24,6 +27,8 @@ PAGED_CASES = [
     (2, 4, 4, 64, 16, 16, 3, "bfloat16"),
     (1, 16, 2, 128, 8, 32, 2, "float32"),
 ]
+#: fp16 on PAGED_CASES[2]'s shape (the reference's bf16 case)
+FP16_CASES = [(*PAGED_CASES[2][:7], "float16")]
 
 
 def _inputs(case, seed=2):
@@ -38,7 +43,7 @@ def _inputs(case, seed=2):
 
 
 def _tol(dtype):
-    return 3e-2 if dtype == "bfloat16" else 2e-5
+    return {"bfloat16": 3e-2, "float16": 1e-2}.get(dtype, 2e-5)
 
 
 def _jax(q, kp, vp, bt, cl, dtype):
@@ -57,7 +62,7 @@ def _torch(q, kp, vp, bt, cl, dtype, device="cpu", softcap=0.0):
     return ops.paged_attention(*args, softcap=softcap)
 
 
-@pytest.mark.parametrize("case", PAGED_CASES)
+@pytest.mark.parametrize("case", PAGED_CASES + FP16_CASES)
 def test_plain_vs_jax(case):
     dtype = case[-1]
     q, kp, vp, bt, cl = _inputs(case)
@@ -75,6 +80,7 @@ HEAD_DIM_80_CASES = [
     (2, 4, 4, 80, 16, 16, 4, "bfloat16"),
     (2, 4, 4, 80, 16, 16, 4, "float32"),
     (3, 8, 2, 80, 32, 8, 6, "float32"),
+    (2, 4, 4, 80, 16, 16, 4, "float16"),
 ]
 
 
