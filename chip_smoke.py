@@ -34,14 +34,21 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    6, multi-query 16/1 and 32/1, and in fp32 at llama2-7b's decode; in
    fp16 (the bf16 kernels' templates) paged at llama2-7b's decode and
    at head_dim 16 (32/8) and 80 (32/32), flash at llama2-7b's and
-   qwen3-14b's 1024-token prefills and at head_dim 16 and 80; the
+   qwen3-14b's 1024-token prefills and at head_dim 16 and 80; at head_dim
+   256 (the kernels' wide shapes) paged at llama2-7b's decode
+   lengths with 16/16 heads (bf16, fp16, fp32) and 16/8, flash at a
+   causal 1024-token prefill with 16/16 and 16/8 heads in each dtype and
+   16/8 with a softcap of 50, and both at head_dim 144 and 192 (32/8);
+   head_dims 272 and 136 must raise ``ValueError`` on the card; the
    SSD scan also at zamba2-2.7b's prefill (80 heads, N 64) and at the
    training CLI's mamba2-130m shape (B 4, S 1024); then every case of
    the reference's tests/test_kernels.py flash, softcap, paged and
    permutation tests at its shape, dtype, causal flag and softcap
    (inputs drawn with numpy), with group 6, 16/1 and 32/1 paged at D
-   128, fp32 flash at S 1024 (32/32, 40/8), bf16 flash at D 96, and the
-   reference's bf16 flash and paged cases once more in fp16, each
+   128, fp32 flash at S 1024 (32/32, 40/8), bf16 flash at D 96, the
+   reference's bf16 flash and paged cases once more in fp16, and
+   FLASH_CASES[4] and PAGED_CASES[2] and [3] at head_dim 256 (flash also
+   at 16/8 with a softcap of 50, fp32 and bf16), each
    launched through the kernel (counted) and held to its plain version
    on the card within the reference test's elementwise tolerance (2e-5
    fp32, 2.5e-2 bf16 flash, 3e-2 bf16 paged; fp16 held to bf16's) and
@@ -75,7 +82,9 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    memory; then the same in fp16 (13.5 GB of weights; the dtype of
    llama2-7b's published checkpoint) through both kernels' fp16
    instances, its logits within ``LOGIT_LIMITS[torch.float16]`` of the
-   plain routes.  opt-13b (learned positions, LayerNorm, GELU; MHA 40/40)
+   plain routes; then the same in bf16 with ``head_dim`` set to 256 (32
+   heads of 256, q width 8192, 17.8 GB of weights) through both kernels'
+   head_dim-256 shapes.  opt-13b (learned positions, LayerNorm, GELU; MHA 40/40)
    and qwen3-14b (qk-norm, GQA 40/8) at full width and depth run the
    main path (one graphed engine on the kernel routes), the two logit
    comparisons and the profiles; so do granite-moe-3b (MoE, 40 experts
@@ -208,8 +217,10 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    among them, with ``launches_by_path``; its times at
    the llama2-7b case; the fp32 flash kernel a line of its own, its
    launches those of the fp32 llama2-7b run; the fp16 run's launches
-   under the paged and flash lines' ``llama2-7b-float16`` path), then
-   the result line.
+   under the paged and flash lines' ``llama2-7b-float16`` path; the
+   head_dim-256 run's on lines of their own, ``paged_attention_d256`` and
+   ``flash_attention_d256``, timed at head_dim 256 with 16/16 heads),
+   then the result line.
 
 Without a CUDA device, or without the rest of the checkout, it fails
 before printing a result.
@@ -351,13 +362,15 @@ SSD_KERNELS = ("chunk_state_kernel", "state_passing_kernel",
 #: splits is inside it)
 PAGED_KERNELS = ("paged_attn_kernel",)
 #: the flash kernels, bf16 and fp16 (one template) and fp32
-#: (kernels/csrc/flash_attention.cu)
+#: (kernels/csrc/flash_attention.cu); the names match their wide twins of
+#: head_dims 144 to 256 too (flash_kernel_wide, flash_fp32_kernel_wide)
 FLASH_KERNELS = ("flash_kernel", "flash_fp32_kernel")
 #: rows of one q tile of the flash kernels by dtype (kBM and f32::kBM,
 #: kernels/csrc/flash_attention.cu): the grid is (heads, batch,
-#: ceil(Sq / kBM))
+#: ceil(Sq / kBM)); fp32 above head_dim 128 (f32::kWideBM) takes 64
 FLASH_TILE_Q = {torch.bfloat16: 128, torch.float16: 128,
                 torch.float32: 128}
+FLASH_TILE_Q_FP32_WIDE = 64
 
 PAGE = 16
 NUM_BLOCKS = 1024
@@ -556,7 +569,9 @@ def flash_case(name, *, sq, skv, h, hkv, causal, dtype, d=128, softcap=0.0,
                              queue_ahead=True)
     rec = {"case": name, "dtype": str(dtype), "sq": sq, "skv": skv, "h": h,
            "hkv": hkv, "head_dim": d, "causal": causal, "softcap": softcap,
-           "grid": [h, 1, -(-sq // FLASH_TILE_Q[dtype])],
+           "grid": [h, 1, -(-sq // (FLASH_TILE_Q_FP32_WIDE
+                                    if dtype == torch.float32 and d > 128
+                                    else FLASH_TILE_Q[dtype]))],
            "max_abs_err": err, "max_rel_err": rel,
            "tol_rel": REL_TOL[dtype], "finite": finite,
            "kernel_ms": kernel_ms, "call_ms": call_ms,
@@ -677,8 +692,70 @@ def check_kernels():
                h=32, hkv=8, d=16, causal=True, dtype=f16, seed=14)
     flash_case("fp16 head_dim 80 causal S=1024 32/32", sq=1024, skv=1024,
                h=32, hkv=32, d=80, causal=True, dtype=f16, seed=15)
+    wide = check_wide_kernels()
     # the rows of the kernels line: the serving path's shapes
-    return paged[0], flash[PROMPT_RANGE[1]], flash32
+    return paged[0], flash[PROMPT_RANGE[1]], flash32, wide
+
+
+#: head_dims above 128: the served llama2-7b at head_dim 256 has
+#: 32/32 heads; 16/16 reads as many bytes a position as llama2-7b's 32/32
+#: at 128, and 16/8 is Gemma-2-9B's GQA
+WIDE_HEAD_DIM = 256
+
+
+def check_wide_kernels():
+    """Both kernels at head_dim 256 (and once each at 144 and 192): paged
+    at llama2-7b's decode lengths (seed 0) with 16/16 and 16/8 heads,
+    flash at a causal 1024-token prefill with 16/16 and 16/8 heads, each
+    in bf16, fp16 and fp32 (paged's 16/8 in bf16), and 16/8 with
+    Gemma-2-9B's softcap of 50; then the head_dims the kernels refuse,
+    272 (past 256) and 136 (not a multiple of 16), raising ValueError on
+    CUDA tensors.  Returns the bf16 16/16 paged and flash records."""
+    bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
+    d = WIDE_HEAD_DIM
+    out = {}
+    for dt, tag in ((bf16, ""), (f16, "fp16 "), (f32, "fp32 ")):
+        out["paged", dt] = paged_case(
+            f"{tag}head_dim {d} decode 16/16", batch=MAX_BATCH, hq=16, hkv=16,
+            d=d, dtype=dt)
+        for hkv in (16, 8):
+            out["flash", dt, hkv] = flash_case(
+                f"{tag}head_dim {d} causal S=1024 16/{hkv}", sq=1024,
+                skv=1024, h=16, hkv=hkv, d=d, causal=True, dtype=dt,
+                seed=60 + hkv)
+    paged_case(f"head_dim {d} decode 16/8", batch=MAX_BATCH, hq=16, hkv=8,
+               d=d, dtype=bf16)
+    flash_case(f"head_dim {d} causal S=1024 16/8 softcap 50", sq=1024,
+               skv=1024, h=16, hkv=8, d=d, causal=True, dtype=bf16,
+               softcap=50.0, seed=61)
+    for dd in (144, 192):
+        paged_case(f"head_dim {dd} decode 32/8", batch=MAX_BATCH, hq=32,
+                   hkv=8, d=dd, dtype=bf16, seed=dd)
+        flash_case(f"head_dim {dd} causal S=1024 32/8", sq=1024, skv=1024,
+                   h=32, hkv=8, d=dd, causal=True, dtype=bf16, seed=dd)
+    refused = {}
+    for dd in (272, 136):
+        q = torch.zeros(2, 16, dd, device="cuda", dtype=bf16)
+        kp = torch.zeros(9, PAGE, 16, dd, device="cuda", dtype=bf16)
+        bt = torch.zeros(2, 4, dtype=torch.int32, device="cuda")
+        ln = torch.ones(2, dtype=torch.int32, device="cuda")
+        x = torch.zeros(1, 64, 16, dd, device="cuda", dtype=bf16)
+        for name, call in (
+                ("paged_attention",
+                 lambda: paged_ops.paged_attention(q, kp, kp, bt, ln)),
+                ("flash_attention",
+                 lambda: flash_ops.flash_attention(x, x, x))):
+            before = launch_counts.get(name)
+            try:
+                call()
+                refused[f"{name} {dd}"] = False
+            except ValueError:
+                refused[f"{name} {dd}"] = launch_counts.get(name) == before
+    phase("wide_head_dim_refusals", refused=refused)
+    if not all(refused.values()):
+        raise AssertionError(f"a head_dim the kernels do not take went "
+                             f"through: {refused}")
+    return out["paged", bf16], out["flash", bf16, 16]
 
 
 #: tests/test_kernels.py's own kernel cases at their shapes, dtypes,
@@ -703,6 +780,14 @@ REF_FLASH_CASES = [
     # dtype; its tests run no fp16 case)
     ("FLASH_CASES[1] in fp16", 1, 256, 256, 4, 4, 64, True, 0.0,
      torch.float16),
+    # FLASH_CASES[4]'s shape at head_dim 256 in fp32 (the D-split kernel),
+    # and Gemma-2-9B's 16/8 heads of 256 with its softcap of 50
+    ("FLASH_CASES[4] at head_dim 256", 1, 128, 128, 8, 8, 256, True, 0.0,
+     torch.float32),
+    ("16/8 head_dim 256 softcap 50", 1, 128, 128, 16, 8, 256, True, 50.0,
+     torch.float32),
+    ("16/8 head_dim 256 softcap 50 in bf16", 1, 128, 128, 16, 8, 256, True,
+     50.0, torch.bfloat16),
 ]
 #: paged: (name, b, hq, hkv, d, npages, page, mp, dtype)
 REF_PAGED_CASES = [
@@ -717,6 +802,10 @@ REF_PAGED_CASES = [
     ("multi-query 32/1 d128", MAX_BATCH, 32, 1, 128, NUM_BLOCKS + 1, PAGE,
      MAX_PAGES, torch.bfloat16),
     ("PAGED_CASES[2] in fp16", 2, 4, 4, 64, 16, 16, 3, torch.float16),
+    ("PAGED_CASES[3] at head_dim 256", 1, 16, 2, 256, 8, 32, 2,
+     torch.float32),
+    ("PAGED_CASES[2] at head_dim 256", 2, 4, 4, 256, 16, 16, 3,
+     torch.bfloat16),
 ]
 #: tests/test_kernels.py's elementwise tolerances (rtol = atol) by kernel
 #: and dtype; it has none for fp16, which is held to bf16's
@@ -1200,11 +1289,13 @@ def routing_agreement(got, want):
             "agree": [not bool(f[:, -1].any()) for f in flips]}
 
 
-def check_serving(arch, params=None, dtype=None):
+def check_serving(arch, params=None, dtype=None, head_dim=None):
     """``arch`` at full width and depth on the paged path (``params``: its
     weights, else drawn here; ``dtype``: the compute dtype in place of
-    the config's, with FP32_REQUESTS requests of FP32_OUTPUT_LEN tokens
-    and the graphed profiles alone).  The main
+    the config's, ``head_dim`` the head width in place of the config's
+    (its q, k, v and output projections widen with it), either with
+    FP32_REQUESTS requests of FP32_OUTPUT_LEN tokens and the graphed
+    profiles alone).  The main
     path: the engine on the kernel routes (``attn_impl="pallas"``,
     ``attn_path="pallas"``), graphed, with one paged launch a layer a
     decode iteration and one flash launch a layer a prefill; then
@@ -1215,14 +1306,19 @@ def check_serving(arch, params=None, dtype=None):
     archs of FULL_PHASE_SET, also eager against graphed engines and the
     same requests on the plain path; for SORT_ROUTE_ARCH, one request
     set on the ``sort`` MoE route.  Phase names carry the arch (and a
-    ``dtype`` given) as a prefix (none for llama2-7b, as before)."""
-    prefix = "" if arch == "llama2-7b" and dtype is None else \
-        f"{arch}_" if dtype is None else f"{arch}-{dtype}_"
-    full = arch in FULL_PHASE_SET and dtype is None
+    ``dtype`` or ``head_dim`` given) as a prefix (none for llama2-7b, as
+    before)."""
+    variant = (f"-{dtype}" if dtype is not None else "") + \
+        (f"-head_dim{head_dim}" if head_dim is not None else "")
+    prefix = "" if arch == "llama2-7b" and not variant else \
+        f"{arch}{variant}_"
+    full = arch in FULL_PHASE_SET and not variant
     cfg = get_config(arch)
     if dtype is not None:
         cfg = dataclasses.replace(cfg, dtype=dtype)
-    requests = make_requests if dtype is None else functools.partial(
+    if head_dim is not None:
+        cfg = dataclasses.replace(cfg, head_dim=head_dim)
+    requests = make_requests if not variant else functools.partial(
         make_requests, n=FP32_REQUESTS, output_len=FP32_OUTPUT_LEN)
     is_moe = cfg.family == MOE
     kernel_model = zoo.build(cfg, settings=RunSettings(attn_impl="pallas"))
@@ -1310,7 +1406,7 @@ def check_serving(arch, params=None, dtype=None):
                                      routes["gather"].split(1, dim=1))
                    if is_moe else None, limits)
     profile_serving(kernel_model, params, pages, lens, toks, free_row,
-                    prefix, eager=dtype is None)
+                    prefix, eager=not variant)
     del pages
     free_memory()
     if not full:
@@ -2446,6 +2542,8 @@ def flash_resources():
         name = e.pop("entry")
         half = re.search(r"flash_kernelI(\w+?)Li(\d+)ELi(\d+)E", name)
         fp32 = re.search(r"flash_fp32_kernelILi(\d+)E", name)
+        # the wide twins: one kernel a type for head_dims 144 to 256
+        half_wide = re.search(r"flash_kernel_wideI(\w+?)E", name)
         if half:
             dtype, code = (("bfloat16", 1) if "bfloat16" in half.group(1)
                            else ("float16", 2))
@@ -2453,11 +2551,17 @@ def flash_resources():
         elif fp32:
             dtype, code, d = "float32", 0, int(fp32.group(1))
             tile = 64 if d <= 64 else 128
+        elif half_wide:
+            dtype, code = (("bfloat16", 1) if "bfloat16" in
+                           half_wide.group(1) else ("float16", 2))
+            tile, d = 256, "144-256"
+        elif "flash_fp32_kernel_wide" in name:
+            dtype, code, tile, d = "float32", 0, 256, "144-256"
         else:
             continue
         out.append({"dtype": dtype, "head_dim": d, "tile_d": tile, **e,
-                    "dynamic_smem_bytes":
-                        lib.flash_attention_smem_bytes(code, d)})
+                    "dynamic_smem_bytes": lib.flash_attention_smem_bytes(
+                        code, d if tile <= 128 else WIDE_HEAD_DIM)})
     if not out:
         raise AssertionError("no flash kernel in the ptxas report")
     return out
@@ -2473,9 +2577,11 @@ def paged_resources():
                       e.pop("entry"))
         if m:
             t = m.group(1)
+            d = int(m.group(2))
             out.append({"dtype": "bfloat16" if "bfloat16" in t else
                         "float16" if "half" in t else "float32",
-                        "head_dim": int(m.group(2)),
+                        # the D-256 shape takes every head_dim from 144
+                        "head_dim": d if d <= 128 else f"144-{d}",
                         "group": int(m.group(3)),
                         "chunked": m.group(4) == "1", **e})
     if not out:
@@ -3512,6 +3618,10 @@ FP32_OUTPUT_LEN = 16
 #: and once more in fp16 (the dtype of llama2-7b's published checkpoint),
 #: as many requests of as many tokens: both kernels in fp16
 FP16_ARCH = "llama2-7b"
+#: and once more in bf16 with its heads WIDE_HEAD_DIM wide (the reference's
+#: ``ArchConfig.head_dim`` set; 32 heads of 256, as Gemma-7B's 16 are):
+#: both kernels' head_dim-256 shapes, as many requests of as many tokens
+WIDE_ARCH = "llama2-7b"
 #: those that also run eager against graphed engines and the plain path
 FULL_PHASE_SET = {"llama2-7b"}
 #: the MoE model that also serves one request set on the ``sort`` route
@@ -3542,7 +3652,7 @@ def main():
 
     served = {}
     with torch.no_grad():
-        paged, flash, flash32 = check_kernels()
+        paged, flash, flash32, (paged_wide, flash_wide) = check_kernels()
         check_reference_cases()
         ssd = check_ssd_kernel()
         # one model at a time: each frees its weights and pages before
@@ -3561,6 +3671,9 @@ def main():
         served_fp32 = check_serving(FP32_ARCH, dtype="float32")["launches"]
         free_memory()
         served_fp16 = check_serving(FP16_ARCH, dtype="float16")["launches"]
+        free_memory()
+        served_wide = check_serving(WIDE_ARCH,
+                                    head_dim=WIDE_HEAD_DIM)["launches"]
         free_memory()
         # stablelm-3b (head_dim 80) on the paged path, then its 4096-token
         # prefill on the blocked route, on the same weights
@@ -3596,6 +3709,11 @@ def main():
     fp16_path = f"{FP16_ARCH}-float16"
     for name in ("paged_attention", "flash_attention"):
         by_path[name][fp16_path] = served_fp16[name]
+    # the head_dim-256 run: its kernels are the wide shapes (their own
+    # lines, timed at head_dim 256)
+    wide_path = f"{WIDE_ARCH}-head_dim{WIDE_HEAD_DIM}"
+    for name in ("paged_attention", "flash_attention"):
+        by_path[f"{name}_d{WIDE_HEAD_DIM}"] = {wide_path: served_wide[name]}
     by_path["flash_attention"][WHISPER_ARCH] = \
         whisper["launches"]["flash_attention"]
     by_path["flash_attention"][HYBRID_ARCH] = \
@@ -3617,6 +3735,12 @@ def main():
              "src/repro_torch/kernels/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention/kernel.py:96"),
             ("flash_attention_fp32", flash32,
+             "src/repro_torch/kernels/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention/kernel.py:96"),
+            (f"paged_attention_d{WIDE_HEAD_DIM}", paged_wide,
+             "src/repro_torch/kernels/csrc/paged_attention.cu",
+             "src/repro/kernels/paged_attention/kernel.py:79"),
+            (f"flash_attention_d{WIDE_HEAD_DIM}", flash_wide,
              "src/repro_torch/kernels/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention/kernel.py:96"),
             ("ssd_scan", ssd,

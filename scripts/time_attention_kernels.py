@@ -12,7 +12,9 @@ each build (a source of parts builds them in parallel, as
 llama2-7b's decode (B 8, 32/32 heads, head_dim 128, bf16) and
 qwen3-14b's (40/8), and its ``flash_case`` at a causal 1024-token
 prefill (32/32, head_dim 128) in bf16 and in fp32, and in fp16 where the
-checkout's kernels take it, ``ROUNDS`` times each.
+checkout's kernels take it, and where they take head_dim 256 the paged
+case at 16/16 heads of 256 (llama2-7b's decode lengths) and the flash
+case at 16/16 heads of 256 in bf16 and fp32, ``ROUNDS`` times each.
 Each case prints its own phase line; the last line is one JSON object:
 the card, each source's build seconds, each case's kernel ms (CUDA
 events, the card's queue filled ahead) by round and their median, and
@@ -78,6 +80,16 @@ def main(argv=None):
         cases["flash fp16 causal S=1024"] = lambda: smoke.flash_case(
             "fp16 llama2-7b causal S=1024", sq=1024, skv=1024, h=32, hkv=32,
             causal=True, dtype=f16, seed=12)
+    if 256 in smoke.paged_ops.HEAD_DIMS and 256 in smoke.flash_ops.HEAD_DIMS:
+        cases["paged head_dim 256 decode 16/16"] = lambda: smoke.paged_case(
+            "head_dim 256 decode 16/16", batch=8, hq=16, hkv=16, d=256,
+            dtype=bf16)
+        for dt, tag in ((bf16, ""), (torch.float32, "fp32 ")):
+            cases[f"flash {tag}head_dim 256 causal S=1024 16/16"] = (
+                lambda dt=dt, tag=tag: smoke.flash_case(
+                    f"{tag}head_dim 256 causal S=1024 16/16", sq=1024,
+                    skv=1024, h=16, hkv=16, d=256, causal=True, dtype=dt,
+                    seed=76))
     times = {name: [] for name in cases}
     with torch.no_grad():
         for _ in range(ROUNDS):

@@ -11,7 +11,8 @@
 // top-left aligned, qpos >= kpos, as in the Pallas kernel; positions
 // kpos >= Skv are always masked, so ragged lengths need no padding by the
 // caller.  Two kernels, each at every head_dim D that is a multiple of 16
-// from 16 to 128:
+// from 16 to 128, and a wide twin of each for every multiple of 16 from
+// 144 to 256 (the head_dim a runtime value there):
 // - bf16 and fp16: flash_kernel<T, ...> below (TMA + wgmma), one
 //   template for both 2-byte types, which differ only in the wgmma
 //   instruction's input type (.bf16 or .f16), P's packing, the output's
@@ -26,6 +27,9 @@
 //   split into two TF32 values and each product taken as three TF32
 //   products (one alone rounds its inputs to 10 mantissa bits, too coarse
 //   for the reference's fp32 tolerance of 2e-5); TMA + wgmma as in bf16.
+// - D 144 to 256: wide::flash_kernel_wide (bf16, fp16; 256-wide tiles,
+//   no producer warpgroup) and f32::flash_fp32_kernel_wide (the two
+//   warpgroups splitting D), each described where it is defined.
 //
 // What bounds the bf16 kernel on this card: at the serving path's
 // prefill shapes (B 1, Sq = Skv = 64 ... 2048, H 32, D 128, causal) the
@@ -344,6 +348,36 @@ __device__ __forceinline__ void wgmma_rs_n64(float (&d)[32],
 }
 
 
+#define FLASH_WGMMA_SS_N64(AB)                                           \
+  asm volatile(                                                          \
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %34, 0;\n"                       \
+      "wgmma.mma_async.sync.aligned.m64n64k16.f32." AB "." AB " "        \
+      "{%0, %1, %2, %3, %4, %5, %6, %7,"                                 \
+      " %8, %9, %10, %11, %12, %13, %14, %15,"                           \
+      " %16, %17, %18, %19, %20, %21, %22, %23,"                         \
+      " %24, %25, %26, %27, %28, %29, %30, %31}, "                       \
+      "%32, %33, p, 1, 1, 0, 0;\n}\n"                                    \
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),      \
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),      \
+        "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), \
+        "+f"(d[15]), "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), \
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]), "+f"(d[24]), \
+        "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), \
+        "+f"(d[30]), "+f"(d[31])                                         \
+      : "l"(da), "l"(db), "r"(scale_d)                                   \
+      : "memory")
+
+// D (64 x 64, fp32) (+)= A (64 x 16, smem) * B (64 x 16, smem)^T, both
+// K-major with the 128-byte swizzle; scale_d 0 overwrites D.
+template <typename T>
+__device__ __forceinline__ void wgmma_ss_n64(float (&d)[32], uint64_t da,
+                                            uint64_t db, int scale_d) {
+  if constexpr (kHalf<T>)
+    FLASH_WGMMA_SS_N64("f16");
+  else
+    FLASH_WGMMA_SS_N64("bf16");
+}
+
 // O += P·V for one 16-row slice of the tile's keys.
 template <typename T, int D>
 __device__ __forceinline__ void pv(float (&o)[D / 2], const uint32_t (&p)[4],
@@ -621,6 +655,314 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch,
 }
 
 // ---------------------------------------------------------------------------
+// bf16 and fp16 at head_dims 144 to 256: flash_wide_kernel, 256-wide tiles.
+//
+// The shape above does not hold D 256: its 128-row K/V tiles in two
+// stages and the q tile take 320 KB of shared memory, and a consumer's O
+// (64 x 256 fp32 over 128 threads) takes 128 registers before S and P,
+// where a kernel of 384 threads has 168 a thread.  This one:
+// - One block of two warpgroups (256 threads, up to 255 registers a
+//   thread) per (128-row q tile, head, batch), the longest rows first.
+//   No producer warpgroup: thread 0 issues the TMA loads, Q once and K
+//   and V into a 2-stage ring of 64-row tiles; it refills a stage once
+//   every consumer warp has arrived on its "empty" barrier (after the
+//   P·V product that read it retired), so a warpgroup waits for the
+//   other at most a tile.  Shared memory: Q 64 KB + 2 x (K 32 KB + V 32
+//   KB) = 192 KB.
+// - TMA boxes of 64 columns (128 bytes) with the 128-byte swizzle: four
+//   a row of the tile; only the boxes that hold a column below the
+//   head_dim dv are loaded (the columns of the last one past dv arrive
+//   as zeros), and the block zeroes the boxes of Q, K and V past it once,
+//   so every product runs its full width with no branch around a wgmma
+//   (ptxas serialises wgmma issued under a runtime condition).  dv is a
+//   runtime value (every multiple of 16 from 144 to 256 runs one kernel
+//   a type); the O columns past it are never stored.
+// - S = Q·K^T is wgmma m64n64k16 (16 k-steps at D 256), O += P·V two
+//   m64n128k16 a 16-key step, one a half of O's columns, P from
+//   registers as in flash_kernel; the online softmax as there.  A
+//   warpgroup skips the tiles wholly above its rows' diagonal.
+// - Registers: O 128, S 32, P 16 a thread.
+namespace wide {
+
+constexpr int kD = 256;           // tile width: columns of Q, K, V and O
+constexpr int kBM = 128;          // q rows per block, 64 per warpgroup
+constexpr int kBN = 64;           // kv rows per tile
+constexpr int kStages = 2;        // depth of the K/V ring
+constexpr int kThreads = 256;     // two warpgroups
+constexpr int kQBox = kBM * kBoxCols * 2;   // one box of the q tile
+constexpr int kKBox = kBN * kBoxCols * 2;   // one box of a K or V tile
+constexpr int kConsumerWarps = 8;
+
+// Dynamic shared memory, byte offsets from a 1024-byte aligned base.
+struct Smem {
+  static constexpr int BOXES = kD / kBoxCols;
+  static constexpr int TILE = BOXES * kKBox;   // one K or V tile
+  static constexpr int Q = 0;
+  static constexpr int K = Q + BOXES * kQBox;
+  static constexpr int V = K + kStages * TILE;
+  static constexpr int BAR = V + kStages * TILE;   // q, full[], empty[]
+  static constexpr int BYTES = BAR + 8 * (1 + 2 * kStages) + 1024;
+};
+
+// 16 zero bytes at a shared address.
+__device__ __forceinline__ void zero16(uint32_t a) {
+  asm volatile("st.shared.v4.b32 [%0], {%1, %1, %1, %1};\n" ::"r"(a), "r"(0)
+               : "memory");
+}
+
+// Key tiles that a q row up to qlast attends.
+__device__ __forceinline__ int key_tiles(int qlast, int skv, int causal) {
+  int n = (skv + kBN - 1) / kBN;
+  if (causal) n = min(n, qlast / kBN + 1);
+  return n;
+}
+
+template <typename T>
+__global__ void __launch_bounds__(kThreads, 1)
+flash_kernel_wide(const __grid_constant__ CUtensorMap tq,
+                  const __grid_constant__ CUtensorMap tk,
+                  const __grid_constant__ CUtensorMap tv, T* __restrict__ out,
+                  int sq, int skv, int h, int hkv, int dv, int causal,
+                  float scale, float softcap) {
+  using L = Smem;
+  extern __shared__ __align__(1024) unsigned char smem_wide[];
+  const uint32_t base = (smem_addr(smem_wide) + 1023u) & ~1023u;
+  const uint32_t q_full = base + L::BAR;
+  const uint32_t full = q_full + 8;                // + 8 * stage
+  const uint32_t empty = full + 8 * kStages;       // + 8 * stage
+
+  const int head = blockIdx.x;
+  const int b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kBM;   // longest rows first
+  const int kvh = head / (h / hkv);
+  const int n_tiles = key_tiles(q0 + kBM - 1, skv, causal);
+  const int boxes = (dv + kBoxCols - 1) / kBoxCols;    // boxes with live columns
+  const int wg = threadIdx.x / 128;
+  const auto load_kv = [&](int t) {
+    const int stage = t % kStages;
+    const uint32_t bar = full + 8 * stage;
+    mbar_expect_tx(bar, 2 * boxes * kKBox);
+    for (int x = 0; x < boxes; ++x) {
+      const uint32_t off = stage * L::TILE + x * kKBox;
+      tma_load(base + L::K + off, &tk, bar, x * kBoxCols, kvh, t * kBN, b);
+      tma_load(base + L::V + off, &tv, bar, x * kBoxCols, kvh, t * kBN, b);
+    }
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < kStages; ++s) {
+      mbar_init(full + 8 * s, 1);
+      mbar_init(empty + 8 * s, kConsumerWarps);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect_tx(q_full, boxes * kQBox);
+    for (int x = 0; x < boxes; ++x)
+      tma_load(base + L::Q + x * kQBox, &tq, q_full, x * kBoxCols, head, q0,
+               b);
+    for (int t = 0; t < kStages && t < n_tiles; ++t) load_kv(t);
+  }
+  // Zeros in the boxes past dv (never loaded): Q's, and K's and V's of
+  // both stages.
+  for (int i = threadIdx.x; i < (L::BOXES - boxes) * kQBox / 16;
+       i += kThreads)
+    zero16(base + L::Q + boxes * kQBox + 16 * i);
+  for (int i = threadIdx.x; i < 2 * kStages * (L::BOXES - boxes) * kKBox / 16;
+       i += kThreads) {
+    const int tile = i / ((L::BOXES - boxes) * kKBox / 16);   // K0 K1 V0 V1
+    const int off = i % ((L::BOXES - boxes) * kKBox / 16);
+    zero16(base + L::K + tile * L::TILE + boxes * kKBox + 16 * off);
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  __syncthreads();
+
+  // Warpgroup wg owns rows [r_wg, r_wg + 64) of the q tile; a thread holds
+  // rows row0 and row0 + 8, and in each 8-column block of a product the
+  // columns cq and cq + 1.
+  const int wt = threadIdx.x % 128;
+  const int warp = wt / 32;
+  const int lane = wt % 32;
+  const int r_wg = wg * 64;
+  const int row0 = r_wg + warp * 16 + lane / 4;
+  const int cq = 2 * (lane % 4);
+  const float sl = (softcap > 0.f ? 1.f : scale) * kLog2e;
+  const int n_own = key_tiles(q0 + r_wg + 63, skv, causal);
+  // every warp's arrival on the stage of tile t; then thread 0 refills
+  // it with tile t + kStages once every warp is done with it
+  const auto release = [&](int t) {
+    const int stage = t % kStages;
+    __syncwarp();
+    if (lane == 0) mbar_arrive(empty + 8 * stage);
+    if (threadIdx.x == 0 && t + kStages < n_tiles) {
+      mbar_wait(empty + 8 * stage, (t / kStages) & 1);
+      load_kv(t + kStages);
+    }
+  };
+
+  // O: columns 0-127 in o[0], 128-255 in o[1], each in the m64n128
+  // accumulator layout.
+  float o[2][64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) o[0][i] = o[1][i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+  const uint32_t q_tile = base + L::Q + r_wg * 128;   // 128 bytes a row
+
+  mbar_wait(q_full, 0);
+  for (int t = 0; t < n_tiles; ++t) {
+    const int stage = t % kStages;
+    const int kv0 = t * kBN;
+    mbar_wait(full + 8 * stage, (t / kStages) & 1);
+    if (t >= n_own) {                 // wholly above this warpgroup's rows
+      release(t);
+      continue;
+    }
+    {
+      const uint32_t k_tile = base + L::K + L::TILE * stage;
+      const uint32_t v_tile = base + L::V + L::TILE * stage;
+
+      // S = Q K^T: a 16-column step moves 32 bytes inside a box, every
+      // fourth step to the next box; the steps past dv add zeros.
+      float s[kBN / 2];
+#pragma unroll
+      for (int i = 0; i < kBN / 2; ++i) s[i] = 0.f;
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kD / 16; ++kk)
+        wgmma_ss_n64<T>(
+            s, sw128_desc(q_tile + (kk / 4) * kQBox + (kk % 4) * 32, 16, 1024),
+            sw128_desc(k_tile + (kk / 4) * kKBox + (kk % 4) * 32, 16, 1024),
+            kk > 0);
+      wgmma_commit();
+      wgmma_wait0();
+      keep(s);
+
+      // Online softmax in registers: s[4j + e] is row row0 + 8 (e / 2),
+      // key kv0 + 8 j + cq + e % 2.
+      if (softcap > 0.f) {
+#pragma unroll
+        for (int i = 0; i < kBN / 2; ++i)
+          s[i] = tanhf(s[i] * scale / softcap) * softcap;
+      }
+      const bool edge =
+          (causal && kv0 + kBN - 1 > q0 + r_wg) || kv0 + kBN > skv;
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int j = 0; j < kBN / 8; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[4 * j + e] * sl;
+          if (edge) {
+            const int qpos = q0 + row0 + 8 * (e / 2);
+            const int kpos = kv0 + 8 * j + cq + e % 2;
+            if (skv <= kpos || (causal && qpos < kpos)) x = -INFINITY;
+          }
+          s[4 * j + e] = x;
+          mx[e / 2] = fmaxf(mx[e / 2], x);
+        }
+      }
+      float mu[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        const float m_new = fmaxf(m[i], mx[i]);
+        mu[i] = m_new == -INFINITY ? 0.f : m_new;   // a row with no key yet
+        const float alpha = exp2_approx(m[i] - mu[i]);
+        m[i] = m_new;
+        l[i] *= alpha;
+#pragma unroll
+        for (int j = 0; j < 16; ++j) {
+          o[0][4 * j + 2 * i] *= alpha;
+          o[0][4 * j + 2 * i + 1] *= alpha;
+          o[1][4 * j + 2 * i] *= alpha;
+          o[1][4 * j + 2 * i + 1] *= alpha;
+        }
+      }
+      // P in T as the A operand: registers 8kk .. 8kk+7 of S are the
+      // fragment of keys 16kk .. 16kk+15, in order.
+      uint32_t p[kBN / 16][4];
+#pragma unroll
+      for (int kk = 0; kk < kBN / 16; ++kk) {
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const float p0 = exp2_approx(s[8 * kk + 2 * r] - mu[r % 2]);
+          const float p1 = exp2_approx(s[8 * kk + 2 * r + 1] - mu[r % 2]);
+          l[r % 2] += p0 + p1;
+          p[kk][r] = pack<T>(p0, p1);
+        }
+      }
+
+      // O += P V: V is MN-major; a 16-key step moves 16 rows (2048
+      // bytes); O's second half starts two boxes (128 columns) further.
+      keep(o[0]);
+      keep(o[1]);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBN / 16; ++kk) {
+        const uint32_t vk = v_tile + kk * 16 * 128;
+        wgmma_rs_n128<T>(o[0], p[kk], sw128_desc(vk, kKBox, 1024));
+        wgmma_rs_n128<T>(o[1], p[kk], sw128_desc(vk + 2 * kKBox, kKBox, 1024));
+      }
+      wgmma_commit();
+      wgmma_wait0();
+      keep(o[0]);
+      keep(o[1]);
+    }
+    release(t);
+  }
+
+  // Epilogue: O / l in T, rows past Sq and columns past dv not stored;
+  // rows dv apart.
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qpos = q0 + row0 + 8 * i;
+    if (qpos >= sq) continue;
+    const float inv = 1.f / l[i];
+    T* dst = out + (((size_t)b * sq + qpos) * h + head) * dv + cq;
+#pragma unroll
+    for (int j = 0; j < kD / 8; ++j) {
+      if (8 * j < dv) {
+        const int c = 4 * (j % 16) + 2 * i;
+        const float x0 = j < 16 ? o[0][c] : o[1][c];
+        const float x1 = j < 16 ? o[0][c + 1] : o[1][c + 1];
+        *reinterpret_cast<typename Elem<T>::Pair*>(dst + 8 * j) =
+            Elem<T>::pair(x0 * inv, x1 * inv);
+      }
+    }
+  }
+}
+
+template <typename T>
+int launch(const void* q, const void* k, const void* v, void* out, int batch,
+           int sq, int skv, int h, int hkv, int dv, int causal, float scale,
+           float softcap, cudaStream_t stream) {
+  constexpr CUtensorMapDataType kMap = Elem<T>::kMap;
+  CUtensorMap tq, tk, tv;
+  if (!tensor_map(&tq, q, batch, sq, h, dv, kMap, 2, kBoxCols, kBM) ||
+      !tensor_map(&tk, k, batch, skv, hkv, dv, kMap, 2, kBoxCols, kBN) ||
+      !tensor_map(&tv, v, batch, skv, hkv, dv, kMap, 2, kBoxCols, kBN))
+    return -2;
+  constexpr int smem = Smem::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_kernel_wide<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(h, batch, (sq + kBM - 1) / kBM);
+  flash_kernel_wide<T><<<grid, kThreads, smem, stream>>>(
+      tq, tk, tv, static_cast<T*>(out), sq, skv, h, hkv, dv, causal, scale,
+      softcap);
+  return static_cast<int>(cudaGetLastError());
+}
+
+}  // namespace wide
+
+// ---------------------------------------------------------------------------
 // fp32: 3xTF32 on the tensor cores.
 //
 // Every fp32 operand x is split into two TF32 values, hi = tf32(x) and
@@ -786,6 +1128,36 @@ __device__ __forceinline__ void wgmma_tf32_rs_n32(float (&d)[16],
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7]), "+f"(d[8]), "+f"(d[9]),
         "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]),
         "+f"(d[15])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)
+      : "memory");
+}
+
+// S (64 x 16) += A (64 x 8, smem) * B (16 x 8, smem)^T in TF32, both
+// K-major with the 128-byte swizzle.
+__device__ __forceinline__ void wgmma_tf32_ss_n16(float (&d)[8], uint64_t da,
+                                                  uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "%8, %9, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
+      : "l"(da), "l"(db), "r"(1)
+      : "memory");
+}
+
+// S (64 x 16) += A (64 x 8, TF32 registers) * B (16 x 8, smem)^T.
+__device__ __forceinline__ void wgmma_tf32_rs_n16(float (&d)[8],
+                                                  const uint32_t (&a)[4],
+                                                  uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
+      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
+      "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
+        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)
       : "memory");
 }
@@ -1166,6 +1538,397 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch,
   return static_cast<int>(cudaGetLastError());
 }
 
+// ---------------------------------------------------------------------------
+// fp32 at head_dims 144 to 256: flash_fp32_kernel_wide, the two warpgroups
+// splitting D.
+//
+// The D-128 shape does not widen: at D 256 its q tile alone takes 128 KB
+// and every thread would hold 128 registers of O and 128 of Q's lo.  Here
+// warpgroup w owns the columns [128 w, 128 w + 128) of Q, K, V and O for
+// all 64 rows of a q block:
+// - One block (256 threads) per (64-row q tile, head, batch), the longest
+//   rows first; 16-key tiles.  Thread 0 issues the TMA loads: Q once, and
+//   each tile's K straight into its stage of a 2-stage ring and its V
+//   into one raw tile, boxes of 32 fp32 columns (only those that hold a
+//   column below the head_dim dv, a runtime value: one kernel serves
+//   every multiple of 16 from 144 to 256).  The block zeroes Q's and K's
+//   boxes past dv once, so the products run their full width with no
+//   branch around a wgmma.
+// - K's hi is K as it landed, which the tensor core reads truncated to
+//   TF32, as it reads Q's; its lo, x - trunc(x) rounded to TF32, is
+//   written beside it in the stage.  V is split into a transposed hi and
+//   lo, Vᵀ, whose 128-byte rows hold 32 keys: the first 16 are stage 0's
+//   tile, the last 16 stage 1's, so each stage's k-steps are the 32-byte
+//   steps of flash_fp32_kernel's 32-key rows (and its key order 0 2 4 6
+//   1 3 5 7 within a group of 8 lets P feed wgmma from registers).  Tile
+//   t + 1 is split while tile t's P·V runs; the block's barrier after it
+//   frees the stage and the raw V tile for the loads of tile t + 2.
+// - Each warpgroup keeps the lo of its 128 columns of Q in registers and
+//   takes S over its half of the k-depth as m64n16k8 products (3xTF32,
+//   the small products first); the two partial S (64 x 16 fp32, 4 KB
+//   each) are added through shared memory, each warpgroup adding the
+//   other's to its own, so both hold the same S and take the same online
+//   softmax.  O += P·V is m64n128k8 on the warpgroup's 128 rows of Vᵀ.
+// - Shared memory: Q 64 KB, the K ring (raw and lo) 64 KB, Vᵀ hi and lo
+//   64 KB, the raw V tile 16 KB, the S exchange 8 KB: 216 KB.  Registers:
+//   O 64, Q's lo 64, P 16 a thread.
+constexpr int kWideBM = 64;       // q rows per block, all of them in each warpgroup
+constexpr int kWideBN = 16;       // keys per tile: half a row of Vᵀ
+
+// Dynamic shared memory, byte offsets from a 1024-byte aligned base.
+struct WideSmem {
+  static constexpr int D = 256;                   // columns of the tiles
+  static constexpr int BOXES = D / kBoxCols;
+  static constexpr int QBOX = kWideBM * 128;      // one box of the q tile
+  static constexpr int KBOX = kWideBN * 128;      // one box of a K or V tile
+  static constexpr int KT = BOXES * KBOX;         // a K tile (or K's lo, raw V)
+  static constexpr int VT = D * 128;              // Vᵀ hi or lo: 32 keys a row
+  static constexpr int Q = 0;                     // the q tile, as landed
+  static constexpr int RING = Q + BOXES * QBOX;   // per stage: K, K's lo
+  static constexpr int STAGE = 2 * KT;
+  static constexpr int VT_HI = RING + kStages * STAGE;   // Vᵀ hi, Vᵀ lo
+  static constexpr int RAW_V = VT_HI + 2 * VT;
+  static constexpr int X = RAW_V + KT;            // partial S, per thread
+  static constexpr int BAR = X + kThreads * 32;   // q, raw
+  static constexpr int BYTES = BAR + 16 + 1024;
+};
+
+// x - trunc(x) rounded to TF32: the lo of an operand whose hi is its own
+// bits truncated, as the tensor core reads them.
+__device__ __forceinline__ uint32_t lo_of_truncated(float x) {
+  uint32_t lo;
+  asm("cvt.rna.tf32.f32 %0, %1;\n" : "=r"(lo)
+      : "f"(x - __uint_as_float(__float_as_uint(x) & 0xffffe000u)));
+  return lo;
+}
+
+__device__ __forceinline__ int wide_key_tiles(int qlast, int skv, int causal) {
+  int n = (skv + kWideBN - 1) / kWideBN;
+  if (causal) n = min(n, qlast / kWideBN + 1);
+  return n;
+}
+
+__global__ void __launch_bounds__(kThreads, 1)
+flash_fp32_kernel_wide(const __grid_constant__ CUtensorMap tq,
+                       const __grid_constant__ CUtensorMap tk,
+                       const __grid_constant__ CUtensorMap tv,
+                       float* __restrict__ out, int sq, int skv, int h,
+                       int hkv, int dv, int causal, float scale,
+                       float softcap) {
+  using L = WideSmem;
+  extern __shared__ __align__(1024) unsigned char smem_f32w[];
+  const uint32_t base = (smem_addr(smem_f32w) + 1023u) & ~1023u;
+  const uint32_t q_full = base + L::BAR;
+  const uint32_t raw_full = q_full + 8;
+
+  const int head = blockIdx.x;
+  const int b = blockIdx.y;
+  const int q0 = (gridDim.z - 1 - blockIdx.z) * kWideBM;  // longest rows first
+  const int kvh = head / (h / hkv);
+  const int n_tiles = wide_key_tiles(q0 + kWideBM - 1, skv, causal);
+  const int boxes = (dv + kBoxCols - 1) / kBoxCols;   // boxes with live columns
+  const auto load_raw = [&](int t) {
+    const uint32_t k_dst = base + L::RING + (t % kStages) * L::STAGE;
+    mbar_expect_tx(raw_full, 2 * boxes * L::KBOX);
+    for (int x = 0; x < boxes; ++x) {
+      tma_load(k_dst + x * L::KBOX, &tk, raw_full, x * kBoxCols, kvh,
+               t * kWideBN, b);
+      tma_load(base + L::RAW_V + x * L::KBOX, &tv, raw_full, x * kBoxCols,
+               kvh, t * kWideBN, b);
+    }
+  };
+
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    mbar_init(raw_full, 1);
+    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
+    mbar_expect_tx(q_full, boxes * L::QBOX);
+    for (int x = 0; x < boxes; ++x)
+      tma_load(base + L::Q + x * L::QBOX, &tq, q_full, x * kBoxCols, head, q0,
+               b);
+    load_raw(0);
+  }
+  // Zeros in the boxes past dv (never loaded): Q's, and K's of both
+  // stages (whose lo the splits then take as zeros).
+  for (int i = threadIdx.x; i < (L::BOXES - boxes) * L::QBOX / 16;
+       i += kThreads)
+    sts4(base + L::Q + boxes * L::QBOX + 16 * i, make_uint4(0, 0, 0, 0));
+  for (int i = threadIdx.x; i < kStages * (L::BOXES - boxes) * L::KBOX / 16;
+       i += kThreads) {
+    const int st = i / ((L::BOXES - boxes) * L::KBOX / 16);
+    const int off = i % ((L::BOXES - boxes) * L::KBOX / 16);
+    sts4(base + L::RING + st * L::STAGE + boxes * L::KBOX + 16 * off,
+         make_uint4(0, 0, 0, 0));
+  }
+  __syncthreads();
+
+  // Splits tile t (landed) into its stage, this thread's share of it:
+  // K's lo beside K, and V's columns into Vᵀ hi and lo at the stage's 16
+  // positions of each row; the block's barrier after it makes the stage
+  // whole.
+  const auto split_tile = [&](int t) {
+    const uint32_t tb = opaque(base);
+    const int st = t % kStages;
+    const uint32_t k_raw = tb + L::RING + st * L::STAGE;
+    const uint32_t raw_v = tb + L::RAW_V;
+    mbar_wait(raw_full, t & 1);
+    constexpr int kSteps = L::KT / 16 / kThreads;
+    float4 x[kSteps];
+#pragma unroll
+    for (int n = 0; n < kSteps; ++n)
+      x[n] = lds4(k_raw + 16 * (threadIdx.x + kThreads * n));
+#pragma unroll
+    for (int n = 0; n < kSteps; ++n) {
+      const uint4 lo = {lo_of_truncated(x[n].x), lo_of_truncated(x[n].y),
+                        lo_of_truncated(x[n].z), lo_of_truncated(x[n].w)};
+      sts4(k_raw + L::KT + 16 * (threadIdx.x + kThreads * n), lo);
+    }
+    // Vᵀ: item (dq, grp, half) reads keys 8 grp + half + 2m (m < 4) of
+    // columns 4 dq .. 4 dq + 3 and writes them as positions 4 half ..
+    // 4 half + 3 of the stage's key group grp in those four rows of Vᵀ.
+    const int it = threadIdx.x;
+    const int half = it & 1;
+    const int grp = (it >> 1) & 1;
+    const int dq = it >> 2;
+    if (4 * dq < dv) {
+      float4 v[4];
+#pragma unroll
+      for (int m = 0; m < 4; ++m) {
+        const int key = 8 * grp + half + 2 * m;
+        v[m] = lds4(raw_v + (dq / 8) * L::KBOX + key * 128 +
+                    (((dq % 8) ^ (key % 8)) << 4));
+      }
+#pragma unroll
+      for (int i = 0; i < 4; ++i) {
+        const int d = 4 * dq + i;
+        const uint32_t off = tb + L::VT_HI + d * 128 +
+                             (((2 * (2 * st + grp) + half) ^ (d % 8)) << 4);
+        uint4 hi, lo;
+        split(component(v[0], i), hi.x, lo.x);
+        split(component(v[1], i), hi.y, lo.y);
+        split(component(v[2], i), hi.z, lo.z);
+        split(component(v[3], i), hi.w, lo.w);
+        sts4(off, hi);
+        sts4(off + L::VT, lo);
+      }
+    }
+  };
+  // The split stage made visible to wgmma, and the stage of tile `next`
+  // and the raw V tile free: their loads go out.
+  const auto tiles_split = [&](int next) {
+    fence_async_shared();
+    __syncthreads();
+    if (threadIdx.x == 0 && next < n_tiles) load_raw(next);
+  };
+
+  // Warpgroup wg owns columns [128 wg, 128 wg + 128) of every row; a
+  // thread holds rows row0 and row0 + 8, and in each 8-column block of a
+  // product the columns cq and cq + 1.
+  const int wg = threadIdx.x / 128;
+  const int wt = threadIdx.x % 128;
+  const int warp = wt / 32;
+  const int lane = threadIdx.x % 32;
+  const int row0 = warp * 16 + lane / 4;
+  const int quad = lane % 4;
+  const int cq = 2 * quad;
+  const float sl = (softcap > 0.f ? 1.f : scale) * kLog2e;
+
+  split_tile(0);
+  tiles_split(1);
+
+  // The lo of this warpgroup's columns of Q, in the A fragments of
+  // Q_lo·K_hi (its k-step kk is the block's 16 wg + kk).
+  mbar_wait(q_full, 0);
+  uint32_t q_lo[16][4];
+#pragma unroll
+  for (int kk = 0; kk < 16; ++kk) {
+    const int g = 16 * wg + kk;
+#pragma unroll
+    for (int r = 0; r < 4; ++r) {
+      const int row = row0 + 8 * (r & 1);
+      const int chunk = 2 * (g % 4) + (r >> 1);
+      q_lo[kk][r] =
+          lo_of_truncated(lds(base + L::Q + (g / 4) * L::QBOX + row * 128 +
+                              ((chunk ^ (row % 8)) << 4) + 4 * quad));
+    }
+  }
+
+  float o[64];
+#pragma unroll
+  for (int i = 0; i < 64; ++i) o[i] = 0.f;
+  float m[2] = {-INFINITY, -INFINITY};
+  float l[2] = {0.f, 0.f};
+
+  for (int t = 0; t < n_tiles; ++t) {
+    const int stage = t % kStages;
+    const int kv0 = t * kWideBN;
+    const uint32_t tb = opaque(base);
+    const uint32_t k_hi = tb + L::RING + stage * L::STAGE;
+    const uint32_t k_lo = k_hi + L::KT;
+    // this warpgroup's 128 rows of Vᵀ, at the stage's 16 positions
+    const uint32_t vt_hi = tb + L::VT_HI + wg * 128 * 128 + 64 * stage;
+    const uint32_t vt_lo = vt_hi + L::VT;
+
+    // Partial S over this warpgroup's columns, the small products
+    // (Q_hi·K_lo, Q_lo·K_hi) first, then Q_hi·K_hi; the k-steps past dv
+    // add zeros.
+    float s[kWideBN / 2];
+#pragma unroll
+    for (int i = 0; i < kWideBN / 2; ++i) s[i] = 0.f;
+    const uint32_t q_wg = tb + L::Q + 4 * wg * L::QBOX;
+    const uint32_t kb_wg = 4 * wg * L::KBOX;
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < 16; ++kk) {
+      const uint32_t qa = q_wg + (kk / 4) * L::QBOX + (kk % 4) * 32;
+      const uint32_t kb = kb_wg + (kk / 4) * L::KBOX + (kk % 4) * 32;
+      wgmma_tf32_ss_n16(s, sw128_desc(qa, 16, 1024),
+                        sw128_desc(k_lo + kb, 16, 1024));
+      wgmma_tf32_rs_n16(s, q_lo[kk], sw128_desc(k_hi + kb, 16, 1024));
+    }
+#pragma unroll
+    for (int kk = 0; kk < 16; ++kk) {
+      const uint32_t qa = q_wg + (kk / 4) * L::QBOX + (kk % 4) * 32;
+      const uint32_t kb = kb_wg + (kk / 4) * L::KBOX + (kk % 4) * 32;
+      wgmma_tf32_ss_n16(s, sw128_desc(qa, 16, 1024),
+                        sw128_desc(k_hi + kb, 16, 1024));
+    }
+    wgmma_commit();
+    wgmma_wait0();
+    keep(s);
+
+    // S = the two partials: a thread's fragment sits at the same place in
+    // both warpgroups, so it trades with its twin thread; both add in
+    // the same order (a + b = b + a), so both hold the same S.
+    const uint32_t x_own = tb + L::X + (wg * 128 + wt) * 32;
+    const uint32_t x_twin = tb + L::X + ((1 - wg) * 128 + wt) * 32;
+    sts4(x_own, make_uint4(__float_as_uint(s[0]), __float_as_uint(s[1]),
+                           __float_as_uint(s[2]), __float_as_uint(s[3])));
+    sts4(x_own + 16, make_uint4(__float_as_uint(s[4]), __float_as_uint(s[5]),
+                                __float_as_uint(s[6]), __float_as_uint(s[7])));
+    __syncthreads();
+    {
+      const float4 a = lds4(x_twin);
+      const float4 c = lds4(x_twin + 16);
+      s[0] += a.x; s[1] += a.y; s[2] += a.z; s[3] += a.w;
+      s[4] += c.x; s[5] += c.y; s[6] += c.z; s[7] += c.w;
+    }
+
+    // Online softmax in registers: s[4j + e] is row row0 + 8 (e / 2),
+    // key kv0 + 8 j + cq + e % 2.
+    if (softcap > 0.f) {
+#pragma unroll
+      for (int i = 0; i < kWideBN / 2; ++i)
+        s[i] = tanhf(s[i] * scale / softcap) * softcap;
+    }
+    const bool edge = (causal && kv0 + kWideBN - 1 > q0) || kv0 + kWideBN > skv;
+    float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+    for (int j = 0; j < kWideBN / 8; ++j) {
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        float x = s[4 * j + e] * sl;
+        if (edge) {
+          const int qpos = q0 + row0 + 8 * (e / 2);
+          const int kpos = kv0 + 8 * j + cq + e % 2;
+          if (skv <= kpos || (causal && qpos < kpos)) x = -INFINITY;
+        }
+        s[4 * j + e] = x;
+        mx[e / 2] = fmaxf(mx[e / 2], x);
+      }
+    }
+    float mu[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+      const float m_new = fmaxf(m[i], mx[i]);
+      mu[i] = m_new == -INFINITY ? 0.f : m_new;   // a row with no key yet
+      const float alpha = exp2_approx(m[i] - mu[i]);
+      m[i] = m_new;
+      l[i] *= alpha;
+#pragma unroll
+      for (int j = 0; j < 16; ++j) {
+        o[4 * j + 2 * i] *= alpha;
+        o[4 * j + 2 * i + 1] *= alpha;
+      }
+    }
+    // P split into the A fragments of the 8-key steps, as in
+    // flash_fp32_kernel.
+    uint32_t p_hi[kWideBN / 8][4], p_lo[kWideBN / 8][4];
+#pragma unroll
+    for (int kk = 0; kk < kWideBN / 8; ++kk) {
+#pragma unroll
+      for (int r = 0; r < 4; ++r) {
+        const int e = 2 * (r & 1) + (r >> 1);
+        const float p = exp2_approx(s[4 * kk + e] - mu[e / 2]);
+        l[e / 2] += p;
+        split(p, p_hi[kk][r], p_lo[kk][r]);
+      }
+    }
+
+    // O += P V, the small products first: an 8-key step moves 32 bytes
+    // along Vᵀ's rows.  The next tile is split while it runs.
+    keep(o);
+    wgmma_fence();
+#pragma unroll
+    for (int kk = 0; kk < kWideBN / 8; ++kk) {
+      pv_tf32<128>(o, p_hi[kk], vt_lo + 32 * kk);
+      pv_tf32<128>(o, p_lo[kk], vt_hi + 32 * kk);
+    }
+#pragma unroll
+    for (int kk = 0; kk < kWideBN / 8; ++kk)
+      pv_tf32<128>(o, p_hi[kk], vt_hi + 32 * kk);
+    wgmma_commit();
+    if (t + 1 < n_tiles) split_tile(t + 1);
+    wgmma_wait0();
+    keep(o);
+    tiles_split(t + 2);
+  }
+
+  // Epilogue: O / l, rows past Sq and columns past dv not stored.
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int qpos = q0 + row0 + 8 * i;
+    if (qpos >= sq) continue;
+    const float inv = 1.f / l[i];
+    float* dst =
+        out + (((size_t)b * sq + qpos) * h + head) * dv + 128 * wg + cq;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      if (128 * wg + 8 * j < dv)
+        *reinterpret_cast<float2*>(dst + 8 * j) =
+            make_float2(o[4 * j + 2 * i] * inv, o[4 * j + 2 * i + 1] * inv);
+  }
+}
+
+inline int launch_wide(const void* q, const void* k, const void* v, void* out,
+                       int batch, int sq, int skv, int h, int hkv, int dv,
+                       int causal, float scale, float softcap,
+                       cudaStream_t stream) {
+  constexpr CUtensorMapDataType kF32 = CU_TENSOR_MAP_DATA_TYPE_FLOAT32;
+  CUtensorMap tq, tk, tv;
+  if (!tensor_map(&tq, q, batch, sq, h, dv, kF32, 4, kBoxCols, kWideBM) ||
+      !tensor_map(&tk, k, batch, skv, hkv, dv, kF32, 4, kBoxCols, kWideBN) ||
+      !tensor_map(&tv, v, batch, skv, hkv, dv, kF32, 4, kBoxCols, kWideBN))
+    return -2;
+  constexpr int smem = WideSmem::BYTES;
+  cudaError_t err = cudaFuncSetAttribute(
+      flash_fp32_kernel_wide, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      smem);
+  if (err != cudaSuccess) return static_cast<int>(err);
+  const dim3 grid(h, batch, (sq + kWideBM - 1) / kWideBM);
+  flash_fp32_kernel_wide<<<grid, kThreads, smem, stream>>>(
+      tq, tk, tv, static_cast<float*>(out), sq, skv, h, hkv, dv, causal,
+      scale, softcap);
+  return static_cast<int>(cudaGetLastError());
+}
+
 }  // namespace f32
 
 // Calls f with std::integral_constant<int, D> for a head_dim the kernels
@@ -1185,8 +1948,14 @@ int with_head_dim(int d, F&& f) {
   }
 }
 
-// The 2-byte kernel's tile width for a head_dim: 64 up to 64, else 128.
-constexpr int tile_width(int d) { return d <= 64 ? 64 : 128; }
+// The 2-byte kernel's tile width for a head_dim: 64 up to 64, 128 up to
+// 128, else 256 (flash_kernel_wide).
+constexpr int tile_width(int d) { return d <= 64 ? 64 : d <= 128 ? 128 : 256; }
+
+// A head_dim of the wide kernels: a multiple of 16 from 144 to 256.
+constexpr bool wide_head_dim(int d) {
+  return d > 128 && d <= wide::kD && d % 16 == 0;
+}
 
 }  // namespace
 
@@ -1194,6 +1963,10 @@ constexpr int tile_width(int d) { return d <= 64 ? 64 : 128; }
 // 1 = bfloat16, 2 = float16) and head_dim, in bytes; -1 for a pair the
 // kernels do not take.
 extern "C" int flash_attention_smem_bytes(int dtype, int head_dim) {
+  if (wide_head_dim(head_dim))
+    return dtype == 0                 ? f32::WideSmem::BYTES
+           : dtype == 1 || dtype == 2 ? wide::Smem::BYTES
+                                      : -1;
   return with_head_dim(head_dim, [&](auto d) {
     constexpr int D = decltype(d)::value;
     return dtype == 0                 ? f32::Smem<D>::BYTES
@@ -1210,12 +1983,23 @@ extern "C" int flash_attention_launch(int dtype, const void* q, const void* k,
                                       int sq, int skv, int h, int hkv,
                                       int head_dim, int causal, float scale,
                                       float softcap, void* stream) {
-  const int tile_q = dtype == 0 ? f32::kBM : kBM;
+  const bool is_wide = wide_head_dim(head_dim);
+  const int tile_q = dtype != 0 ? kBM : is_wide ? f32::kWideBM : f32::kBM;
   if (dtype < 0 || dtype > 2 || batch <= 0 || hkv <= 0 || h % hkv != 0 ||
       sq <= 0 || skv <= 0 || batch > 65535 ||
       (sq + tile_q - 1) / tile_q > 65535)
     return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
+  if (is_wide) {
+    if (dtype == 0)
+      return f32::launch_wide(q, k, v, out, batch, sq, skv, h, hkv, head_dim,
+                              causal, scale, softcap, s);
+    if (dtype == 1)
+      return wide::launch<__nv_bfloat16>(q, k, v, out, batch, sq, skv, h, hkv,
+                                         head_dim, causal, scale, softcap, s);
+    return wide::launch<__half>(q, k, v, out, batch, sq, skv, h, hkv, head_dim,
+                                causal, scale, softcap, s);
+  }
   return with_head_dim(head_dim, [&](auto d) {
     constexpr int D = decltype(d)::value;
     if (dtype == 0)

@@ -15,7 +15,7 @@
 // Layout: q (B,Hq,D); k/v pages (NP,P,Hkv,D) token-major, read in place
 // (a row of one kv head is D contiguous elements, rows Hkv*D apart);
 // tables (B,MP) int32; lens (B,) int32; out (B,Hq,D).  fp32, bf16 or
-// fp16, D any multiple of 16 from 16 to 128, any G, any page size; bf16
+// fp16, D any multiple of 16 from 16 to 256, any G, any page size; bf16
 // and fp16, both 2 bytes, share every shape below, each widened to fp32
 // exactly as it is read and only the output rounded to its type.  A
 // block takes C q heads of one kv head together, C the largest divisor
@@ -40,14 +40,22 @@
 //   group: 64 positions at D 80 to 128, 128 at D 48 and 64, 256 at D 32
 //   and 512 at D 16 (32 KB of bf16 K and V at D 16, 32, 64 and 128), so
 //   a long sequence spreads over many SMs; a block whose split starts at
-//   or past len returns at once.
+//   or past len returns at once.  D 144 to 256 take 32 positions a split
+//   (32 KB of bf16 K and V at D 256).
 // - 128 threads.  A thread owns 8 elements of a row, and a row takes
 //   the power of two of lanes at or above its D/8 (2 at D 16, 4 at D 32,
-//   8 at D 48 and 64, 16 at D 80 to 128), so the shuffles stay inside a
-//   row; the block's 128/lanes row groups each take 2 rows of every
-//   step.  Lanes past a row's end (at D 48, 80, 96 and 112) copy
-//   nothing (a zero-size cp.async fills their slots with zeros) and add
-//   zeros.
+//   8 at D 48 and 64, 16 at D 80 to 128, a whole warp of 32 at D 144 to
+//   256), so the shuffles stay inside a row; the block's 128/lanes row
+//   groups each take 2 rows of every step.  Lanes past a row's end (at
+//   D 48, 80, 96 and 112, and 144 to 240) copy nothing (a zero-size
+//   cp.async fills their slots with zeros) and add zeros.
+// - D 144 to 256 share one kernel a (dtype, q heads a block, chunked):
+//   the 32-lane shape of D 256 (the template's D, which sizes shared
+//   memory), the head_dim a runtime value (`head_dim`) for the live
+//   lanes, the strides in device memory and the merge's loops.  Up to
+//   D 128 every head_dim is its own instance, as before, where the same
+//   expressions fold to constants: 48 kernels for the eight wide
+//   head_dims, not 384.
 // - The ring: every thread copies, with 16-byte cp.async, exactly the K
 //   and V pieces it will read, STAGES steps ahead, into its own slots of
 //   a 32 KB ring in shared memory (4 steps in bf16 and fp16, the whole
@@ -59,8 +67,9 @@
 //   blocks (shared memory), up to 192 KB in flight.  A thread keeps G
 //   rows of q and of the accumulator in registers, so registers grow
 //   with G (ptxas, bf16 D 128: 74 at G 1, 128 at G 5, 168 at G 7, 178
-//   at G 8), and from G 5 on they, not shared memory, cap the blocks an
-//   SM holds (4 at G 5, 3 at G 7).
+//   at G 8; the D-256 shape 67 at G 1, 139 at G 5, 255 and 16 bytes of
+//   spills at G 8), and from G 5 on they, not shared memory, cap the
+//   blocks an SM holds (4 at G 5, 3 at G 7).
 // - Scores: 8 products per thread, summed over a row's lanes (log2 of
 //   its lanes xor shuffles).  Each row group keeps its own online
 //   softmax (log2 domain) in registers, rescaled at most once a step
@@ -90,6 +99,7 @@ constexpr int kVec = 8;             // elements of a row one thread owns
 constexpr int kRows = 2;            // rows a group takes from each step
 constexpr int kStepsPerSplit = 4;
 constexpr int kRingBytesPerThread = 256;
+constexpr int kWideD = 256;         // the one shape of head_dims 144 to 256
 constexpr float kNegInf = -1e30f;
 constexpr float kLog2e = 1.4426950408889634f;
 
@@ -191,13 +201,16 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
                   const int* __restrict__ lens, T* __restrict__ out,
                   float* __restrict__ ws, unsigned* __restrict__ tickets,
                   int hkv, int page, int max_pages, float scale, float softcap,
-                  int chunks) {
+                  int chunks, int head_dim) {
   // G: the q heads of this block.  CHUNKED (groups above 8): block y
   // takes the chunk y of G heads, `chunks` of them a kv head; otherwise
   // y is the kv head and the code is the one kernel of groups up to 8
   // (a division and a grid-size read here made those 0.3-0.7% slower).
+  // dh: the head_dim, D itself up to 128 (so every expression of it
+  // below is a constant there), `head_dim` in the D-256 shape.
   using S = Shape<T, D>;
-  constexpr int REC = G * (D + 2);          // o[G][D], m[G], l[G]
+  const int dh = D == kWideD ? head_dim : D;
+  const int REC = G * (dh + 2);             // o[G][dh], m[G], l[G]
   const int split = blockIdx.x;
   const int y = blockIdx.y;
   const int kvh = CHUNKED ? y / chunks : y;
@@ -210,7 +223,8 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   const int tid = threadIdx.x;
   const int lane = tid % S::LANES;          // which kVec elements of a row
   const int grp = tid / S::LANES;
-  const bool live_lane = lane < S::LIVE;    // false: lanes past a row's end
+  // false: lanes past a row's end
+  const bool live_lane = D == kWideD ? lane * kVec < dh : lane < S::LIVE;
   const int ny = CHUNKED ? gridDim.y : hkv;  // blocks along y: Hq / G
   const int hq = ny * G;
 
@@ -232,7 +246,7 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   for (int g = 0; g < G; ++g) {
     if (live_lane) {
       unpack<T>(reinterpret_cast<const uint4*>(
-                    q + ((size_t)b * hq + y * G + g) * D + lane * kVec),
+                    q + ((size_t)b * hq + y * G + g) * dh + lane * kVec),
                 1, qr[g]);
     } else {
 #pragma unroll
@@ -263,7 +277,7 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
       size_t off = 0;
       if (live)
         off = (((size_t)pages[pos / page - p0] * page + pos % page) * hkv +
-               kvh) * D + lane * kVec;
+               kvh) * dh + lane * kVec;
 #pragma unroll
       for (int c = 0; c < S::COPIES; ++c) {
         const size_t e = off + c * (16 / sizeof(T));
@@ -358,9 +372,9 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   __syncthreads();
   float* rec = n_splits == 1 ? nullptr
       : ws + (((size_t)b * ny + y) * gridDim.x + split) * REC;
-  for (int idx = tid; idx < G * D; idx += kThreads) {
-    const int g = idx / D;
-    const int d = idx % D;
+  for (int idx = tid; idx < G * dh; idx += kThreads) {
+    const int g = idx / dh;
+    const int d = idx % dh;
     float mx = kNegInf;
 #pragma unroll
     for (int h = 0; h < S::GROUPS; ++h) mx = fmaxf(mx, grp_m[h][g]);
@@ -372,13 +386,13 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
       sum_o += grp_acc[(h * G + g) * D + d] * f;
     }
     if (n_splits == 1) {
-      store(out + ((size_t)b * hq + y * G + g) * D + d,
+      store(out + ((size_t)b * hq + y * G + g) * dh + d,
             sum_l > 0.f ? sum_o / sum_l : 0.f);
     } else {
       rec[idx] = sum_o;
       if (d == 0) {
-        rec[G * D + g] = mx;
-        rec[G * D + G + g] = sum_l;
+        rec[G * dh + g] = mx;
+        rec[G * dh + G + g] = sum_l;
       }
     }
   }
@@ -394,7 +408,8 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   if (!last) return;
   __threadfence();
   // A thread takes the outputs tid + k*kThreads; the loads of several
-  // splits are in flight together.
+  // splits are in flight together.  (OUTS from D: at the D-256 shape the
+  // outputs past G * dh are clamped, then not stored.)
   constexpr int OUTS = (G * D + kThreads - 1) / kThreads;
   const float* recs = ws + ((size_t)b * ny + y) * gridDim.x * REC;
   float mx[OUTS], sum_l[OUTS], sum_o[OUTS];
@@ -407,26 +422,26 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
   for (int sp = 0; sp < n_splits; ++sp)
 #pragma unroll
     for (int k = 0; k < OUTS; ++k) {
-      const int idx = min(tid + k * kThreads, G * D - 1);
-      mx[k] = fmaxf(mx[k], __ldcg(recs + sp * REC + G * D + idx / D));
+      const int idx = min(tid + k * kThreads, G * dh - 1);
+      mx[k] = fmaxf(mx[k], __ldcg(recs + sp * REC + G * dh + idx / dh));
     }
 #pragma unroll 4
   for (int sp = 0; sp < n_splits; ++sp) {
     const float* r = recs + sp * REC;
 #pragma unroll
     for (int k = 0; k < OUTS; ++k) {
-      const int idx = min(tid + k * kThreads, G * D - 1);
-      const float ms = __ldcg(r + G * D + idx / D);
+      const int idx = min(tid + k * kThreads, G * dh - 1);
+      const float ms = __ldcg(r + G * dh + idx / dh);
       const float f = exp2f(ms - mx[k]);
-      sum_l[k] += __ldcg(r + G * D + G + idx / D) * f;
+      sum_l[k] += __ldcg(r + G * dh + G + idx / dh) * f;
       sum_o[k] += __ldcg(r + idx) * f;
     }
   }
 #pragma unroll
   for (int k = 0; k < OUTS; ++k) {
     const int idx = tid + k * kThreads;
-    if (idx < G * D)
-      store(out + ((size_t)b * hq + y * G) * D + idx, sum_o[k] / sum_l[k]);
+    if (idx < G * dh)
+      store(out + ((size_t)b * hq + y * G) * dh + idx, sum_o[k] / sum_l[k]);
   }
 }
 
@@ -434,7 +449,7 @@ paged_attn_kernel(const T* __restrict__ q, const T* __restrict__ k_pages,
 struct Args {
   const void *q, *k, *v, *tables, *lens;
   void *out, *ws, *tickets;
-  int batch, hq, hkv, page, max_pages;
+  int batch, hq, hkv, page, max_pages, head_dim;
   float scale, softcap;
   cudaStream_t stream;
 };
@@ -451,7 +466,7 @@ int launch(const Args& a) {
       static_cast<const T*>(a.v), static_cast<const int*>(a.tables),
       static_cast<const int*>(a.lens), static_cast<T*>(a.out),
       static_cast<float*>(a.ws), static_cast<unsigned*>(a.tickets), a.hkv,
-      a.page, a.max_pages, a.scale, a.softcap, a.hq / a.hkv / G);
+      a.page, a.max_pages, a.scale, a.softcap, a.hq / a.hkv / G, a.head_dim);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -463,7 +478,8 @@ inline int heads_per_block(int group) {
 }
 
 // Calls f with std::integral_constant<int, D> for a head_dim the kernel
-// takes (a multiple of 16 from 16 to 128); -1 for any other.
+// takes: D = d for a multiple of 16 from 16 to 128, D = kWideD for one
+// from 144 to 256 (the head_dim then a runtime value); -1 for any other.
 template <typename F>
 int with_head_dim(int d, F&& f) {
   switch (d) {
@@ -475,6 +491,8 @@ int with_head_dim(int d, F&& f) {
     case 96: return f(std::integral_constant<int, 96>{});
     case 112: return f(std::integral_constant<int, 112>{});
     case 128: return f(std::integral_constant<int, 128>{});
+    case 144: case 160: case 176: case 192: case 208: case 224: case 240:
+    case 256: return f(std::integral_constant<int, kWideD>{});
     default: return -1;
   }
 }
@@ -505,19 +523,22 @@ int with_dtype(int dtype, F&& f) {
   return -1;
 }
 
-// The 384 kernels (3 dtypes x 8 head_dims x 1-8 q heads a block x
-// chunked or not) take minutes to build in one object, so
-// kernels/build.py reads kParts below and builds that many objects of
-// this source in parallel, object P (-DREPRO_PART=P) holding the
-// (dtype, head_dim) pairs with part_of(...) == P, and links them; built
-// without REPRO_PART, one object holds them all.  Six parts of four pairs
-// each: with the flash and SSD sources, eight compiles, one for each core
-// of an 8-core host (four parts of six pairs each took 75-79 s there and
-// set the build's wall; PERF.md).
-constexpr int kParts = 6;
+// The 432 kernels (3 dtypes x 9 shapes: head_dims 16 to 128 and the
+// D-256 one of 144 to 256, x 1-8 q heads a block x chunked or not) take
+// minutes to build in one object, so kernels/build.py reads kParts below
+// and builds that many objects of this source in parallel, object P
+// (-DREPRO_PART=P) holding the (dtype, shape) pairs with part_of(...) ==
+// P, and links them; built without REPRO_PART, one object holds them
+// all.  Seven parts of at most four pairs each, as the six parts of four
+// took before the D-256 shape (four parts of six pairs each took 75-79 s
+// on an 8-core host and set the build's wall; PERF.md).
+constexpr int kParts = 7;
 
+// The pairs in order: (dtype, head_dim / 16 - 1) up to 128, then the
+// D-256 shape of each dtype.
 constexpr int part_of(int dtype, int head_dim) {
-  return (dtype * 8 + head_dim / 16 - 1) % kParts;
+  return (head_dim <= 128 ? dtype * 8 + head_dim / 16 - 1 : 24 + dtype) %
+         kParts;
 }
 
 // Launches the kernel of (dtype, head_dim, c q heads a block), which
@@ -547,7 +568,8 @@ template <> int launch_part<2>(int, int, int, const Args&);
 template <> int launch_part<3>(int, int, int, const Args&);
 template <> int launch_part<4>(int, int, int, const Args&);
 template <> int launch_part<5>(int, int, int, const Args&);
-static_assert(kParts == 6, "one launch_part specialisation a part");
+template <> int launch_part<6>(int, int, int, const Args&);
+static_assert(kParts == 7, "one launch_part specialisation a part");
 
 #if !defined(REPRO_PART) || REPRO_PART == 0
 template <>
@@ -583,6 +605,12 @@ int launch_part<4>(int dtype, int head_dim, int c, const Args& a) {
 template <>
 int launch_part<5>(int dtype, int head_dim, int c, const Args& a) {
   return launch_in_part<5>(dtype, head_dim, c, a);
+}
+#endif
+#if !defined(REPRO_PART) || REPRO_PART == 6
+template <>
+int launch_part<6>(int dtype, int head_dim, int c, const Args& a) {
+  return launch_in_part<6>(dtype, head_dim, c, a);
 }
 #endif
 
@@ -622,10 +650,10 @@ extern "C" int paged_attention_launch(int dtype, const void* q, const void* k,
   const int c = paged_attention_heads_per_block(hq, hkv);
   if (c <= 0 || page <= 0 || max_pages <= 0 || batch <= 0 ||
       batch > 65535 || hq / c > 65535 || dtype < 0 || dtype > 2 ||
-      head_dim < 16 || head_dim > 128 || head_dim % 16 != 0)
+      head_dim < 16 || head_dim > 256 || head_dim % 16 != 0)
     return -1;
   const Args a{q, k, v, tables, lens, out, ws, tickets, batch, hq, hkv,
-               page, max_pages, scale, softcap,
+               page, max_pages, head_dim, scale, softcap,
                static_cast<cudaStream_t>(stream)};
   switch (part_of(dtype, head_dim)) {
     case 0: return launch_part<0>(dtype, head_dim, c, a);
@@ -634,6 +662,7 @@ extern "C" int paged_attention_launch(int dtype, const void* q, const void* k,
     case 3: return launch_part<3>(dtype, head_dim, c, a);
     case 4: return launch_part<4>(dtype, head_dim, c, a);
     case 5: return launch_part<5>(dtype, head_dim, c, a);
+    case 6: return launch_part<6>(dtype, head_dim, c, a);
     default: return -1;
   }
 }

@@ -14,18 +14,25 @@ sequence to the block and of head_dim to 128 (with its rescaling of q,
 ops.py:53-60) is carried over.
 
 The kernels are written for Hopper and take bf16, fp16 and fp32, each
-at every head_dim that is a multiple of 16 from 16 to 128
+at every head_dim that is a multiple of 16 from 16 to 256
 (``HEAD_DIMS``), any GQA group and any lengths.  bf16 and fp16, one
 kernel template for both: TMA loads into a ring of K/V tiles, ``wgmma``
 products accumulated in fp32, the softmax in registers, P rounded to the
 input type for the P·V product; head_dims up to 64 run its 64-wide tiles
-and the wider ones its 128-wide tiles, the columns past head_dim read as
-zeros.  fp32: the same shape on TF32 ``wgmma``, each product taken as
-three TF32 products of the operands split into hi + lo (3xTF32), since
-one TF32 product would miss the reference's fp32 tolerance; 128-row q
-tiles over two warpgroups, every thread of which splits its share of
-each raw 32-key K/V tile into hi/lo K and a transposed hi/lo Vᵀ while
-the tile before it is multiplied.  The fp32 plain version serves the CPU
+and those up to 128 its 128-wide tiles, the columns past head_dim read
+as zeros.  Head_dims 144 to 256 run a kernel of 256-wide tiles
+(``flash_kernel_wide``: two warpgroups and no producer, 64-key tiles,
+the head_dim a runtime value).  fp32: the same shape on TF32 ``wgmma``,
+each product taken as three TF32 products of the operands split into
+hi + lo (3xTF32), since one TF32 product would miss the reference's fp32
+tolerance; up to head_dim 128, 128-row q tiles over two warpgroups,
+every thread of which splits its share of each raw 32-key K/V tile into
+hi/lo K and a transposed hi/lo Vᵀ while the tile before it is
+multiplied; from 144 to 256 (``flash_fp32_kernel_wide``) 64-row q tiles
+and 16-key tiles, the two warpgroups splitting head_dim between them and
+adding their partial scores through shared memory.  There is no padding
+copy: a head_dim that is not a multiple of 16, or above 256, raises on a
+CUDA tensor.  The fp32 plain version serves the CPU
 and the comparisons.  ``flash_attention`` runs ``flash_attention_ref``
 for CPU tensors and the kernel for CUDA tensors; on a CUDA tensor it
 launches or raises (``TypeError`` for a dtype but bf16, fp16 and fp32,
@@ -46,7 +53,7 @@ from repro_torch.kernels import build, counts
 NEG_INF = -1e30
 #: -> the C dtype code
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-HEAD_DIMS = tuple(range(16, 129, 16))
+HEAD_DIMS = tuple(range(16, 257, 16))
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True,

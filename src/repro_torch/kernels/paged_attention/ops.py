@@ -25,8 +25,10 @@ shares the graph's.
 
 The kernel takes bf16, fp16 and fp32 (each widened to fp32 as it is
 read, the output rounded once to the input type), every head_dim that is
-a multiple of 16 from 16 to 128 (``HEAD_DIMS``; a row on the power of
-two of lanes at or above head_dim/8) and any group (``hq % hkv == 0``).
+a multiple of 16 from 16 to 256 (``HEAD_DIMS``; a row on the power of
+two of lanes at or above head_dim/8, a whole warp from 144 on, where one
+kernel a dtype and group takes the head_dim at run time) and any group
+(``hq % hkv == 0``); another head_dim raises on a CUDA tensor.
 ``paged_attention`` runs ``paged_attention_ref`` for CPU tensors and the
 kernel for CUDA tensors; on a CUDA tensor it launches or raises
 (``RuntimeError`` where autograd would record the call: the kernel has
@@ -44,7 +46,7 @@ from repro_torch.kernels import build, counts
 
 NEG_INF = -1e30
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
-HEAD_DIMS = tuple(range(16, 129, 16))
+HEAD_DIMS = tuple(range(16, 257, 16))
 
 #: (device index, stream) -> zeroed int32 counters, one per (sequence,
 #: chunk of q heads); the kernel leaves them zeroed

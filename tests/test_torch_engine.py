@@ -127,8 +127,11 @@ def test_engine_matches_reference(arch, path):
 
 #: llama2-7b's smoke model in fp32 at the attention shapes the kernels
 #: were widened to: (q heads, kv heads, head_dim) of GQA group 6 at
-#: head_dim 16, multi-query 16/1 at head_dim 32, and head_dim 48
-WIDENED_SHAPES = [(12, 2, 16), (16, 1, 32), (4, 4, 48)]
+#: head_dim 16, multi-query 16/1 at head_dim 32, head_dim 48, and the
+#: head_dims above 128: GQA 2 at 256 (a q width of 1024 over d_model 64)
+#: and 144
+WIDENED_SHAPES = [(12, 2, 16), (16, 1, 32), (4, 4, 48), (4, 2, 256),
+                  (4, 4, 144)]
 
 
 @pytest.mark.parametrize("path", ["gather", "pallas"])

@@ -4,8 +4,8 @@ On the CPU the wrapper runs the kernel's plain version; it is held to
 the JAX wrapper ``repro.kernels.flash_attention.ops.flash_attention``
 (the Pallas kernel in interpret mode, as tests/test_kernels.py runs it)
 on the reference's FLASH_CASES, its softcap case, shapes at the CUDA
-kernel's tile edges, and head_dim 80 (with test_kernels.py's
-tolerances).  Tolerances: 2e-5 in fp32, 3e-2 in bf16.  fp16, which the
+kernel's tile edges, head_dim 80, and head_dims 144, 192 and 256 (with
+test_kernels.py's tolerances).  Tolerances: 2e-5 in fp32, 3e-2 in bf16.  fp16, which the
 reference's wrapper takes though its tests run none, on the bf16 case's
 shape and at head_dim 80: 1e-2 (both versions compute in fp32 from the
 same fp16 inputs and round the output once, so they differ by at most
@@ -15,7 +15,7 @@ the plain version on the card in tests/test_torch_kernels_cuda.py.
 The fp32 CUDA kernel takes each product as three TF32 products (3xTF32).
 A model of that arithmetic on the CPU (``cvt.rna.tf32.f32`` as integer
 bit operations, Q's hi as its bits truncated, which is what the kernel's
-tensor cores read) is held to the JAX reference on every fp32 case the
+tensor cores read, and K's too above head_dim 128) is held to the JAX reference on every fp32 case the
 reference holds to 2e-5, within 2e-5; with the hi·hi product alone it
 reads past 2e-5, which is why the kernel takes three.
 
@@ -163,12 +163,57 @@ def test_plain_vs_jax_at_widened_head_dims(case):
         rtol=tol, atol=tol)
 
 
+#: head_dims above 128 (Gemma-7B's and Gemma-2-9B's 256, and 144 and 192
+#: between), which the CUDA kernels run in their 256-wide tiles (bf16,
+#: fp16) and D-split blocks (fp32) with the columns past head_dim read as
+#: zeros: groups 1, 2 and 8, ragged, non-causal with Sq != Skv
+WIDE_HEAD_DIM_CASES = [
+    (1, 100, 100, 2, 2, 256, True, "float32"),
+    (2, 64, 192, 4, 2, 256, False, "float32"),
+    (1, 128, 128, 8, 1, 256, True, "float32"),
+    (1, 128, 128, 8, 1, 256, True, "bfloat16"),
+    (1, 100, 100, 4, 2, 256, True, "float16"),
+    (1, 130, 130, 4, 2, 192, True, "float32"),
+    (1, 128, 128, 4, 4, 192, True, "bfloat16"),
+    (2, 64, 192, 8, 1, 144, False, "float32"),
+    (1, 128, 128, 4, 2, 144, True, "bfloat16"),
+    (1, 100, 100, 4, 4, 144, True, "float16"),
+]
+
+
+@pytest.mark.parametrize("case", WIDE_HEAD_DIM_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_plain_vs_jax_at_head_dims_above_128(case):
+    b, sq, skv, h, hkv, d, causal, dtype = case
+    assert d in ops.HEAD_DIMS
+    q, k, v = _inputs(b, sq, skv, h, hkv, d, seed=10)
+    got = _torch(q, k, v, dtype, causal=causal)
+    assert got.dtype == getattr(torch, dtype) and got.shape == (b, sq, h, d)
+    tol = KERNEL_TOL[dtype]
+    np.testing.assert_allclose(
+        got.float().numpy(),
+        _jax(q, k, v, dtype, causal=causal, block_q=64, block_kv=64),
+        rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+def test_softcap_50_at_head_dim_256(dtype):
+    """Gemma-2-9B's attention: 16 q heads over 8 kv heads of 256, logits
+    soft-capped at 50."""
+    q, k, v = _inputs(1, 128, 128, 16, 8, 256, seed=11)
+    got = _torch(q, k, v, dtype, causal=True, softcap=50.0)
+    want = _jax(q, k, v, dtype, causal=True, softcap=50.0, block_q=64,
+                block_kv=64)
+    tol = KERNEL_TOL[dtype]
+    np.testing.assert_allclose(got.float().numpy(), want, rtol=tol, atol=tol)
+
+
 def test_wrapper_tables_cover_every_multiple_of_16():
     """The dtypes and head_dims the CUDA kernels take: fp32, bf16 and
-    fp16, every multiple of 16 from 16 to 128 (the C interface's dtype
+    fp16, every multiple of 16 from 16 to 256 (the C interface's dtype
     codes are the paged kernel's)."""
     from repro_torch.kernels.paged_attention import ops as paged_ops
-    assert ops.HEAD_DIMS == paged_ops.HEAD_DIMS == tuple(range(16, 129, 16))
+    assert ops.HEAD_DIMS == paged_ops.HEAD_DIMS == tuple(range(16, 257, 16))
     assert ops.DTYPES == paged_ops.DTYPES == {torch.float32: 0,
                                               torch.bfloat16: 1,
                                               torch.float16: 2}
@@ -312,14 +357,17 @@ def _tf32_product(eq, a, b, products):
 
 def _attention_tf32(q, k, v, *, causal, softcap=0.0, products=3):
     """The fp32 kernel's arithmetic on fp32 (B,S,H,D) tensors: Q's hi is
-    its bits truncated to TF32, K, V and P are split with cvt.rna; the
-    softmax is fp32 (unnormalised P, divided by its row sum at the end)."""
+    its bits truncated to TF32, V and P are split with cvt.rna, and K too
+    up to head_dim 128; above 128 the D-split kernel reads K's hi as it
+    landed, truncated like Q's.  The softmax is fp32 (unnormalised P,
+    divided by its row sum at the end)."""
     b, sq, h, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     k = k.repeat_interleave(h // hkv, dim=2)
     v = v.repeat_interleave(h // hkv, dim=2)
-    s = _tf32_product("bqhd,bkhd->bhqk", _split(q, _tf32_trunc), _split(k),
-                      products) * d ** -0.5
+    k_hi = _tf32_trunc if d > 128 else _tf32_rna
+    s = _tf32_product("bqhd,bkhd->bhqk", _split(q, _tf32_trunc),
+                      _split(k, k_hi), products) * d ** -0.5
     if softcap:
         s = torch.tanh(s / softcap) * softcap
     if causal:
@@ -331,14 +379,18 @@ def _attention_tf32(q, k, v, *, causal, softcap=0.0, products=3):
 
 
 #: every fp32 case the reference holds to 2e-5 (tests/test_kernels.py's
-#: FLASH_CASES 0, 2, 3, 4 and test_flash_softcap), and the fp32 cases at
-#: the head_dims the kernel takes beyond them (48, 80, 96, 112):
+#: FLASH_CASES 0, 2, 3, 4 and test_flash_softcap), the fp32 cases at the
+#: head_dims the kernel takes beyond them (48, 80, 96, 112, 144, 192,
+#: 256), FLASH_CASES[4]'s shape at head_dim 256 and Gemma-2-9B's softcap
+#: of 50 at 16/8 heads of 256, whose sums run twice as long as at 128:
 #: (b, sq, skv, h, hkv, d, causal, softcap, reference block)
 TF32_MODEL_CASES = [
     *((*c[:7], 0.0, 64) for c in FLASH_CASES if c[7] == "float32"),
     (1, 64, 64, 2, 2, 32, True, 20.0, 32),
     *((*c[:7], 0.0, 64) for c in WIDENED_HEAD_DIM_CASES + HEAD_DIM_80_CASES
-      if c[7] == "float32"),
+      + WIDE_HEAD_DIM_CASES if c[7] == "float32"),
+    (*FLASH_CASES[4][:5], 256, True, 0.0, 64),
+    (1, 128, 128, 16, 8, 256, True, 50.0, 64),
 ]
 
 

@@ -10,7 +10,7 @@ output is held against its plain version run in fp32 on the same
 values, row by row (one q head of one token): the row's largest error
 over its largest |value| stays within 1e-2 in bf16 and fp16 and 1e-4 in
 fp32, as in chip_smoke.py.  Both attention kernels take bf16, fp16 and
-fp32 at every head_dim that is a multiple of 16 from 16 to 128, and
+fp32 at every head_dim that is a multiple of 16 from 16 to 256, and
 paged every GQA group (in chunks of at most 8 q heads a block above 8);
 the fp16 cases are the serving shapes of llama2-7b, qwen3-14b and
 stablelm-3b, the narrowest head_dim and the edges of the splits and
@@ -35,6 +35,14 @@ limit catches it at whisper-base's Skv of 1500.
 ``test_fp16_limit_catches_an_off_by_one`` plants one fault in each
 kernel and runs it in fp16, the dtype that shares its code with bf16
 but for the rounding of P and of the output.
+
+Above head_dim 128 (Gemma's 256, every multiple of 16 from 144) the
+flash kernels run their wide shapes (bf16 and fp16 in 256-wide tiles;
+fp32 with the two warpgroups splitting D) and paged a warp of 32 lanes
+a row: ``PAGED_WIDE`` and ``FLASH_WIDE`` take every such head_dim in
+each dtype, paged at groups 1, 2, 5, 8, 16/1 and 32/1, flash causal,
+non-causal with a ragged Skv and soft-capped, and the reference's
+FLASH_CASES[4] shape at 256 in fp32 is held to its 2e-5.
 
 Both attention kernels take head_dim 80 (stablelm-3b, zamba2-2.7b's
 shared block) in padded tiles and lanes: flash in its D-128 tiles, paged
@@ -245,6 +253,26 @@ PAGED = [
 ]
 
 
+#: head_dims 144 to 256 (a row on a warp of 32 lanes, 14 to 0 of them
+#: dead): every head_dim in each dtype, the groups taken in turn, so each
+#: dtype meets each group (q heads over kv heads: 1 = 16/16, 2 = 16/8,
+#: 5 = 40/8, 8 = 64/8, multi-query 16/1 and 32/1); then every group at
+#: 256 in bf16, the split edges and a long row among short ones
+WIDE_GROUPS = [(16, 16), (16, 8), (40, 8), (64, 8), (16, 1), (32, 1)]
+PAGED_WIDE = [
+    *((8, *WIDE_GROUPS[(i + j) % len(WIDE_GROUPS)], d, 129, 16, 16, dt, {})
+      for i, d in enumerate(range(144, 257, 16))
+      for j, dt in enumerate((torch.bfloat16, torch.float16, torch.float32))),
+    *((8, hq, hkv, 256, 129, 16, 16, torch.bfloat16, {})
+      for hq, hkv in WIDE_GROUPS),
+    (7, 16, 16, 256, 129, 16, 16, torch.bfloat16, {"lens": "split-boundary"}),
+    (7, 16, 8, 144, 129, 16, 16, torch.float32, {"lens": "split-boundary"}),
+    (8, 32, 1, 192, 1025, 16, 128, torch.float16,
+     {"lens": [2048, 3, 17, 40, 64, 5, 100, 1]}),
+    (6, 16, 8, 256, 40, 16, 32, torch.float32, {"shared_pages": True}),
+]
+
+
 def _paged_case_inputs(case, device):
     *shape, dtype, opts = case
     opts = dict(opts)
@@ -256,7 +284,7 @@ def _paged_case_inputs(case, device):
     return _paged_inputs(*shape, dtype, device, **opts)
 
 
-@pytest.mark.parametrize("case", PAGED, ids=lambda c: "-".join(
+@pytest.mark.parametrize("case", PAGED + PAGED_WIDE, ids=lambda c: "-".join(
     map(str, c[:8])) + "".join(f"-{k}" for k in c[8]))
 def test_paged_kernel_vs_plain(cuda, case):
     dtype = case[7]
@@ -312,6 +340,17 @@ def test_paged_kernel_softcap(cuda):
     assert _row_rel_err(got, want).max() <= REL_TOL[torch.float32]
 
 
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float32])
+def test_paged_kernel_softcap_50_at_head_dim_256(cuda, dtype):
+    """Gemma-2-9B's decode: 16 q heads over 8 kv heads of 256, logits
+    soft-capped at 50."""
+    args = _paged_inputs(8, 16, 8, 256, 129, 16, 16, dtype, cuda)
+    got = paged.paged_attention(*args, softcap=50.0)
+    want = _paged_plain(args, softcap=50.0)
+    assert got.dtype == dtype and torch.isfinite(got).all()
+    assert _row_rel_err(got, want).max() <= REL_TOL[dtype]
+
+
 #: tests/test_kernels.py's own cases, at their shapes and dtypes:
 #: FLASH_CASES and test_flash_softcap (b, sq, skv, h, hkv, d, causal,
 #: softcap, dtype); PAGED_CASES (b, hq, hkv, d, npages, page, mp, dtype)
@@ -324,6 +363,8 @@ REF_FLASH = [
     (1, 64, 64, 2, 2, 32, True, 20.0, torch.float32),
     # the bf16 case once more in fp16
     (1, 256, 256, 4, 4, 64, True, 0.0, torch.float16),
+    # FLASH_CASES[4]'s shape (MHA 8/8, causal) at head_dim 256, fp32
+    (1, 128, 128, 8, 8, 256, True, 0.0, torch.float32),
 ]
 REF_PAGED = [
     (2, 4, 2, 64, 16, 16, 4, torch.float32),
@@ -472,7 +513,33 @@ FLASH = [
 ]
 
 
-@pytest.mark.parametrize("case", FLASH, ids=lambda c: "-".join(map(str, c)))
+#: head_dims 144 to 256 (bf16 and fp16 in the 256-wide tiles, fp32 with
+#: the two warpgroups splitting D): every head_dim in each dtype, the
+#: kinds taken in turn (causal ragged Sq, GQA; non-causal with Skv !=
+#: Sq; causal with Gemma-2-9B's softcap of 50), so each dtype meets each
+#: kind; then every kind at 256 in each dtype and the serving prefills of
+#: head_dim 256 (16/16, 16/8)
+_WIDE_KINDS = [
+    lambda d, dt: (1, 300, 300, 8, 2, d, True, 0.0, dt),
+    lambda d, dt: (2, 200, 333, 8, 8, d, False, 0.0, dt),
+    lambda d, dt: (1, 256, 256, 16, 8, d, True, 50.0, dt),
+]
+FLASH_WIDE = [
+    *(_WIDE_KINDS[(i + j) % 3](d, dt)
+      for i, d in enumerate(range(144, 257, 16))
+      for j, dt in enumerate((torch.bfloat16, torch.float16, torch.float32))),
+    *(kind(256, dt) for kind in _WIDE_KINDS
+      for dt in (torch.bfloat16, torch.float16, torch.float32)),
+    *((1, 1024, 1024, 16, hkv, 256, True, 0.0, dt) for hkv in (16, 8)
+      for dt in (torch.bfloat16, torch.float16, torch.float32)),
+    (1, 100, 260, 4, 4, 256, True, 0.0, torch.bfloat16),   # top-left
+    (1, 100, 260, 4, 4, 256, True, 0.0, torch.float32),
+    (1, 70, 150, 4, 2, 144, False, 20.0, torch.float32),
+]
+
+
+@pytest.mark.parametrize("case", FLASH + FLASH_WIDE,
+                         ids=lambda c: "-".join(map(str, c)))
 def test_flash_kernel_vs_plain(cuda, case):
     b, sq, skv, h, hkv, d, causal, softcap, dtype = case
     rng = np.random.RandomState(1)
@@ -824,9 +891,9 @@ def test_paged_head_dim_80_reads_pages_where_the_table_says(cuda, dtype):
 def test_head_dim_80_raises(cuda):
     """Both kernels take stablelm-3b's head_dim (2560/32 = 80) since they
     run it in padded tiles and lanes, and now every multiple of 16 up to
-    128; the refusal this test pinned when they did not moves to head_dim
-    136, which neither takes: a CUDA tensor launches the kernel or
-    raises, nothing falls back."""
+    256; the refusal this test pinned when they did not moves to head_dim
+    136, which neither takes (not a multiple of 16): a CUDA tensor
+    launches the kernel or raises, nothing falls back."""
     from repro_torch.configs import get_config
     assert get_config("stablelm-3b").head_dim == 80
     assert 80 in paged.HEAD_DIMS and 80 in flash.HEAD_DIMS
@@ -843,8 +910,9 @@ def test_head_dim_80_raises(cuda):
 
 
 def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
-    q = torch.zeros(2, 4, 256, device=cuda)             # head_dim 256
-    kp = torch.zeros(8, 16, 2, 256, device=cuda)
+    # head_dim 272: past 256, the widest the kernels take
+    q = torch.zeros(2, 4, 272, device=cuda)
+    kp = torch.zeros(8, 16, 2, 272, device=cuda)
     bt = torch.zeros(2, 4, dtype=torch.int32, device=cuda)
     cl = torch.ones(2, dtype=torch.int32, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
@@ -853,7 +921,7 @@ def test_wrappers_reject_what_the_kernels_do_not_take(cuda):
     kp5 = torch.zeros(8, 16, 5, 64, device=cuda)
     with pytest.raises(ValueError, match="not a multiple"):
         paged.paged_attention(q5, kp5, kp5, bt, cl)
-    x = torch.zeros(1, 64, 2, 256, device=cuda)
+    x = torch.zeros(1, 64, 2, 272, device=cuda)
     with pytest.raises(ValueError, match="head_dim"):
         flash.flash_attention(x, x, x)
     x = torch.zeros(1, 64, 2, 64, device=cuda, dtype=torch.float64)

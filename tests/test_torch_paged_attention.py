@@ -3,7 +3,8 @@
 On the CPU the wrapper runs the kernel's plain version; it is held to
 the JAX wrapper ``repro.kernels.paged_attention.ops.paged_attention``
 (the Pallas kernel in interpret mode, as tests/test_kernels.py runs it)
-on the reference's PAGED_CASES and at head_dim 80.  Tolerances as there:
+on the reference's PAGED_CASES, at head_dim 80 and at head_dims 144, 192
+and 256.  Tolerances as there:
 2e-5 in fp32, 3e-2 in bf16.  fp16, which the reference's wrapper takes
 though its tests run none, on the bf16 case's shape and at head_dim 80:
 1e-2 (both versions compute in fp32 from the same fp16 inputs and round
@@ -127,6 +128,36 @@ def test_plain_vs_jax_at_widened_shapes(case):
                                rtol=tol, atol=tol)
 
 
+#: head_dims above 128 (Gemma's 256, and 144 and 192), which the CUDA
+#: kernel runs with a warp of 32 lanes a row, the lanes past head_dim / 8
+#: dead: groups 1, 2 and 8 (16/2), multi-query 16/1 (two chunks of 8)
+WIDE_HEAD_DIM_CASES = [
+    (2, 4, 4, 256, 16, 16, 4, "float32"),
+    (2, 4, 4, 256, 16, 16, 4, "bfloat16"),
+    (3, 8, 4, 256, 32, 8, 6, "float16"),
+    (1, 16, 2, 256, 8, 32, 2, "float32"),
+    (2, 16, 1, 256, 16, 16, 4, "bfloat16"),
+    (2, 4, 4, 192, 16, 16, 4, "float32"),
+    (3, 8, 1, 192, 32, 8, 6, "bfloat16"),
+    (2, 4, 2, 144, 16, 16, 4, "float32"),
+    (1, 16, 2, 144, 8, 32, 2, "float16"),
+]
+
+
+@pytest.mark.parametrize("case", WIDE_HEAD_DIM_CASES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_plain_vs_jax_at_head_dims_above_128(case):
+    dtype = case[-1]
+    assert case[3] in ops.HEAD_DIMS
+    q, kp, vp, bt, cl = _inputs(case, seed=10)
+    got = _torch(q, kp, vp, bt, cl, dtype)
+    assert got.dtype == getattr(torch, dtype) and got.shape == q.shape
+    tol = _tol(dtype)
+    np.testing.assert_allclose(got.float().numpy(),
+                               _jax(q, kp, vp, bt, cl, dtype),
+                               rtol=tol, atol=tol)
+
+
 @pytest.mark.parametrize("d", [16, 64])
 def test_block_table_permutation_at(d):
     """tests/test_kernels.py's permutation case (head_dim 16, 2/1) and the
@@ -192,17 +223,27 @@ def test_padded_row_on_trash_page_is_finite():
 def test_softcap_matches_gather_formula():
     """With a softcap the plain version equals the reference's gather-path
     decode attention (which the Pallas kernel does not implement)."""
+    _softcap_matches_gather_formula((2, 4, 2, 64, 16, 16, 4, "float32"), 5.0)
+
+
+def test_softcap_50_at_head_dim_256_matches_gather_formula():
+    """Gemma-2-9B's decode: 16 q heads over 8 kv heads of 256, logits
+    soft-capped at 50."""
+    _softcap_matches_gather_formula((2, 16, 8, 256, 16, 16, 4, "float32"),
+                                    50.0)
+
+
+def _softcap_matches_gather_formula(case, softcap):
     from repro.models.attention_impl import decode_attention
-    case = (2, 4, 2, 64, 16, 16, 4, "float32")
     q, kp, vp, bt, cl = _inputs(case, seed=5)
-    got = _torch(q, kp, vp, bt, cl, "float32", softcap=5.0)
+    got = _torch(q, kp, vp, bt, cl, "float32", softcap=softcap)
     b, mp, page = q.shape[0], bt.shape[1], kp.shape[1]
     kseq = jnp.asarray(kp)[jnp.asarray(bt)].reshape(b, mp * page,
                                                    *kp.shape[2:])
     vseq = jnp.asarray(vp)[jnp.asarray(bt)].reshape(b, mp * page,
                                                    *vp.shape[2:])
     want = decode_attention(jnp.asarray(q)[:, None], kseq, vseq,
-                            jnp.asarray(cl), logit_softcap=5.0)[:, 0]
+                            jnp.asarray(cl), logit_softcap=softcap)[:, 0]
     np.testing.assert_allclose(got.numpy(), np.asarray(want),
                                rtol=2e-5, atol=2e-5)
 
