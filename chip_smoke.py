@@ -37,8 +37,10 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    qwen3-14b's 1024-token prefills and at head_dim 16 and 80; at head_dim
    256 (the kernels' wide shapes) paged at llama2-7b's decode
    lengths with 16/16 heads (bf16, fp16, fp32) and 16/8, flash at a
-   causal 1024-token prefill with 16/16 and 16/8 heads in each dtype and
-   16/8 with a softcap of 50, and both at head_dim 144 and 192 (32/8);
+   causal 1024-token prefill with 16/16 and 16/8 heads in each dtype,
+   16/8 with a softcap of 50 in bf16 and fp16 and llama2-7b's served
+   32/32 in bf16 (the ``flash_attention_d256`` line's shape), and both at
+   head_dim 144 and 192 (32/8);
    head_dims 272 and 136 must raise ``ValueError`` on the card; the
    SSD scan also at zamba2-2.7b's prefill (80 heads, N 64) and at the
    training CLI's mamba2-130m shape (B 4, S 1024); then every case of
@@ -219,7 +221,8 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    launches those of the fp32 llama2-7b run; the fp16 run's launches
    under the paged and flash lines' ``llama2-7b-float16`` path; the
    head_dim-256 run's on lines of their own, ``paged_attention_d256`` and
-   ``flash_attention_d256``, timed at head_dim 256 with 16/16 heads),
+   ``flash_attention_d256``, timed at head_dim 256, paged with 16/16
+   heads and flash with the served 32/32),
    then the result line.
 
 Without a CUDA device, or without the rest of the checkout, it fails
@@ -365,12 +368,6 @@ PAGED_KERNELS = ("paged_attn_kernel",)
 #: (kernels/csrc/flash_attention.cu); the names match their wide twins of
 #: head_dims 144 to 256 too (flash_kernel_wide, flash_fp32_kernel_wide)
 FLASH_KERNELS = ("flash_kernel", "flash_fp32_kernel")
-#: rows of one q tile of the flash kernels by dtype (kBM and f32::kBM,
-#: kernels/csrc/flash_attention.cu): the grid is (heads, batch,
-#: ceil(Sq / kBM)); fp32 above head_dim 128 (f32::kWideBM) takes 64
-FLASH_TILE_Q = {torch.bfloat16: 128, torch.float16: 128,
-                torch.float32: 128}
-FLASH_TILE_Q_FP32_WIDE = 64
 
 PAGE = 16
 NUM_BLOCKS = 1024
@@ -525,6 +522,18 @@ def paged_case(name, *, batch, hq, hkv, dtype, d=128, seed=0):
     return rec
 
 
+def flash_grid(dtype, d, batch, sq, h):
+    """The grid of a flash launch, as the library computes it for the
+    launch: (heads, batch, q tiles), or for bf16 and fp16 above head_dim
+    128 (pairs of 64-row q units, heads, batch)."""
+    lib = build.load("flash_attention")
+    grid = (ctypes.c_int * 3)()
+    if lib.flash_attention_grid(flash_ops.DTYPES[dtype], d, batch, sq, h,
+                                grid) != 0:
+        raise AssertionError(f"no flash grid for {dtype} at head_dim {d}")
+    return list(grid)
+
+
 def flash_case(name, *, sq, skv, h, hkv, causal, dtype, d=128, softcap=0.0,
                seed=0):
     g = torch.Generator(device="cuda").manual_seed(seed)
@@ -569,9 +578,7 @@ def flash_case(name, *, sq, skv, h, hkv, causal, dtype, d=128, softcap=0.0,
                              queue_ahead=True)
     rec = {"case": name, "dtype": str(dtype), "sq": sq, "skv": skv, "h": h,
            "hkv": hkv, "head_dim": d, "causal": causal, "softcap": softcap,
-           "grid": [h, 1, -(-sq // (FLASH_TILE_Q_FP32_WIDE
-                                    if dtype == torch.float32 and d > 128
-                                    else FLASH_TILE_Q[dtype]))],
+           "grid": flash_grid(dtype, d, 1, sq, h),
            "max_abs_err": err, "max_rel_err": rel,
            "tol_rel": REL_TOL[dtype], "finite": finite,
            "kernel_ms": kernel_ms, "call_ms": call_ms,
@@ -708,9 +715,11 @@ def check_wide_kernels():
     at llama2-7b's decode lengths (seed 0) with 16/16 and 16/8 heads,
     flash at a causal 1024-token prefill with 16/16 and 16/8 heads, each
     in bf16, fp16 and fp32 (paged's 16/8 in bf16), and 16/8 with
-    Gemma-2-9B's softcap of 50; then the head_dims the kernels refuse,
-    272 (past 256) and 136 (not a multiple of 16), raising ValueError on
-    CUDA tensors.  Returns the bf16 16/16 paged and flash records."""
+    Gemma-2-9B's softcap of 50 in bf16 and fp16, and flash at the served
+    32/32 in bf16; then the head_dims the kernels refuse, 272 (past 256)
+    and 136 (not a multiple of 16), raising ValueError on CUDA tensors.
+    Returns the bf16 16/16 paged record and the bf16 32/32 flash
+    record."""
     bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
     d = WIDE_HEAD_DIM
     out = {}
@@ -725,9 +734,15 @@ def check_wide_kernels():
                 seed=60 + hkv)
     paged_case(f"head_dim {d} decode 16/8", batch=MAX_BATCH, hq=16, hkv=8,
                d=d, dtype=bf16)
-    flash_case(f"head_dim {d} causal S=1024 16/8 softcap 50", sq=1024,
-               skv=1024, h=16, hkv=8, d=d, causal=True, dtype=bf16,
-               softcap=50.0, seed=61)
+    # the served prefill of llama2-7b at head_dim 256 (32/32), the flash
+    # line's shape
+    out["flash", bf16, 32] = flash_case(
+        f"head_dim {d} causal S=1024 32/32", sq=1024, skv=1024, h=32,
+        hkv=32, d=d, causal=True, dtype=bf16, seed=62)
+    for dt, tag in ((bf16, ""), (f16, "fp16 ")):
+        flash_case(f"{tag}head_dim {d} causal S=1024 16/8 softcap 50",
+                   sq=1024, skv=1024, h=16, hkv=8, d=d, causal=True,
+                   dtype=dt, softcap=50.0, seed=61)
     for dd in (144, 192):
         paged_case(f"head_dim {dd} decode 32/8", batch=MAX_BATCH, hq=32,
                    hkv=8, d=dd, dtype=bf16, seed=dd)
@@ -755,7 +770,7 @@ def check_wide_kernels():
     if not all(refused.values()):
         raise AssertionError(f"a head_dim the kernels do not take went "
                              f"through: {refused}")
-    return out["paged", bf16], out["flash", bf16, 16]
+    return out["paged", bf16], out["flash", bf16, 32]
 
 
 #: tests/test_kernels.py's own kernel cases at their shapes, dtypes,

@@ -14,12 +14,15 @@ qwen3-14b's (40/8), and its ``flash_case`` at a causal 1024-token
 prefill (32/32, head_dim 128) in bf16 and in fp32, and in fp16 where the
 checkout's kernels take it, and where they take head_dim 256 the paged
 case at 16/16 heads of 256 (llama2-7b's decode lengths) and the flash
-case at 16/16 heads of 256 in bf16 and fp32, ``ROUNDS`` times each.
+case at causal S 1024 with 16/16 heads of 256 in bf16, fp16 and fp32,
+with 16/8 and llama2-7b's served 32/32 heads of 256 in bf16 and fp16,
+and with 32/8 heads of 144 and of 192 in bf16, ``ROUNDS`` times each.
 Each case prints its own phase line; the last line is one JSON object:
 the card, each source's build seconds, each case's kernel ms (CUDA
-events, the card's queue filled ahead) by round and their median, and
-the registers and spills (``ptxas -v``) of the bf16 paged kernels at
-head_dim 128.
+events, the card's queue filled ahead) by round and their median, its
+bound and the share of it, and the median of SDPA's ms on the same
+inputs (flash), and the registers and spills (``ptxas -v``) of the bf16
+paged kernels at head_dim 128.
 
 To compare two checkouts, run it on each in turns in one call (parent,
 change, change, parent): times from two cards differ.
@@ -90,15 +93,38 @@ def main(argv=None):
                     f"{tag}head_dim 256 causal S=1024 16/16", sq=1024,
                     skv=1024, h=16, hkv=16, d=256, causal=True, dtype=dt,
                     seed=76))
-    times = {name: [] for name in cases}
+        # the 2-byte wide kernel's shapes: 16/16 in fp16, Gemma-2-9B's
+        # 16/8 and llama2-7b's served 32/32 in both 2-byte types, and
+        # head_dims 144 and 192 at 32/8
+        shapes = [(f16, "fp16 ", 256, 16, 16)] + [
+            (dt, tag, 256, h, hkv) for h, hkv in ((16, 8), (32, 32))
+            for dt, tag in ((bf16, ""), (f16, "fp16 "))] + [
+            (bf16, "", d, 32, 8) for d in (144, 192)]
+        for dt, tag, d, h, hkv in shapes:
+            name = f"{tag}head_dim {d} causal S=1024 {h}/{hkv}"
+            cases[f"flash {name}"] = (
+                lambda dt=dt, name=name, d=d, h=h, hkv=hkv: smoke.flash_case(
+                    name, sq=1024, skv=1024, h=h, hkv=hkv, d=d, causal=True,
+                    dtype=dt, seed=77))
+    recs = {name: [] for name in cases}
     with torch.no_grad():
         for _ in range(ROUNDS):
             for name, case in cases.items():
-                times[name].append(case()["kernel_ms"])
+                recs[name].append(case())
+
+    def medians(rs):
+        out = {"rounds": [r["kernel_ms"] for r in rs],
+               "median": statistics.median(r["kernel_ms"] for r in rs),
+               "bound_ms": rs[0]["bound_ms"]}
+        out["bound_share"] = out["bound_ms"] / out["median"]
+        if rs[0].get("library_ms") is not None:
+            out["library_median"] = statistics.median(r["library_ms"]
+                                                      for r in rs)
+        return out
+
     print(json.dumps({
         "card": card, "root": str(root), "build_s": build_s,
-        "kernel_ms": {n: {"rounds": t, "median": statistics.median(t)}
-                      for n, t in times.items()},
+        "kernel_ms": {n: medians(rs) for n, rs in recs.items()},
         "paged_registers_bf16_d128": [
             {k: e.get(k) for k in ("group", "chunked", "registers",
                                    "spill_store_bytes")}

@@ -28,7 +28,8 @@
 //   products (one alone rounds its inputs to 10 mantissa bits, too coarse
 //   for the reference's fp32 tolerance of 2e-5); TMA + wgmma as in bf16.
 // - D 144 to 256: wide::flash_kernel_wide (bf16, fp16; 256-wide tiles,
-//   no producer warpgroup) and f32::flash_fp32_kernel_wide (the two
+//   a producer warpgroup, the softmax under the P·V product, a block a
+//   pair of 64-row q units) and f32::flash_fp32_kernel_wide (the two
 //   warpgroups splitting D), each described where it is defined.
 //
 // What bounds the bf16 kernel on this card: at the serving path's
@@ -655,59 +656,158 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch,
 }
 
 // ---------------------------------------------------------------------------
-// bf16 and fp16 at head_dims 144 to 256: flash_wide_kernel, 256-wide tiles.
+// bf16 and fp16 at head_dims 144 to 256: flash_kernel_wide, 256-wide tiles.
 //
 // The shape above does not hold D 256: its 128-row K/V tiles in two
-// stages and the q tile take 320 KB of shared memory, and a consumer's O
-// (64 x 256 fp32 over 128 threads) takes 128 registers before S and P,
-// where a kernel of 384 threads has 168 a thread.  This one:
-// - One block of two warpgroups (256 threads, up to 255 registers a
-//   thread) per (128-row q tile, head, batch), the longest rows first.
-//   No producer warpgroup: thread 0 issues the TMA loads, Q once and K
-//   and V into a 2-stage ring of 64-row tiles; it refills a stage once
-//   every consumer warp has arrived on its "empty" barrier (after the
-//   P·V product that read it retired), so a warpgroup waits for the
-//   other at most a tile.  Shared memory: Q 64 KB + 2 x (K 32 KB + V 32
-//   KB) = 192 KB.
-// - TMA boxes of 64 columns (128 bytes) with the 128-byte swizzle: four
-//   a row of the tile; only the boxes that hold a column below the
-//   head_dim dv are loaded (the columns of the last one past dv arrive
-//   as zeros), and the block zeroes the boxes of Q, K and V past it once,
-//   so every product runs its full width with no branch around a wgmma
-//   (ptxas serialises wgmma issued under a runtime condition).  dv is a
-//   runtime value (every multiple of 16 from 144 to 256 runs one kernel
-//   a type); the O columns past it are never stored.
-// - S = Q·K^T is wgmma m64n64k16 (16 k-steps at D 256), O += P·V two
-//   m64n128k16 a 16-key step, one a half of O's columns, P from
-//   registers as in flash_kernel; the online softmax as there.  A
-//   warpgroup skips the tiles wholly above its rows' diagonal.
-// - Registers: O 128, S 32, P 16 a thread.
+// stages and the q tile take 320 KB of shared memory.  A consumer's O
+// (64 x 256 fp32 over 128 threads) takes 128 registers before S and P.
+// What bounds it on this card: at causal S 1024 the tensor cores (4·D
+// flops an attended pair over 989 TFLOP/s), and a causal grid whose
+// longest block sets the wall.  This one:
+// - Three warpgroups (384 threads), FlashAttention-3's shape.  Warpgroup
+//   0 is the producer: it gives up registers (setmaxnreg 40, the
+//   consumers take 232: 128 x 40 + 256 x 232 is the 168 a thread that
+//   384 threads launch with), and one thread issues every TMA load: Q
+//   once, then K and V into rings of their own (2 K stages, 3 V stages of
+//   64 keys), each stage refilled as soon as its "empty" barrier
+//   completes.  A consumer frees K once S has retired and V once P·V
+//   has.  Shared memory: Q 2 x 32 KB + K 2 x 32 KB + V 3 x 32 KB = 224 KB.
+//   ptxas gives the consumer code its 232 registers only if no trap is
+//   inlined in the kernel (wide::wait calls one out of line); with one,
+//   it spilled 1 KB and serialised every wgmma (C7512).
+// - The unit of work is 64 q rows, one consumer warpgroup's rows.  A
+//   block takes a pair of units of one (head, batch), the longer unit b
+//   and a shorter a.  Consumer 1 sweeps b's key tiles; consumer 0 sweeps
+//   a's at its side, on the same K/V tiles, and stores it; the tiles of b
+//   past a's go to the two in turn (consumer 1 the first, consumer 0 the
+//   next, ...), and consumer 0's share of b is merged into consumer 1's
+//   through shared memory (the rings, idle by then) before consumer 1
+//   stores b.  Two pairings (U = ceil(Sq/64) units a (head, batch)):
+//   - when the blocks fit in one wave on the card's SMs, where the
+//     longest block sets the wall, block z takes b = U-1-z and its mirror
+//     a = z: at causal Sq = Skv every pair holds U + 1 tile-steps and its
+//     longer consumer ceil((U + 1)/2), where a 128-row q tile a block
+//     took its last tile's 2·ceil(Sq/128) steps on both consumers (at S
+//     1024: 9 tile-steps against 16).  A pair of an odd U's middle unit
+//     with itself is one unit that both consumers share in turn.  Grid
+//     (ceil(U/2), H, B): a head's blocks launch together, and a wave
+//     reads fewer heads' K and V from L2;
+//   - past one wave, block z takes b = U-1-2z and its neighbour a = b-1,
+//     which share every tile but b's last (the 128-row q tiles of the
+//     kernel before), so that a K/V tile serves 128 q rows and no block
+//     merges; grid (H, B, ceil(U/2)), every head's longest block first,
+//     and the card's scheduler evens out the blocks' lengths.
+//   ops.wide_schedule states the same rule in Python for the tests.
+// - The softmax overlaps the products inside a warpgroup: S of tile t is
+//   issued with P·V of the warpgroup's tile before it, the softmax of t
+//   runs once S has retired (wait_group 1) while P·V still runs, and O
+//   takes its rescale once P·V has retired.  (Ping-pong turns between the
+//   two consumers, named barriers ordering their products, moved no time
+//   at the head_dim-256 shapes and were taken out: PERF.md, PR 34.)
+// - O leaves through shared memory: each unit's O / l is written into
+//   its Q tile (idle by then) in the 128-byte swizzle and stored with
+//   TMA, which clips rows past Sq and columns past dv; consumer 0 goes on
+//   with its share of b while a's store runs.
+// - TMA boxes of 64 columns (128 bytes) x 64 rows with the 128-byte
+//   swizzle, four a row of a tile; only the boxes that hold a column
+//   below the head_dim dv are loaded (the columns of the last one past
+//   dv arrive as zeros), and the block zeroes the boxes of Q, K and V
+//   past it once, so every product runs its full width with no branch
+//   around a wgmma (ptxas serialises wgmma issued under a runtime
+//   condition).  dv is a runtime value (every multiple of 16 from 144 to
+//   256 runs one kernel a type); at 144 and 192 the products still run
+//   256 wide.
+// - S = Q·K^T is wgmma m64n64k16 (16 k-steps), O += P·V two m64n128k16
+//   a 16-key step, one a half of O's columns, P from registers as in
+//   flash_kernel; the online softmax as there, the softcap's tanh as
+//   1 - 2 / (1 + e^2x).
+// - Registers of a consumer: O 128, S 32 (then P in fp32 while the P·V
+//   before it runs), P 16; everything else stays in uniform registers
+//   (the consumer's index is a warp shuffle, which ptxas knows to be
+//   uniform).
 namespace wide {
 
 constexpr int kD = 256;           // tile width: columns of Q, K, V and O
-constexpr int kBM = 128;          // q rows per block, 64 per warpgroup
+constexpr int kUnit = 64;         // q rows of a unit, one consumer's rows
 constexpr int kBN = 64;           // kv rows per tile
-constexpr int kStages = 2;        // depth of the K/V ring
-constexpr int kThreads = 256;     // two warpgroups
-constexpr int kQBox = kBM * kBoxCols * 2;   // one box of the q tile
-constexpr int kKBox = kBN * kBoxCols * 2;   // one box of a K or V tile
+constexpr int kKStages = 2;       // depth of the K ring
+constexpr int kVStages = 3;       // depth of the V ring
+constexpr int kThreads = 384;     // producer warpgroup + two consumers
+constexpr int kBoxes = kD / kBoxCols;          // boxes a row of a tile
+constexpr int kBox = kUnit * kBoxCols * 2;     // one box of 64 rows
+constexpr int kTile = kBoxes * kBox;           // a unit's Q, a K or V tile
 constexpr int kConsumerWarps = 8;
+constexpr int kMergeFloats = 132;   // O 128, m 2, l 2 a consumer thread
 
 // Dynamic shared memory, byte offsets from a 1024-byte aligned base.
 struct Smem {
-  static constexpr int BOXES = kD / kBoxCols;
-  static constexpr int TILE = BOXES * kKBox;   // one K or V tile
-  static constexpr int Q = 0;
-  static constexpr int K = Q + BOXES * kQBox;
-  static constexpr int V = K + kStages * TILE;
-  static constexpr int BAR = V + kStages * TILE;   // q, full[], empty[]
-  static constexpr int BYTES = BAR + 8 * (1 + 2 * kStages) + 1024;
+  static constexpr int Q = 0;                        // unit a, then unit b
+  static constexpr int K = Q + 2 * kTile;
+  static constexpr int V = K + kKStages * kTile;
+  static constexpr int BAR = V + kVStages * kTile;   // q, K and V full/empty
+  static constexpr int MERGE = K;                    // once both sweeps end
+  static constexpr int BYTES =
+      BAR + 8 * (1 + 2 * (kKStages + kVStages)) + 1024;
 };
+static_assert(Smem::MERGE + kMergeFloats * 128 * 4 <= Smem::BAR,
+              "the merge fits in the rings");
+
+// Whether a launch pairs each q unit with its mirror (mirror_pairs) or
+// with its neighbour: the mirror when the blocks fit in one wave on the
+// card's SMs, where the longest block sets the wall; past one wave the
+// card's own block scheduler evens out blocks of unequal lengths, and
+// neighbouring units share every K/V tile but the last, with no merge.
+inline bool mirror_pairs(int batch, int sq, int h) {
+  int dev = 0, sms = 0;
+  cudaGetDevice(&dev);
+  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  const long long pairs = ((sq + kUnit - 1) / kUnit + 1) / 2;
+  return pairs * h * batch <= sms;
+}
+
+// The grid of a launch, one block a pair: mirror pairs (pairs, heads,
+// batch), the pairs of a head launched together so that a wave reads
+// fewer heads' K and V from L2; neighbour pairs (heads, batch, pairs),
+// every head's longest pair first, so that the card's scheduler takes
+// the blocks longest first (scripts/wide_flash_variants.py times the
+// other orders).
+inline dim3 grid(int batch, int sq, int h, bool mirror) {
+  const int pairs = ((sq + kUnit - 1) / kUnit + 1) / 2;
+  return mirror ? dim3(pairs, h, batch) : dim3(h, batch, pairs);
+}
 
 // 16 zero bytes at a shared address.
 __device__ __forceinline__ void zero16(uint32_t a) {
   asm volatile("st.shared.v4.b32 [%0], {%1, %1, %1, %1};\n" ::"r"(a), "r"(0)
                : "memory");
+}
+
+__device__ __forceinline__ void st_f32(uint32_t a, float x) {
+  asm volatile("st.shared.f32 [%0], %1;\n" ::"r"(a), "f"(x) : "memory");
+}
+
+__device__ __forceinline__ float ld_f32(uint32_t a) {
+  float x;
+  asm volatile("ld.shared.f32 %0, [%1];\n" : "=f"(x) : "r"(a) : "memory");
+  return x;
+}
+
+// keep() for both halves of O.
+__device__ __forceinline__ void keep_o(float (&o)[2][64]) {
+  keep(o[0]);
+  keep(o[1]);
+}
+
+__device__ __forceinline__ void wgmma_wait1() {
+  asm volatile("wgmma.wait_group.sync.aligned 1;\n" ::: "memory");
+}
+
+// Keeps P·V's A operand in its registers until the product has retired.
+__device__ __forceinline__ void hold(const uint32_t (&p)[kBN / 16][4]) {
+#pragma unroll
+  for (int i = 0; i < kBN / 16; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) asm volatile("" ::"r"(p[i][j]) : "memory");
 }
 
 // Key tiles that a q row up to qlast attends.
@@ -717,87 +817,430 @@ __device__ __forceinline__ int key_tiles(int qlast, int skv, int causal) {
   return n;
 }
 
+// A lost barrier arrival: trap, so that the launch fails instead of
+// holding the card.  A function of its own: a trap inlined in the
+// kernel's body keeps ptxas from giving the consumers the registers of
+// their setmaxnreg (it then spills and serialises every wgmma, C7512).
+__device__ __noinline__ void wait_failed() { __trap(); }
+
+// mbar_wait with the trap out of line.
+__device__ __forceinline__ void wait(uint32_t bar, int parity) {
+  if (mbar_try_wait(bar, parity)) return;
+  const uint64_t t0 = now_ns();
+  while (!mbar_try_wait(bar, parity))
+    if (now_ns() - t0 > 1000000000ull) wait_failed();
+}
+
+// The K and V rings, at fixed offsets from the shared base (the one
+// register a consumer keeps for them): tile t lies in stage t % stages,
+// and its barriers complete once a wrap.
+struct Ring {
+  uint32_t base;
+
+  __device__ __forceinline__ uint32_t k(int t) const {
+    return base + Smem::K + kTile * (t % kKStages);
+  }
+  __device__ __forceinline__ uint32_t kfull(int t) const {
+    return base + Smem::BAR + 8 + 8 * (t % kKStages);
+  }
+  __device__ __forceinline__ uint32_t kempty(int t) const {
+    return base + Smem::BAR + 8 + 8 * (kKStages + t % kKStages);
+  }
+  __device__ __forceinline__ uint32_t vfull(int t) const {
+    return base + Smem::BAR + 8 + 8 * (2 * kKStages + t % kVStages);
+  }
+  __device__ __forceinline__ uint32_t vempty(int t) const {
+    return base + Smem::BAR + 8 + 8 * (2 * kKStages + kVStages + t % kVStages);
+  }
+  __device__ __forceinline__ void wait_k(int t) const {
+    wait(kfull(t), (t / kKStages) & 1);
+  }
+  __device__ __forceinline__ void wait_v(int t) const {
+    wait(vfull(t), (t / kVStages) & 1);
+  }
+  // every consumer warp arrives once it is done with the stage
+  __device__ __forceinline__ void free_k(int t) const {
+    __syncwarp();
+    if (threadIdx.x % 32 == 0) mbar_arrive(kempty(t));
+  }
+  __device__ __forceinline__ void free_v(int t) const {
+    __syncwarp();
+    if (threadIdx.x % 32 == 0) mbar_arrive(vempty(t));
+  }
+  // Another warpgroup's tile: wait for it to land (so that no arrival
+  // counts towards an earlier fill of its stage) and free it.
+  __device__ __forceinline__ void pass(int t) const {
+    wait_k(t);
+    free_k(t);
+    wait_v(t);
+    free_v(t);
+  }
+  // The next tile of a sweep from n on: every tile below mid, then every
+  // other one from mid; the tile between is passed.
+  __device__ __forceinline__ int next(int n, int mid, int hi) const {
+    if (n < hi && n > mid && (n - mid) % 2 == 1) {
+      pass(n);
+      ++n;
+    }
+    return n;
+  }
+};
+
+// This thread's warpgroup, as a value the compiler knows to be the same
+// across a warp (a shuffle from lane 0), so that what derives from it
+// (tile indices, shared addresses, wgmma descriptors) stays in uniform
+// registers and out of the vector registers that O, S and P fill.
+__device__ __forceinline__ int warpgroup() {
+  return __shfl_sync(0xffffffffu, threadIdx.x / 128, 0);
+}
+
+// Block z's pair of 64-row q units and their key tiles, the longest
+// unit b first: with mirror pairs b = U-1-z and a = z (a == b for the
+// middle unit of an odd U, which the block sweeps alone: has_a false,
+// na 0); with neighbour pairs b = U-1-2z and a = b-1 (none below 0).
+struct Pair {
+  int z, head, batch, unit_a, unit_b, na, nb;
+  bool has_a;
+
+  __device__ __forceinline__ Pair(int sq, int skv, int causal, int mirror) {
+    z = mirror ? blockIdx.x : blockIdx.z;
+    head = mirror ? blockIdx.y : blockIdx.x;
+    batch = mirror ? blockIdx.z : blockIdx.y;
+    const int units = (sq + kUnit - 1) / kUnit;
+    if (mirror) {
+      unit_b = units - 1 - z;   // the longest unit first
+      unit_a = z;
+      has_a = unit_a < unit_b;
+    } else {
+      unit_b = units - 1 - 2 * z;   // the longest pair first
+      unit_a = unit_b - 1;
+      has_a = unit_a >= 0;
+    }
+    nb = key_tiles(unit_b * kUnit + kUnit - 1, skv, causal);
+    na = has_a ? key_tiles(unit_a * kUnit + kUnit - 1, skv, causal) : 0;
+  }
+};
+
+// The shared base, 1024-byte aligned (the 128-byte swizzle repeats every
+// 1024 bytes).
+__device__ __forceinline__ uint32_t shared_base(const void* smem) {
+  return (smem_addr(smem) + 1023u) & ~1023u;
+}
+
+// S (64 x 64, fp32) = Q (64 rows at q) · K (the tile at k)^T: a 16-column
+// step moves 32 bytes inside a box, every fourth step to the next box;
+// the steps past dv add zeros.
+template <typename T>
+__device__ __forceinline__ void qk_product(float (&s)[kBN / 2], uint32_t q,
+                                           uint32_t k) {
+#pragma unroll
+  for (int kk = 0; kk < kD / 16; ++kk) {
+    const uint32_t off = (kk / 4) * kBox + (kk % 4) * 32;
+    wgmma_ss_n64<T>(s, sw128_desc(q + off, 16, 1024),
+                    sw128_desc(k + off, 16, 1024), kk > 0);
+  }
+}
+
+// O += P·V (the tile at v): V is MN-major; a 16-key step moves 16 rows
+// (2048 bytes); O's second half starts two boxes (128 columns) further.
+template <typename T>
+__device__ __forceinline__ void pv_product(float (&o)[2][64],
+                                           const uint32_t (&p)[kBN / 16][4],
+                                           uint32_t v) {
+#pragma unroll
+  for (int kk = 0; kk < kBN / 16; ++kk) {
+    const uint32_t vk = v + kk * 16 * 128;
+    wgmma_rs_n128<T>(o[0], p[kk], sw128_desc(vk, kBox, 1024));
+    wgmma_rs_n128<T>(o[1], p[kk], sw128_desc(vk + 2 * kBox, kBox, 1024));
+  }
+}
+
+// The online softmax of one tile in registers: s[4j + e] is row row0 + 8
+// (e / 2) of the unit at q0, key kv0 + 8 j + cq + e % 2.  Turns S into
+// P = exp2(s - m) in fp32 in place, updates m and l, and gives the
+// factor alpha that O takes once the P·V product before it has retired.
+// The softcap's tanh is 1 - 2 / (1 + e^2x) on ex2.approx, within about
+// 1e-7 of tanh (about 1e-5 of a logit at a cap of 50).
+__device__ __forceinline__ void softmax_tile(float (&s)[kBN / 2],
+                                             float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], int q0,
+                                             int kv0, int skv, int causal,
+                                             float scale, float softcap) {
+  const int wt = threadIdx.x % 128;
+  const int row0 = (wt / 32) * 16 + (wt % 32) / 4;
+  const int cq = 2 * (wt % 4);
+  if (softcap > 0.f) {
+    const float k2 = scale / softcap * (2.f * kLog2e);
+#pragma unroll
+    for (int i = 0; i < kBN / 2; ++i)
+      s[i] = softcap - __fdividef(2.f * softcap,
+                                  1.f + exp2_approx(s[i] * k2));
+  }
+  const float sl = (softcap > 0.f ? 1.f : scale) * kLog2e;
+  const bool edge = (causal && kv0 + kBN - 1 > q0) || kv0 + kBN > skv;
+  float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+  for (int j = 0; j < kBN / 8; ++j) {
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      float x = s[4 * j + e] * sl;
+      if (edge) {
+        const int qpos = q0 + row0 + 8 * (e / 2);
+        const int kpos = kv0 + 8 * j + cq + e % 2;
+        if (skv <= kpos || (causal && qpos < kpos)) x = -INFINITY;
+      }
+      s[4 * j + e] = x;
+      mx[e / 2] = fmaxf(mx[e / 2], x);
+    }
+  }
+  float mu[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+    mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+    const float m_new = fmaxf(m[i], mx[i]);
+    mu[i] = m_new == -INFINITY ? 0.f : m_new;   // a row with no key yet
+    alpha[i] = exp2_approx(m[i] - mu[i]);
+    m[i] = m_new;
+    l[i] *= alpha[i];
+  }
+#pragma unroll
+  for (int i = 0; i < kBN / 2; ++i) {
+    s[i] = exp2_approx(s[i] - mu[(i / 2) % 2]);
+    l[(i / 2) % 2] += s[i];
+  }
+}
+
+// P in T as P·V's A operand: registers 8kk .. 8kk+7 of S are the
+// fragment of keys 16kk .. 16kk+15, in order.
+template <typename T>
+__device__ __forceinline__ void pack_p(const float (&s)[kBN / 2],
+                                       uint32_t (&p)[kBN / 16][4]) {
+#pragma unroll
+  for (int kk = 0; kk < kBN / 16; ++kk)
+#pragma unroll
+    for (int r = 0; r < 4; ++r)
+      p[kk][r] = pack<T>(s[8 * kk + 2 * r], s[8 * kk + 2 * r + 1]);
+}
+
+__device__ __forceinline__ void rescale(float (&o)[2][64],
+                                        const float (&alpha)[2]) {
+#pragma unroll
+  for (int j = 0; j < 16; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) {
+      o[0][4 * j + e] *= alpha[e / 2];
+      o[1][4 * j + e] *= alpha[e / 2];
+    }
+}
+
+__device__ __forceinline__ void st_b32(uint32_t a, uint32_t x) {
+  asm volatile("st.shared.b32 [%0], %1;\n" ::"r"(a), "r"(x) : "memory");
+}
+
+__device__ __forceinline__ void tma_store(const CUtensorMap* map,
+                                          uint32_t src, int c0, int c1,
+                                          int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group"
+      " [%0, {%2, %3, %4, %5}], [%1];\n"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(src), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3) : "memory");
+}
+
+// O / l in T for the unit at q0 of this block's (head, batch), through
+// shared memory: each thread writes its rows into buf (the unit's Q
+// tile, which no product reads any more) in the 128-byte swizzle, and
+// one thread stores the boxes below dv with TMA, which writes no row
+// past Sq and no column past dv (the map's bounds).  The thread that
+// issued the stores waits for them to read buf before its warpgroup
+// ends (store_done).
+template <typename T>
+__device__ __forceinline__ void store_unit(const float (&o)[2][64],
+                                           float (&l)[2], uint32_t buf,
+                                           const CUtensorMap* to, int q0,
+                                           int dv, int head, int batch) {
+  const int wt = threadIdx.x % 128;
+  const int row0 = (wt / 32) * 16 + (wt % 32) / 4;
+  const int cq = 2 * (wt % 4);
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    l[i] = 1.f / l[i];
+  }
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    const int r = row0 + 8 * i;
+#pragma unroll
+    for (int j = 0; j < kD / 8; ++j) {
+      // columns 8j .. 8j+7: box j / 8, 16-byte chunk j % 8 of row r
+      const int c = 4 * (j % 16) + 2 * i;
+      const float x0 = j < 16 ? o[0][c] : o[1][c];
+      const float x1 = j < 16 ? o[0][c + 1] : o[1][c + 1];
+      st_b32(buf + (j / 8) * kBox + r * 128 + (((j % 8) ^ (r % 8)) << 4) +
+                 2 * cq,
+             pack<T>(x0 * l[i], x1 * l[i]));
+    }
+  }
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+  // this warpgroup's 128 threads (barrier 2 or 3)
+  asm volatile("bar.sync %0, 128;\n" ::"r"(2 + threadIdx.x / 128 - 1)
+               : "memory");
+  if (wt == 0) {
+    for (int x = 0; x < (dv + kBoxCols - 1) / kBoxCols; ++x)
+      tma_store(to, buf + x * kBox, x * kBoxCols, head, q0, batch);
+    asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+  }
+}
+
+__device__ __forceinline__ void store_done() {
+  if (threadIdx.x % 128 == 0)
+    asm volatile("cp.async.bulk.wait_group.read 0;\n" ::: "memory");
+}
+
+// One consumer warpgroup's sweep of a unit (its Q rows at q, the first
+// row at position q0) over the key tiles of [lo, hi) that are its own:
+// every one below mid, then every other one from mid (the ones between
+// are the other consumer's; this one passes them).  lo is its own.  The
+// state (o, m, l) starts empty: O 0, m -inf, l 0.
+//
+// Each round issues S of tile t and P·V of the tile before it as two
+// groups, runs the softmax of t once the first has retired (wait_group
+// 1) while the second still runs, and rescales O once the second has.
+// One S product and one P·V product stand in the code, each a site of
+// its own in registers: the first round's P·V multiplies a zero P (with
+// V of the first tile, which lands with its K) and the last round's S is
+// the last tile's again, discarded, whose K stage stays held until then.
+template <typename T>
+__device__ __forceinline__ void sweep(float (&o)[2][64], float (&m)[2],
+                                      float (&l)[2], const Ring& r,
+                                      uint32_t q, int q0, int lo, int mid,
+                                      int hi, int skv, int causal,
+                                      float scale, float softcap) {
+  if (lo >= hi) return;
+  float s[kBN / 2];
+#pragma unroll
+  for (int i = 0; i < kBN / 2; ++i) s[i] = 0.f;
+  uint32_t p[kBN / 16][4];
+#pragma unroll
+  for (int i = 0; i < kBN / 16; ++i)
+#pragma unroll
+    for (int j = 0; j < 4; ++j) p[i][j] = 0u;
+  float alpha[2];
+  int prev = lo;
+  int t = lo;
+  for (;;) {
+    const bool past = t >= hi;
+    const int tk = past ? prev : t;
+    r.wait_k(tk);
+    r.wait_v(prev);
+    const uint32_t v_prev = r.base + Smem::V + kTile * (prev % kVStages);
+    keep_o(o);
+    wgmma_fence();
+    qk_product<T>(s, q, r.k(tk));
+    wgmma_commit();
+    pv_product<T>(o, p, v_prev);
+    wgmma_commit();
+    wgmma_wait1();
+    keep(s);
+    int after = t + 1;   // this sweep's tile after t
+    if (after > mid && (after - mid) % 2 == 1) ++after;
+    if (past || after < hi) r.free_k(tk);
+    if (!past)
+      softmax_tile(s, m, l, alpha, q0, t * kBN, skv, causal, scale, softcap);
+    wgmma_wait0();
+    keep_o(o);
+    hold(p);
+    if (t != lo) r.free_v(prev);
+    if (past) break;
+    rescale(o, alpha);
+    pack_p<T>(s, p);
+    prev = t;
+    t = r.next(t + 1, mid, hi);
+  }
+}
+
 template <typename T>
 __global__ void __launch_bounds__(kThreads, 1)
 flash_kernel_wide(const __grid_constant__ CUtensorMap tq,
                   const __grid_constant__ CUtensorMap tk,
-                  const __grid_constant__ CUtensorMap tv, T* __restrict__ out,
-                  int sq, int skv, int h, int hkv, int dv, int causal,
-                  float scale, float softcap) {
-  using L = Smem;
+                  const __grid_constant__ CUtensorMap tv,
+                  const __grid_constant__ CUtensorMap to, int sq, int skv,
+                  int h, int hkv, int dv, int causal, float scale,
+                  float softcap, int mirror) {
   extern __shared__ __align__(1024) unsigned char smem_wide[];
-  const uint32_t base = (smem_addr(smem_wide) + 1023u) & ~1023u;
-  const uint32_t q_full = base + L::BAR;
-  const uint32_t full = q_full + 8;                // + 8 * stage
-  const uint32_t empty = full + 8 * kStages;       // + 8 * stage
-
-  const int head = blockIdx.x;
-  const int b = blockIdx.y;
-  const int q0 = (gridDim.z - 1 - blockIdx.z) * kBM;   // longest rows first
-  const int kvh = head / (h / hkv);
-  const int n_tiles = key_tiles(q0 + kBM - 1, skv, causal);
-  const int boxes = (dv + kBoxCols - 1) / kBoxCols;    // boxes with live columns
-  const int wg = threadIdx.x / 128;
-  const auto load_kv = [&](int t) {
-    const int stage = t % kStages;
-    const uint32_t bar = full + 8 * stage;
-    mbar_expect_tx(bar, 2 * boxes * kKBox);
-    for (int x = 0; x < boxes; ++x) {
-      const uint32_t off = stage * L::TILE + x * kKBox;
-      tma_load(base + L::K + off, &tk, bar, x * kBoxCols, kvh, t * kBN, b);
-      tma_load(base + L::V + off, &tv, bar, x * kBoxCols, kvh, t * kBN, b);
+  {
+    const uint32_t base = shared_base(smem_wide);
+    const Ring ring{base};
+    if (threadIdx.x == 0) {
+      mbar_init(base + Smem::BAR, 1);   // Q
+      for (int s = 0; s < kKStages; ++s) {
+        mbar_init(ring.kfull(s), 1);
+        mbar_init(ring.kempty(s), kConsumerWarps);
+      }
+      for (int s = 0; s < kVStages; ++s) {
+        mbar_init(ring.vfull(s), 1);
+        mbar_init(ring.vempty(s), kConsumerWarps);
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
-  };
-
-  if (threadIdx.x == 0) {
-    mbar_init(q_full, 1);
-    for (int s = 0; s < kStages; ++s) {
-      mbar_init(full + 8 * s, 1);
-      mbar_init(empty + 8 * s, kConsumerWarps);
-    }
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    mbar_expect_tx(q_full, boxes * kQBox);
-    for (int x = 0; x < boxes; ++x)
-      tma_load(base + L::Q + x * kQBox, &tq, q_full, x * kBoxCols, head, q0,
-               b);
-    for (int t = 0; t < kStages && t < n_tiles; ++t) load_kv(t);
+    // Zeros in the boxes past dv (never loaded): of both units' Q and of
+    // every K and V stage, seven tiles in a row from the base.
+    const int boxes = (dv + kBoxCols - 1) / kBoxCols;
+    const int pad = (kBoxes - boxes) * kBox / 16;
+    for (int i = threadIdx.x; i < 7 * pad; i += kThreads)
+      zero16(base + (i / pad) * kTile + boxes * kBox + 16 * (i % pad));
+    asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   }
-  // Zeros in the boxes past dv (never loaded): Q's, and K's and V's of
-  // both stages.
-  for (int i = threadIdx.x; i < (L::BOXES - boxes) * kQBox / 16;
-       i += kThreads)
-    zero16(base + L::Q + boxes * kQBox + 16 * i);
-  for (int i = threadIdx.x; i < 2 * kStages * (L::BOXES - boxes) * kKBox / 16;
-       i += kThreads) {
-    const int tile = i / ((L::BOXES - boxes) * kKBox / 16);   // K0 K1 V0 V1
-    const int off = i % ((L::BOXES - boxes) * kKBox / 16);
-    zero16(base + L::K + tile * L::TILE + boxes * kKBox + 16 * off);
-  }
-  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
   __syncthreads();
 
-  // Warpgroup wg owns rows [r_wg, r_wg + 64) of the q tile; a thread holds
-  // rows row0 and row0 + 8, and in each 8-column block of a product the
-  // columns cq and cq + 1.
-  const int wt = threadIdx.x % 128;
-  const int warp = wt / 32;
-  const int lane = wt % 32;
-  const int r_wg = wg * 64;
-  const int row0 = r_wg + warp * 16 + lane / 4;
-  const int cq = 2 * (lane % 4);
-  const float sl = (softcap > 0.f ? 1.f : scale) * kLog2e;
-  const int n_own = key_tiles(q0 + r_wg + 63, skv, causal);
-  // every warp's arrival on the stage of tile t; then thread 0 refills
-  // it with tile t + kStages once every warp is done with it
-  const auto release = [&](int t) {
-    const int stage = t % kStages;
-    __syncwarp();
-    if (lane == 0) mbar_arrive(empty + 8 * stage);
-    if (threadIdx.x == 0 && t + kStages < n_tiles) {
-      mbar_wait(empty + 8 * stage, (t / kStages) & 1);
-      load_kv(t + kStages);
+  const int wg = warpgroup();
+  if (wg == 0) {
+    // Producer: one thread keeps both rings filled.
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 40;\n");
+    if (threadIdx.x == 0) {
+      const uint32_t base = shared_base(smem_wide);
+      const Ring ring{base};
+      const Pair pr(sq, skv, causal, mirror);
+      const int head = pr.head;
+      const int b = pr.batch;
+      const int kvh = head / (h / hkv);
+      const int boxes = (dv + kBoxCols - 1) / kBoxCols;
+      const uint32_t q_full = base + Smem::BAR;
+      mbar_expect_tx(q_full, (pr.has_a ? 2 : 1) * boxes * kBox);
+      for (int x = 0; x < boxes; ++x) {
+        if (pr.has_a)
+          tma_load(base + Smem::Q + x * kBox, &tq, q_full, x * kBoxCols,
+                   head, pr.unit_a * kUnit, b);
+        tma_load(base + Smem::Q + kTile + x * kBox, &tq, q_full,
+                 x * kBoxCols, head, pr.unit_b * kUnit, b);
+      }
+      for (int t = 0; t < pr.nb; ++t) {
+        if (t >= kKStages)
+          wait(ring.kempty(t), (t / kKStages - 1) & 1);
+        mbar_expect_tx(ring.kfull(t), boxes * kBox);
+        for (int x = 0; x < boxes; ++x)
+          tma_load(ring.k(t) + x * kBox, &tk, ring.kfull(t), x * kBoxCols,
+                   kvh, t * kBN, b);
+        if (t >= kVStages)
+          wait(ring.vempty(t), (t / kVStages - 1) & 1);
+        mbar_expect_tx(ring.vfull(t), boxes * kBox);
+        for (int x = 0; x < boxes; ++x)
+          tma_load(base + Smem::V + kTile * (t % kVStages) + x * kBox, &tv,
+                   ring.vfull(t), x * kBoxCols, kvh, t * kBN, b);
+      }
     }
-  };
+    return;
+  }
+
+  // Consumers: a thread holds rows row0 and row0 + 8 of its unit, and in
+  // each 8-column block of a product the columns cq and cq + 1.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 232;\n");
+  const int c = wg - 1;
+  const Pair pr(sq, skv, causal, mirror);
+  const uint32_t base = shared_base(smem_wide);
+  const Ring ring{base};
 
   // O: columns 0-127 in o[0], 128-255 in o[1], each in the m64n128
   // accumulator layout.
@@ -806,136 +1249,80 @@ flash_kernel_wide(const __grid_constant__ CUtensorMap tq,
   for (int i = 0; i < 64; ++i) o[0][i] = o[1][i] = 0.f;
   float m[2] = {-INFINITY, -INFINITY};
   float l[2] = {0.f, 0.f};
-  const uint32_t q_tile = base + L::Q + r_wg * 128;   // 128 bytes a row
 
-  mbar_wait(q_full, 0);
-  for (int t = 0; t < n_tiles; ++t) {
-    const int stage = t % kStages;
-    const int kv0 = t * kBN;
-    mbar_wait(full + 8 * stage, (t / kStages) & 1);
-    if (t >= n_own) {                 // wholly above this warpgroup's rows
-      release(t);
-      continue;
+  wait(base + Smem::BAR, 0);   // Q
+  // The sweeps, one call site for both consumers (each site of a wgmma
+  // holds its accumulators in registers of its own): consumer 0 sweeps
+  // unit a (segment 0), passes consumer 1's first tile past a and stores
+  // a, then sweeps its share of unit b from na + 1 (segment 1); consumer
+  // 1 sweeps unit b (segment 1): every tile below na, then every other
+  // one from na.
+  if (c == 0 && !pr.has_a) ring.pass(0);
+#pragma unroll 1
+  for (int seg = c == 0 && pr.has_a ? 0 : 1; seg < 2; ++seg) {
+    const bool is_a = seg == 0;
+    const int from = c == 1 || is_a ? 0 : pr.na + 1;
+    const int mid = c == 1 || is_a ? pr.na : pr.na + 1;
+    sweep<T>(o, m, l, ring, base + Smem::Q + (is_a ? 0 : kTile),
+             (is_a ? pr.unit_a : pr.unit_b) * kUnit, from, mid,
+             is_a ? pr.na : pr.nb, skv, causal, scale, softcap);
+    if (is_a) {
+      if (pr.na < pr.nb) ring.pass(pr.na);
+      store_unit<T>(o, l, base + Smem::Q, &to, pr.unit_a * kUnit, dv,
+                    pr.head, pr.batch);
+#pragma unroll
+      for (int i = 0; i < 64; ++i) o[0][i] = o[1][i] = 0.f;
+      m[0] = m[1] = -INFINITY;
+      l[0] = l[1] = 0.f;
     }
-    {
-      const uint32_t k_tile = base + L::K + L::TILE * stage;
-      const uint32_t v_tile = base + L::V + L::TILE * stage;
-
-      // S = Q K^T: a 16-column step moves 32 bytes inside a box, every
-      // fourth step to the next box; the steps past dv add zeros.
-      float s[kBN / 2];
+  }
+  if (pr.na + 1 < pr.nb) {
+    // Consumer 0 swept a share of unit b: its (O, m, l) to consumer 1
+    // through the rings, a thread's 132 floats 512 bytes apart (thread
+    // wt of each warpgroup holds the same rows and columns).
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");
+    const uint32_t mine = base + Smem::MERGE + 4 * (threadIdx.x % 128);
+    if (c == 0) {
 #pragma unroll
-      for (int i = 0; i < kBN / 2; ++i) s[i] = 0.f;
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < kD / 16; ++kk)
-        wgmma_ss_n64<T>(
-            s, sw128_desc(q_tile + (kk / 4) * kQBox + (kk % 4) * 32, 16, 1024),
-            sw128_desc(k_tile + (kk / 4) * kKBox + (kk % 4) * 32, 16, 1024),
-            kk > 0);
-      wgmma_commit();
-      wgmma_wait0();
-      keep(s);
-
-      // Online softmax in registers: s[4j + e] is row row0 + 8 (e / 2),
-      // key kv0 + 8 j + cq + e % 2.
-      if (softcap > 0.f) {
-#pragma unroll
-        for (int i = 0; i < kBN / 2; ++i)
-          s[i] = tanhf(s[i] * scale / softcap) * softcap;
+      for (int i = 0; i < 64; ++i) {
+        st_f32(mine + 512 * i, o[0][i]);
+        st_f32(mine + 512 * (64 + i), o[1][i]);
       }
-      const bool edge =
-          (causal && kv0 + kBN - 1 > q0 + r_wg) || kv0 + kBN > skv;
-      float mx[2] = {-INFINITY, -INFINITY};
-#pragma unroll
-      for (int j = 0; j < kBN / 8; ++j) {
-#pragma unroll
-        for (int e = 0; e < 4; ++e) {
-          float x = s[4 * j + e] * sl;
-          if (edge) {
-            const int qpos = q0 + row0 + 8 * (e / 2);
-            const int kpos = kv0 + 8 * j + cq + e % 2;
-            if (skv <= kpos || (causal && qpos < kpos)) x = -INFINITY;
-          }
-          s[4 * j + e] = x;
-          mx[e / 2] = fmaxf(mx[e / 2], x);
-        }
-      }
-      float mu[2];
 #pragma unroll
       for (int i = 0; i < 2; ++i) {
-        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-        const float m_new = fmaxf(m[i], mx[i]);
-        mu[i] = m_new == -INFINITY ? 0.f : m_new;   // a row with no key yet
-        const float alpha = exp2_approx(m[i] - mu[i]);
-        m[i] = m_new;
-        l[i] *= alpha;
-#pragma unroll
-        for (int j = 0; j < 16; ++j) {
-          o[0][4 * j + 2 * i] *= alpha;
-          o[0][4 * j + 2 * i + 1] *= alpha;
-          o[1][4 * j + 2 * i] *= alpha;
-          o[1][4 * j + 2 * i + 1] *= alpha;
-        }
-      }
-      // P in T as the A operand: registers 8kk .. 8kk+7 of S are the
-      // fragment of keys 16kk .. 16kk+15, in order.
-      uint32_t p[kBN / 16][4];
-#pragma unroll
-      for (int kk = 0; kk < kBN / 16; ++kk) {
-#pragma unroll
-        for (int r = 0; r < 4; ++r) {
-          const float p0 = exp2_approx(s[8 * kk + 2 * r] - mu[r % 2]);
-          const float p1 = exp2_approx(s[8 * kk + 2 * r + 1] - mu[r % 2]);
-          l[r % 2] += p0 + p1;
-          p[kk][r] = pack<T>(p0, p1);
-        }
-      }
-
-      // O += P V: V is MN-major; a 16-key step moves 16 rows (2048
-      // bytes); O's second half starts two boxes (128 columns) further.
-      keep(o[0]);
-      keep(o[1]);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < kBN / 16; ++kk) {
-        const uint32_t vk = v_tile + kk * 16 * 128;
-        wgmma_rs_n128<T>(o[0], p[kk], sw128_desc(vk, kKBox, 1024));
-        wgmma_rs_n128<T>(o[1], p[kk], sw128_desc(vk + 2 * kKBox, kKBox, 1024));
-      }
-      wgmma_commit();
-      wgmma_wait0();
-      keep(o[0]);
-      keep(o[1]);
-    }
-    release(t);
-  }
-
-  // Epilogue: O / l in T, rows past Sq and columns past dv not stored;
-  // rows dv apart.
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
-    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
-  }
-#pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int qpos = q0 + row0 + 8 * i;
-    if (qpos >= sq) continue;
-    const float inv = 1.f / l[i];
-    T* dst = out + (((size_t)b * sq + qpos) * h + head) * dv + cq;
-#pragma unroll
-    for (int j = 0; j < kD / 8; ++j) {
-      if (8 * j < dv) {
-        const int c = 4 * (j % 16) + 2 * i;
-        const float x0 = j < 16 ? o[0][c] : o[1][c];
-        const float x1 = j < 16 ? o[0][c + 1] : o[1][c + 1];
-        *reinterpret_cast<typename Elem<T>::Pair*>(dst + 8 * j) =
-            Elem<T>::pair(x0 * inv, x1 * inv);
+        st_f32(mine + 512 * (128 + i), m[i]);
+        st_f32(mine + 512 * (130 + i), l[i]);
       }
     }
+    asm volatile("bar.sync 1, 256;\n" ::: "memory");
+    if (c == 0) {
+      store_done();
+      return;
+    }
+    float f1[2], f0[2];
+#pragma unroll
+    for (int i = 0; i < 2; ++i) {
+      const float m0 = ld_f32(mine + 512 * (128 + i));
+      const float m_new = fmaxf(m[i], m0);
+      const float mu = m_new == -INFINITY ? 0.f : m_new;
+      f1[i] = exp2_approx(m[i] - mu);
+      f0[i] = exp2_approx(m0 - mu);
+      l[i] = l[i] * f1[i] + ld_f32(mine + 512 * (130 + i)) * f0[i];
+    }
+#pragma unroll
+    for (int i = 0; i < 64; ++i) {
+      o[0][i] = o[0][i] * f1[(i / 2) % 2] +
+                ld_f32(mine + 512 * i) * f0[(i / 2) % 2];
+      o[1][i] = o[1][i] * f1[(i / 2) % 2] +
+                ld_f32(mine + 512 * (64 + i)) * f0[(i / 2) % 2];
+    }
+  } else if (c == 0) {
+    store_done();
+    return;
   }
+  store_unit<T>(o, l, base + Smem::Q + kTile, &to, pr.unit_b * kUnit, dv,
+                pr.head, pr.batch);
+  store_done();
 }
 
 template <typename T>
@@ -943,20 +1330,21 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch,
            int sq, int skv, int h, int hkv, int dv, int causal, float scale,
            float softcap, cudaStream_t stream) {
   constexpr CUtensorMapDataType kMap = Elem<T>::kMap;
-  CUtensorMap tq, tk, tv;
-  if (!tensor_map(&tq, q, batch, sq, h, dv, kMap, 2, kBoxCols, kBM) ||
+  CUtensorMap tq, tk, tv, to;
+  if (!tensor_map(&tq, q, batch, sq, h, dv, kMap, 2, kBoxCols, kUnit) ||
       !tensor_map(&tk, k, batch, skv, hkv, dv, kMap, 2, kBoxCols, kBN) ||
-      !tensor_map(&tv, v, batch, skv, hkv, dv, kMap, 2, kBoxCols, kBN))
+      !tensor_map(&tv, v, batch, skv, hkv, dv, kMap, 2, kBoxCols, kBN) ||
+      !tensor_map(&to, out, batch, sq, h, dv, kMap, 2, kBoxCols, kUnit))
     return -2;
   constexpr int smem = Smem::BYTES;
   cudaError_t err = cudaFuncSetAttribute(
       flash_kernel_wide<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       smem);
   if (err != cudaSuccess) return static_cast<int>(err);
-  const dim3 grid(h, batch, (sq + kBM - 1) / kBM);
-  flash_kernel_wide<T><<<grid, kThreads, smem, stream>>>(
-      tq, tk, tv, static_cast<T*>(out), sq, skv, h, hkv, dv, causal, scale,
-      softcap);
+  const bool mirror = mirror_pairs(batch, sq, h);
+  flash_kernel_wide<T><<<grid(batch, sq, h, mirror), kThreads, smem,
+                         stream>>>(tq, tk, tv, to, sq, skv, h, hkv, dv,
+                                   causal, scale, softcap, mirror);
   return static_cast<int>(cudaGetLastError());
 }
 
@@ -1975,6 +2363,28 @@ extern "C" int flash_attention_smem_bytes(int dtype, int head_dim) {
   });
 }
 
+// The grid (x, y, z) of one launch for a dtype, head_dim and shape, in
+// grid[0..2]; 0, or -1 for a pair the kernels do not take.
+extern "C" int flash_attention_grid(int dtype, int head_dim, int batch,
+                                    int sq, int h, int* grid) {
+  const bool is_wide = wide_head_dim(head_dim);
+  if (dtype < 0 || dtype > 2 || (!is_wide && with_head_dim(head_dim, [](auto) {
+                                   return 0;
+                                 }) != 0))
+    return -1;
+  dim3 g;
+  if (dtype != 0 && is_wide)
+    g = wide::grid(batch, sq, h, wide::mirror_pairs(batch, sq, h));
+  else
+    g = dim3(h, batch,
+             (sq + (dtype != 0 ? kBM : is_wide ? f32::kWideBM : f32::kBM) - 1) /
+                 (dtype != 0 ? kBM : is_wide ? f32::kWideBM : f32::kBM));
+  grid[0] = g.x;
+  grid[1] = g.y;
+  grid[2] = g.z;
+  return 0;
+}
+
 // dtype: 0 = float32, 1 = bfloat16, 2 = float16.  Returns
 // cudaGetLastError() after the launch, -1 for a configuration the kernels
 // do not take, or -2 when a TMA map cannot be encoded.
@@ -1987,7 +2397,8 @@ extern "C" int flash_attention_launch(int dtype, const void* q, const void* k,
   const int tile_q = dtype != 0 ? kBM : is_wide ? f32::kWideBM : f32::kBM;
   if (dtype < 0 || dtype > 2 || batch <= 0 || hkv <= 0 || h % hkv != 0 ||
       sq <= 0 || skv <= 0 || batch > 65535 ||
-      (sq + tile_q - 1) / tile_q > 65535)
+      (sq + tile_q - 1) / tile_q > 65535 ||
+      (is_wide && dtype != 0 && h > 65535))   // the wide grid's y or x
     return -1;
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   if (is_wide) {

@@ -21,8 +21,12 @@ products accumulated in fp32, the softmax in registers, P rounded to the
 input type for the P·V product; head_dims up to 64 run its 64-wide tiles
 and those up to 128 its 128-wide tiles, the columns past head_dim read
 as zeros.  Head_dims 144 to 256 run a kernel of 256-wide tiles
-(``flash_kernel_wide``: two warpgroups and no producer, 64-key tiles,
-the head_dim a runtime value).  fp32: the same shape on TF32 ``wgmma``,
+(``flash_kernel_wide``, the head_dim a runtime value): a producer
+warpgroup keeps K and V rings of 64-key tiles filled, the softmax of a
+tile runs while the P·V product of the tile before it retires, and a
+block takes a pair of 64-row q units (``wide_schedule``): the longest
+and its mirror when the blocks fit in one wave, so that at causal Sq =
+Skv every block sweeps as many tiles, else neighbours.  fp32: the same shape on TF32 ``wgmma``,
 each product taken as three TF32 products of the operands split into
 hi + lo (3xTF32), since one TF32 product would miss the reference's fp32
 tolerance; up to head_dim 128, 128-row q tiles over two warpgroups,
@@ -54,6 +58,12 @@ NEG_INF = -1e30
 #: -> the C dtype code
 DTYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 HEAD_DIMS = tuple(range(16, 257, 16))
+#: q rows of a unit and keys of a K/V tile of the wide kernel (bf16 and
+#: fp16 at head_dims 144 to 256)
+WIDE_UNIT = 64
+WIDE_KEYS = 64
+#: SMs of an H100, one wide block an SM
+H100_SMS = 132
 
 
 def flash_attention_ref(q, k, v, *, causal: bool = True,
@@ -74,6 +84,48 @@ def flash_attention_ref(q, k, v, *, causal: bool = True,
     p = torch.softmax(s, dim=-1)
     o = torch.einsum("bhqk,bkhd->bqhd", p, vf)
     return o.to(q.dtype)
+
+
+def wide_schedule(sq: int, skv: int, causal: bool, heads: int = 1,
+                  batch: int = 1, sms: int = H100_SMS):
+    """The wide kernel's blocks, by the rule its source
+    (``flash_kernel_wide``) computes.
+
+    A block takes a pair of 64-row q units of one (head, batch), the
+    longer unit b and a shorter a (``None`` where it has none).  A unit's
+    key tiles are the 64-key tiles that its rows attend.  Consumer 0
+    sweeps a while consumer 1 sweeps b on the same tiles; b's tiles past
+    a's go to consumer 1 and consumer 0 in turn.  When the blocks,
+    ceil(U/2) a (head, batch) with U = ceil(Sq/64), fit in one wave of
+    ``sms`` blocks, block z pairs unit b = U-1-z with its mirror a = z,
+    so that at causal Sq = Skv every block sweeps as many tiles (mirror
+    pairs); past one wave it pairs b = U-1-2z with its neighbour a = b-1,
+    which share every tile but b's last, and the card's scheduler evens
+    out their lengths.  Returns ``(mirror, blocks)``: the blocks of a
+    (head, batch) in the order of z, each ``(a, b, tiles of a, tiles of
+    b, tiles consumer 0 sweeps, tiles consumer 1 sweeps)``.  The grid is
+    (len(blocks), heads, batch) with mirror pairs and (heads, batch,
+    len(blocks)) with neighbour pairs, each head's longest block first.
+    """
+    units = -(-sq // WIDE_UNIT)
+    n_kv = -(-skv // WIDE_KEYS)
+    pairs = (units + 1) // 2
+    mirror = pairs * heads * batch <= sms
+
+    def tiles(u):
+        last = (u * WIDE_UNIT + WIDE_UNIT - 1) // WIDE_KEYS
+        return min(n_kv, last + 1) if causal else n_kv
+
+    blocks = []
+    for z in range(pairs):
+        b, a = (units - 1 - z, z) if mirror else (units - 1 - 2 * z,
+                                                  units - 2 - 2 * z)
+        has_a = a < b if mirror else a >= 0
+        nb = tiles(b)
+        na = tiles(a) if has_a else 0
+        blocks.append((a if has_a else None, b, na, nb, na + (nb - na) // 2,
+                       na + (nb - na + 1) // 2))
+    return mirror, blocks
 
 
 def _launcher():

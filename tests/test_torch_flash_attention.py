@@ -19,6 +19,13 @@ tensor cores read, and K's too above head_dim 128) is held to the JAX reference 
 reference holds to 2e-5, within 2e-5; with the hi·hi product alone it
 reads past 2e-5, which is why the kernel takes three.
 
+The bf16/fp16 kernel at head_dims 144 to 256 pairs 64-row q units in
+its blocks by a rule ``ops.wide_schedule`` states in Python: every unit
+once, the longest first, and the blocks within the design's bounds (one
+tile of each other in one wave; SMs within 10% of even past it).  The
+card tests' planted faults locate their lines by texts that must occur
+once in the flash source; that is held here too.
+
 The ``blocked`` and ``blocked_causal`` routes of ``attend`` are plain
 loops over blocks in both packages; the port's are held to the
 reference's ``attend`` with the same impl and blocks of 32, on even
@@ -206,6 +213,136 @@ def test_softcap_50_at_head_dim_256(dtype):
                 block_kv=64)
     tol = KERNEL_TOL[dtype]
     np.testing.assert_allclose(got.float().numpy(), want, rtol=tol, atol=tol)
+
+
+#: shapes of the wide kernel's schedule (b, sq, skv, h, causal): the
+#: head_dim-256 timing shapes (16 heads, one wave; 32 heads, two), 2048
+#: tokens, ragged q units with B > 1, one q unit, ragged and top-left
+#: causal, Sq past Skv, non-causal, one token
+WIDE_SCHEDULE_SHAPES = [
+    (1, 1024, 1024, 16, True), (1, 1024, 1024, 32, True),
+    (1, 2048, 2048, 32, True), (3, 1000, 1000, 16, True),
+    (1, 64, 64, 16, True), (1, 300, 300, 8, True), (1, 100, 260, 4, True),
+    (1, 192, 64, 4, True), (2, 200, 333, 8, False),
+    (1, 1500, 1500, 8, False), (1, 1, 1, 4, True), (1, 130, 130, 4, True),
+]
+
+
+def _wide_schedule(shape):
+    b, sq, skv, h, causal = shape
+    return ops.wide_schedule(sq, skv, causal, h, b)
+
+
+def _sm_loads(shape):
+    """The blocks of a launch laid on an H100's SMs in launch order, each
+    on the first SM free (as the card's block scheduler does), a block
+    taking its longer consumer's tiles: each SM's load, and the total."""
+    b, _, _, h, _ = shape
+    mirror, blocks = _wide_schedule(shape)
+    steps = [max(c0, c1) for *_, c0, c1 in blocks]
+    # mirror pairs: the blocks of a head together; neighbour pairs: every
+    # head's block z before any head's z + 1
+    order = (steps * (b * h) if mirror
+             else [t for t in steps for _ in range(b * h)])
+    loads = [0] * ops.H100_SMS
+    for t in order:
+        i = loads.index(min(loads))
+        loads[i] += t
+    return loads, sum(order)
+
+
+@pytest.mark.parametrize("shape", WIDE_SCHEDULE_SHAPES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_wide_schedule_takes_every_q_unit_once(shape):
+    _, sq, skv, _, _ = shape
+    _, blocks = _wide_schedule(shape)
+    units = [u for a, b, *_ in blocks for u in (a, b) if u is not None]
+    assert sorted(units) == list(range(-(-sq // ops.WIDE_UNIT)))
+    n_kv = -(-skv // ops.WIDE_KEYS)
+    for a, b, na, nb, c0, c1 in blocks:
+        # each of b's tiles once: a's on both consumers, the rest in turn
+        assert c0 + c1 == na + nb and c1 - c0 in (0, 1)
+        assert 0 < nb <= n_kv and (a is None) == (na == 0)
+
+
+@pytest.mark.parametrize("shape", WIDE_SCHEDULE_SHAPES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_wide_schedule_puts_the_longest_sweeps_first(shape):
+    _, blocks = _wide_schedule(shape)
+    longer = [b for _, b, *_ in blocks]
+    assert longer == sorted(longer, reverse=True)
+    assert [nb for *_, nb, _, _ in blocks] == sorted(
+        (nb for *_, nb, _, _ in blocks), reverse=True)
+    assert all(na <= nb for _, _, na, nb, _, _ in blocks)
+
+
+@pytest.mark.parametrize("shape", WIDE_SCHEDULE_SHAPES,
+                         ids=lambda c: "-".join(map(str, c)))
+def test_wide_schedule_balances_the_blocks(shape):
+    """The design's bounds.  In one wave (mirror pairs) no block's longer
+    consumer sweeps more than one tile past the mean block's half of its
+    tiles; past one wave (neighbour pairs) the SMs' loads, the blocks
+    laid in launch order, end within 10% of an even spread.  The 128-row
+    q tiles of the kernel before took 1.83 times the even spread at
+    causal S 1024 with 16 heads (the test below)."""
+    mirror, blocks = _wide_schedule(shape)
+    loads, total = _sm_loads(shape)
+    if mirror:
+        mean_half = sum(na + nb for _, _, na, nb, _, _ in blocks) / (
+            2 * len(blocks))
+        assert max(c1 for *_, c1 in blocks) <= mean_half + 1
+    else:
+        assert max(loads) <= 1.1 * total / ops.H100_SMS
+
+
+def test_wide_schedule_takes_mirror_pairs_in_one_wave():
+    """16 heads at causal S 1024 fill 128 of an H100's 132 SMs: mirror
+    pairs, every block 9 tile-steps on its longer consumer; 32 heads need
+    256 blocks: neighbour pairs, the longest first."""
+    mirror, blocks = ops.wide_schedule(1024, 1024, True, 16)
+    assert mirror and {max(c0, c1) for *_, c0, c1 in blocks} == {9}
+    mirror, blocks = ops.wide_schedule(1024, 1024, True, 32)
+    assert not mirror and [c1 for *_, c1 in blocks] == list(
+        range(16, 0, -2))
+
+
+def test_the_old_q_tiles_left_the_card_uneven():
+    """The measure of the test above for 128-row q tiles, each block
+    sweeping its last row's 64-key tiles on both consumers: at causal S
+    1024 with 16 heads the longest block took 16 tile-steps against an
+    even 8.7."""
+    steps = [2 * i + 2 for i in range(8)] * 16
+    assert max(steps) / (sum(steps) / ops.H100_SMS) > 1.8
+
+
+def _card_test_module():
+    spec = importlib.util.spec_from_file_location(
+        "card_tests", pathlib.Path(__file__).with_name(
+            "test_torch_kernels_cuda.py"))
+    mod = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(mod)
+    return mod
+
+
+def _planted_texts():
+    mod = _card_test_module()
+    out = [(f, old) for f, (name, old, _) in mod.FAULTS.items()
+           if name == "flash_attention"]
+    out += [(f, old) for f, (name, old, _) in mod.HEAD_DIM_80_FAULTS.items()
+            if name == "flash_attention"]
+    out += [(f, old) for f, (old, _, _) in mod.FP32_FAULTS.items()]
+    out += [(f, old) for f, (old, _, _) in mod.WIDE_FAULTS.items()]
+    return out + [("flash-reads-past-the-kv-end", mod.KV_TAIL_FAULT[1])]
+
+
+@pytest.mark.parametrize("fault", _planted_texts(), ids=lambda f: f[0])
+def test_planted_fault_texts_occur_once_in_the_flash_source(fault):
+    """Each planted fault of the card tests locates its line by a text
+    that must occur once in the flash source, so that a kernel written
+    beside another does not move the fault or fail the card test."""
+    src = (pathlib.Path(ops.__file__).resolve().parents[1] / "csrc"
+           / "flash_attention.cu").read_text()
+    assert src.count(fault[1]) == 1
 
 
 def test_wrapper_tables_cover_every_multiple_of_16():

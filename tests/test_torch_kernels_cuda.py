@@ -42,7 +42,13 @@ fp32 with the two warpgroups splitting D) and paged a warp of 32 lanes
 a row: ``PAGED_WIDE`` and ``FLASH_WIDE`` take every such head_dim in
 each dtype, paged at groups 1, 2, 5, 8, 16/1 and 32/1, flash causal,
 non-causal with a ragged Skv and soft-capped, and the reference's
-FLASH_CASES[4] shape at 256 in fp32 is held to its 2e-5.
+FLASH_CASES[4] shape at 256 in fp32 is held to its 2e-5.  The bf16/fp16
+wide kernel also runs llama2-7b's served prefill at head_dim 256
+(32/32), 2048 tokens (32/8), ragged q units with B 3 and a single q
+unit; ``test_relative_limit_catches_a_wide_kernel_fault`` plants a fault
+of its V ring and of each pairing of q units (``WIDE_FAULTS``) at the
+served shape or 16/16, and ``test_wide_grid_follows_the_schedule`` holds the grid
+the library launches to ``flash.wide_schedule``.
 
 Both attention kernels take head_dim 80 (stablelm-3b, zamba2-2.7b's
 shared block) in padded tiles and lanes: flash in its D-128 tiles, paged
@@ -80,6 +86,7 @@ layer; and flash, paged and ``attend(impl="pallas")`` raise where
 autograd would record them (none has a backward, nor has the
 reference's).
 """
+import ctypes
 import functools
 import importlib.util
 import pathlib
@@ -535,6 +542,14 @@ FLASH_WIDE = [
     (1, 100, 260, 4, 4, 256, True, 0.0, torch.bfloat16),   # top-left
     (1, 100, 260, 4, 4, 256, True, 0.0, torch.float32),
     (1, 70, 150, 4, 2, 144, False, 20.0, torch.float32),
+    # the served prefill of llama2-7b at head_dim 256 (32/32); 32 q
+    # units a head, so blocks outnumber the SMs several times; ragged q
+    # units with B > 1; a single q unit pair
+    (1, 1024, 1024, 32, 32, 256, True, 0.0, torch.bfloat16),
+    (1, 1024, 1024, 32, 32, 256, True, 0.0, torch.float16),
+    (1, 2048, 2048, 32, 8, 256, True, 0.0, torch.bfloat16),
+    (3, 1000, 1000, 16, 8, 192, True, 0.0, torch.bfloat16),
+    (1, 64, 64, 16, 16, 256, True, 0.0, torch.bfloat16),
 ]
 
 
@@ -730,6 +745,84 @@ def test_fp16_limit_catches_an_off_by_one(cuda, fault, tmp_path,
     print(f"\n{fault} in fp16: long-row relative error, sound {sound:.3e}, "
           f"planted {planted:.3e}, limit {limit:.0e}")
     assert sound <= limit < planted
+
+
+#: planted faults of the wide bf16/fp16 flash kernel (head_dims 144 to
+#: 256), each held at llama2-7b's prefill at head_dim 256 (causal S 1024,
+#: 32/32 heads: 256 blocks, neighbour pairs) or, for the mirror pairs that
+#: a launch of one wave takes, with 16/16 heads (128 blocks): P·V reads V
+#: from the other stage of its V ring; the schedule takes unit U-2-2z
+#: (neighbour) or U-2-z (mirror) as block z's longer unit, so that no
+#: block sweeps the last unit of a head (its rows are left as the
+#: output's memory held, which the test fills with NaN first).  (text
+#: replaced, its replacement, q heads = kv heads)
+WIDE_FAULTS = {
+    "flash-wide-ring-stage-off-by-one": (
+        "const uint32_t v_prev = r.base + Smem::V + kTile * (prev % kVStages);",
+        "const uint32_t v_prev = r.base + Smem::V + kTile * ((prev + 1) % "
+        "kVStages);", 32),
+    "flash-wide-schedule-skips-a-unit": (
+        "unit_b = units - 1 - 2 * z;", "unit_b = units - 2 - 2 * z;", 32),
+    "flash-wide-mirror-schedule-skips-a-unit": (
+        "unit_b = units - 1 - z;", "unit_b = units - 2 - z;", 16),
+}
+
+
+def _wide_serving_case(device, heads):
+    """The wide kernel once at a causal 1024-token prefill at head_dim
+    256 with ``heads`` q and kv heads (bf16), its output's memory filled
+    with NaN before the launch (the allocator hands the block just freed
+    to the wrapper's ``empty_like``).  Returns the long rows' (positions
+    512 and later) largest relative error; a row left unwritten reads
+    inf."""
+    rng = np.random.RandomState(7)
+    q, k, v = (torch.from_numpy(rng.randn(1, 1024, heads, 256)
+                                .astype(np.float32)).to(device,
+                                                        torch.bfloat16)
+               for _ in range(3))
+    poison = torch.full_like(q, float("nan"))
+    del poison
+    got = flash.flash_attention(q, k, v)
+    return float(_row_rel_err(got, _flash_plain(q, k, v))[:, 512:].max())
+
+
+@pytest.mark.parametrize("fault", sorted(WIDE_FAULTS))
+def test_relative_limit_catches_a_wide_kernel_fault(cuda, fault, tmp_path,
+                                                    monkeypatch):
+    """The sound wide kernel reads within the bf16 limit on the long
+    rows at head_dim 256's serving shape (and 16/16 for the mirror
+    pairs); a copy of its source with a fault of its ring or of its
+    schedule planted reads past it."""
+    old, new, heads = WIDE_FAULTS[fault]
+    sound = _wide_serving_case(cuda, heads)
+    src = (build.CSRC / "flash_attention.cu").read_text()
+    assert src.count(old) == 1
+    (tmp_path / "flash_attention.cu").write_text(src.replace(old, new))
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "lib")
+    monkeypatch.setattr(build, "_loaded", {})
+    planted = _wide_serving_case(cuda, heads)
+    print(f"\n{fault}: long-row relative error, sound {sound:.3e}, "
+          f"planted {planted:.3e}, limit {REL_TOL[torch.bfloat16]:.0e}")
+    assert sound <= REL_TOL[torch.bfloat16] < planted
+
+
+@pytest.mark.parametrize("shape", [(1, 1024, 32), (1, 1024, 16),
+                                   (3, 1000, 16), (1, 2048, 32), (2, 64, 8),
+                                   (1, 1, 4)])
+def test_wide_grid_follows_the_schedule(cuda, shape):
+    """The wide kernel's grid, as the library computes it for its
+    launch, has one block a pair of ``flash.wide_schedule`` on this
+    card's SMs, in its order."""
+    b, sq, h = shape
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    mirror, blocks = flash.wide_schedule(sq, sq, True, h, b, sms)
+    lib = build.load("flash_attention")
+    grid = (ctypes.c_int * 3)()
+    for code in (1, 2):
+        assert lib.flash_attention_grid(code, 256, b, sq, h, grid) == 0
+        assert list(grid) == ([len(blocks), h, b] if mirror
+                              else [h, b, len(blocks)])
 
 
 #: planted faults of head_dim 80: the flash epilogue stores all 128
