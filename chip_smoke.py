@@ -9,7 +9,8 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
 
 1. the card: ``nvidia-smi`` name and power limit; TF32 off;
 2. the build of every CUDA kernel from ``src/repro_torch/kernels/csrc``,
-   and the flash and paged kernels' registers, spills and shared memory;
+   and the flash and paged kernels' registers, spills, shared memory and
+   any note of ptxas that it serialised their wgmma (C7510-C7515);
 3. each kernel against its plain PyTorch version on the card, at the
    serving path's shapes (flash: every prefill bucket, 64-2048), with the
    tolerance stated, timed beside the plain version, the bound and
@@ -39,8 +40,9 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    lengths with 16/16 heads (bf16, fp16, fp32) and 16/8, flash at a
    causal 1024-token prefill with 16/16 and 16/8 heads in each dtype,
    16/8 with a softcap of 50 in bf16 and fp16 and llama2-7b's served
-   32/32 in bf16 (the ``flash_attention_d256`` line's shape), and both at
-   head_dim 144 and 192 (32/8);
+   32/32 in bf16 and fp32 (the shape of the ``flash_attention_d256`` and
+   ``flash_attention_fp32_d256`` lines), and both at head_dim
+   144 and 192 (32/8), flash there in bf16 and fp32;
    head_dims 272 and 136 must raise ``ValueError`` on the card; the
    SSD scan also at zamba2-2.7b's prefill (80 heads, N 64) and at the
    training CLI's mamba2-130m shape (B 4, S 1024); then every case of
@@ -86,7 +88,10 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    instances, its logits within ``LOGIT_LIMITS[torch.float16]`` of the
    plain routes; then the same in bf16 with ``head_dim`` set to 256 (32
    heads of 256, q width 8192, 17.8 GB of weights) through both kernels'
-   head_dim-256 shapes.  opt-13b (learned positions, LayerNorm, GELU; MHA 40/40)
+   head_dim-256 shapes, and in fp32 at that head_dim (35.5 GB of weights,
+   a pool of 640 pages, sized to its requests) through the fp32 flash kernel's
+   wide shape and the paged kernel's D-256 shape in fp32, its logits
+   within 1e-4 of the plain routes.  opt-13b (learned positions, LayerNorm, GELU; MHA 40/40)
    and qwen3-14b (qk-norm, GQA 40/8) at full width and depth run the
    main path (one graphed engine on the kernel routes), the two logit
    comparisons and the profiles; so do granite-moe-3b (MoE, 40 experts
@@ -222,7 +227,9 @@ Phases, each printed as it ends; any failure raises and exits non-zero:
    under the paged and flash lines' ``llama2-7b-float16`` path; the
    head_dim-256 run's on lines of their own, ``paged_attention_d256`` and
    ``flash_attention_d256``, timed at head_dim 256, paged with 16/16
-   heads and flash with the served 32/32),
+   heads and flash with the served 32/32, the fp32 head_dim-256 run's
+   paged launches under ``paged_attention_d256`` and its flash launches
+   on ``flash_attention_fp32_d256``, timed at the served 32/32),
    then the result line.
 
 Without a CUDA device, or without the rest of the checkout, it fails
@@ -716,10 +723,11 @@ def check_wide_kernels():
     flash at a causal 1024-token prefill with 16/16 and 16/8 heads, each
     in bf16, fp16 and fp32 (paged's 16/8 in bf16), and 16/8 with
     Gemma-2-9B's softcap of 50 in bf16 and fp16, and flash at the served
-    32/32 in bf16; then the head_dims the kernels refuse, 272 (past 256)
-    and 136 (not a multiple of 16), raising ValueError on CUDA tensors.
-    Returns the bf16 16/16 paged record and the bf16 32/32 flash
-    record."""
+    32/32 in bf16 and fp32, and at head_dims 144 and 192 (32/8) in bf16
+    and fp32;
+    then the head_dims the kernels refuse, 272 (past 256) and 136 (not a
+    multiple of 16), raising ValueError on CUDA tensors.  Returns the
+    bf16 16/16 paged record and the bf16 and fp32 32/32 flash records."""
     bf16, f16, f32 = torch.bfloat16, torch.float16, torch.float32
     d = WIDE_HEAD_DIM
     out = {}
@@ -735,10 +743,11 @@ def check_wide_kernels():
     paged_case(f"head_dim {d} decode 16/8", batch=MAX_BATCH, hq=16, hkv=8,
                d=d, dtype=bf16)
     # the served prefill of llama2-7b at head_dim 256 (32/32), the flash
-    # line's shape
-    out["flash", bf16, 32] = flash_case(
-        f"head_dim {d} causal S=1024 32/32", sq=1024, skv=1024, h=32,
-        hkv=32, d=d, causal=True, dtype=bf16, seed=62)
+    # lines' shape
+    for dt, tag in ((bf16, ""), (f32, "fp32 ")):
+        out["flash", dt, 32] = flash_case(
+            f"{tag}head_dim {d} causal S=1024 32/32", sq=1024, skv=1024,
+            h=32, hkv=32, d=d, causal=True, dtype=dt, seed=62)
     for dt, tag in ((bf16, ""), (f16, "fp16 ")):
         flash_case(f"{tag}head_dim {d} causal S=1024 16/8 softcap 50",
                    sq=1024, skv=1024, h=16, hkv=8, d=d, causal=True,
@@ -746,8 +755,10 @@ def check_wide_kernels():
     for dd in (144, 192):
         paged_case(f"head_dim {dd} decode 32/8", batch=MAX_BATCH, hq=32,
                    hkv=8, d=dd, dtype=bf16, seed=dd)
-        flash_case(f"head_dim {dd} causal S=1024 32/8", sq=1024, skv=1024,
-                   h=32, hkv=8, d=dd, causal=True, dtype=bf16, seed=dd)
+        for dt, tag in ((bf16, ""), (f32, "fp32 ")):
+            flash_case(f"{tag}head_dim {dd} causal S=1024 32/8", sq=1024,
+                       skv=1024, h=32, hkv=8, d=dd, causal=True, dtype=dt,
+                       seed=dd)
     refused = {}
     for dd in (272, 136):
         q = torch.zeros(2, 16, dd, device="cuda", dtype=bf16)
@@ -770,7 +781,7 @@ def check_wide_kernels():
     if not all(refused.values()):
         raise AssertionError(f"a head_dim the kernels do not take went "
                              f"through: {refused}")
-    return out["paged", bf16], out["flash", bf16, 32]
+    return out["paged", bf16], out["flash", bf16, 32], out["flash", f32, 32]
 
 
 #: tests/test_kernels.py's own kernel cases at their shapes, dtypes,
@@ -973,8 +984,9 @@ def make_requests(offset=0, n=N_REQUESTS, output_len=OUTPUT_LEN):
                     output_len=output_len) for i, p in enumerate(lens[:n])]
 
 
-def paged_engine(model, params, attn_path, graphs=None):
-    ec = EngineConfig(num_blocks=NUM_BLOCKS, block_size=PAGE,
+def paged_engine(model, params, attn_path, graphs=None,
+                 num_blocks=NUM_BLOCKS):
+    ec = EngineConfig(num_blocks=num_blocks, block_size=PAGE,
                       max_batch=MAX_BATCH, max_pages_per_seq=MAX_PAGES,
                       attn_path=attn_path)
     return ServingEngine(model, params, ec, graphs=graphs)
@@ -1310,7 +1322,9 @@ def check_serving(arch, params=None, dtype=None, head_dim=None):
     the config's, ``head_dim`` the head width in place of the config's
     (its q, k, v and output projections widen with it), either with
     FP32_REQUESTS requests of FP32_OUTPUT_LEN tokens and the graphed
-    profiles alone).  The main
+    profiles alone, and on a page pool sized to those requests where
+    the engine's NUM_BLOCKS pages would take over half of what the
+    weights leave of the card).  The main
     path: the engine on the kernel routes (``attn_impl="pallas"``,
     ``attn_path="pallas"``), graphed, with one paged launch a layer a
     decode iteration and one flash launch a layer a prefill; then
@@ -1358,14 +1372,24 @@ def check_serving(arch, params=None, dtype=None, head_dim=None):
           qk_norm=cfg.qk_norm, **moe_fields, param_gb=n_bytes / 1e9,
           seconds=time.perf_counter() - t0 if drawn else None)
 
+    num_blocks = NUM_BLOCKS
+    page_bytes = (2 * cfg.num_layers * cfg.n_kv_heads * cfg.head_dim * PAGE
+                  * getattr(torch, cfg.dtype).itemsize)
+    if variant and NUM_BLOCKS * page_bytes > torch.cuda.mem_get_info()[0] / 2:
+        # the pages of the requests (their longest prompt and output),
+        # rounded up to 128
+        need = FP32_REQUESTS * -(-(PROMPT_RANGE[1] + FP32_OUTPUT_LEN) // PAGE)
+        num_blocks = -(-need // 128) * 128
+
     # the main path: the engine as a user builds it, graphed on the card
     torch.cuda.reset_peak_memory_stats()
-    graphed = paged_engine(kernel_model, params, "pallas")
+    graphed = paged_engine(kernel_model, params, "pallas",
+                           num_blocks=num_blocks)
     log = instrument(graphed)
     main = serve_set(graphed, requests(), {}, log)
     launches = main["launches"]
     kernel_stats = {"model": cfg.name, "dtype": cfg.dtype,
-                    "attn_path": "pallas",
+                    "attn_path": "pallas", "num_blocks": num_blocks,
                     "attn_impl": kernel_model.settings.attn_impl,
                     **main["stats"],
                     "launches": {k: launches[k] for k in
@@ -2524,22 +2548,49 @@ def check_zamba2():
     return stats
 
 
+#: ptxas's notes that it serialised a kernel's wgmma ("wgmma.mma_async
+#: instructions are serialized due to ..."), by code
+WGMMA_SERIALIZED = re.compile(r"\((C751[0-5])\)")
+
+
+def wgmma_serialized(report):
+    """{entry: sorted C7510-C7515 codes} of a ptxas report: a note names
+    its function, or else belongs to the entry being compiled."""
+    out, entry = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1)
+        code = WGMMA_SERIALIZED.search(line)
+        if code:
+            named = re.search(r"function '(\S+?)'", line)
+            key = named.group(1) if named else entry
+            out.setdefault(key, set()).add(code.group(1))
+    return {k: sorted(v) for k, v in out.items()}
+
+
 def ptxas_entries(lib):
     """Each kernel of ``csrc/<lib>.cu``: registers, stack, spills and
-    static shared memory as ``ptxas -v`` reported them at the build."""
+    static shared memory as ``ptxas -v`` reported them at the build, and
+    the codes of any note that its wgmma were serialised
+    (``wgmma_serialized``, C7510-C7515)."""
     out = []
-    for chunk in build.ptxas_report(lib).split("Compiling entry function")[1:]:
+    report = build.ptxas_report(lib)
+    serialized = wgmma_serialized(report)
+    for chunk in report.split("Compiling entry function")[1:]:
         stack, stores, loads = map(int, re.search(
             r"(\d+) bytes stack frame, (\d+) bytes spill stores, (\d+) "
             r"bytes spill loads", chunk).groups())
         static = re.search(r"(\d+) bytes smem", chunk)
-        out.append({"entry": re.search(r"'(\S+)'", chunk).group(1),
+        entry = re.search(r"'(\S+)'", chunk).group(1)
+        out.append({"entry": entry,
                     "registers": int(re.search(r"Used (\d+) registers",
                                                chunk).group(1)),
                     "stack_bytes": stack, "spill_store_bytes": stores,
                     "spill_load_bytes": loads,
                     "static_smem_bytes": int(static.group(1)) if static
-                    else 0})
+                    else 0,
+                    "wgmma_serialized": serialized.get(entry, [])})
     if not out:
         raise AssertionError(f"no kernel in the ptxas report of {lib}")
     return out
@@ -3637,6 +3688,12 @@ FP16_ARCH = "llama2-7b"
 #: ``ArchConfig.head_dim`` set; 32 heads of 256, as Gemma-7B's 16 are):
 #: both kernels' head_dim-256 shapes, as many requests of as many tokens
 WIDE_ARCH = "llama2-7b"
+#: and in fp32 at that head_dim: the fp32 flash kernel's wide shape in
+#: every prefill.  Its weights take 35.5 GB and its KV 2 MiB a token, so
+#: the engine's pool of NUM_BLOCKS pages (34.4 GB) would leave too little
+#: of the card's 80 GB for the activations and graphs: check_serving
+#: sizes its pool to its requests (FP32_REQUESTS of at most 1040 tokens,
+#: 65 pages each), 640 pages, 21.5 GB
 #: those that also run eager against graphed engines and the plain path
 FULL_PHASE_SET = {"llama2-7b"}
 #: the MoE model that also serves one request set on the ``sort`` route
@@ -3667,7 +3724,8 @@ def main():
 
     served = {}
     with torch.no_grad():
-        paged, flash, flash32, (paged_wide, flash_wide) = check_kernels()
+        paged, flash, flash32, (paged_wide, flash_wide,
+                                flash32_wide) = check_kernels()
         check_reference_cases()
         ssd = check_ssd_kernel()
         # one model at a time: each frees its weights and pages before
@@ -3689,6 +3747,9 @@ def main():
         free_memory()
         served_wide = check_serving(WIDE_ARCH,
                                     head_dim=WIDE_HEAD_DIM)["launches"]
+        free_memory()
+        served_fp32_wide = check_serving(
+            WIDE_ARCH, dtype="float32", head_dim=WIDE_HEAD_DIM)["launches"]
         free_memory()
         # stablelm-3b (head_dim 80) on the paged path, then its 4096-token
         # prefill on the blocked route, on the same weights
@@ -3729,6 +3790,13 @@ def main():
     wide_path = f"{WIDE_ARCH}-head_dim{WIDE_HEAD_DIM}"
     for name in ("paged_attention", "flash_attention"):
         by_path[f"{name}_d{WIDE_HEAD_DIM}"] = {wide_path: served_wide[name]}
+    # the fp32 head_dim-256 run: the paged kernel's D-256 shape in fp32
+    # and the fp32 flash kernel's wide shape (a line of its own)
+    fp32_wide_path = f"{WIDE_ARCH}-float32-head_dim{WIDE_HEAD_DIM}"
+    by_path[f"paged_attention_d{WIDE_HEAD_DIM}"][fp32_wide_path] = \
+        served_fp32_wide["paged_attention"]
+    by_path[f"flash_attention_fp32_d{WIDE_HEAD_DIM}"] = {
+        fp32_wide_path: served_fp32_wide["flash_attention"]}
     by_path["flash_attention"][WHISPER_ARCH] = \
         whisper["launches"]["flash_attention"]
     by_path["flash_attention"][HYBRID_ARCH] = \
@@ -3756,6 +3824,9 @@ def main():
              "src/repro_torch/kernels/csrc/paged_attention.cu",
              "src/repro/kernels/paged_attention/kernel.py:79"),
             (f"flash_attention_d{WIDE_HEAD_DIM}", flash_wide,
+             "src/repro_torch/kernels/csrc/flash_attention.cu",
+             "src/repro/kernels/flash_attention/kernel.py:96"),
+            (f"flash_attention_fp32_d{WIDE_HEAD_DIM}", flash32_wide,
              "src/repro_torch/kernels/csrc/flash_attention.cu",
              "src/repro/kernels/flash_attention/kernel.py:96"),
             ("ssd_scan", ssd,

@@ -15,14 +15,16 @@ prefill (32/32, head_dim 128) in bf16 and in fp32, and in fp16 where the
 checkout's kernels take it, and where they take head_dim 256 the paged
 case at 16/16 heads of 256 (llama2-7b's decode lengths) and the flash
 case at causal S 1024 with 16/16 heads of 256 in bf16, fp16 and fp32,
-with 16/8 and llama2-7b's served 32/32 heads of 256 in bf16 and fp16,
-and with 32/8 heads of 144 and of 192 in bf16, ``ROUNDS`` times each.
+with 16/8 and llama2-7b's served 32/32 heads of 256 in bf16, fp16 and
+fp32, and with 32/8 heads of 144 and of 192 in bf16 and fp32,
+``ROUNDS`` times each.
 Each case prints its own phase line; the last line is one JSON object:
 the card, each source's build seconds, each case's kernel ms (CUDA
 events, the card's queue filled ahead) by round and their median, its
 bound and the share of it, and the median of SDPA's ms on the same
-inputs (flash), and the registers and spills (``ptxas -v``) of the bf16
-paged kernels at head_dim 128.
+inputs (flash), the registers and spills (``ptxas -v``) of the bf16
+paged kernels at head_dim 128, and every kernel of each source of which
+ptxas noted that it serialised its wgmma (C7510-C7515).
 
 To compare two checkouts, run it on each in turns in one call (parent,
 change, change, parent): times from two cards differ.
@@ -32,6 +34,7 @@ from __future__ import annotations
 import argparse
 import importlib
 import json
+import re
 import statistics
 import subprocess
 import sys
@@ -39,6 +42,23 @@ import time
 from pathlib import Path
 
 ROUNDS = 5
+
+
+def wgmma_serialized(report):
+    """(entry, sorted codes) of each kernel in a ``ptxas -v`` report
+    with a note that its wgmma were serialised (C7510-C7515): a note
+    names its function, or else belongs to the entry being compiled."""
+    out, entry = {}, None
+    for line in report.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", line)
+        if m:
+            entry = m.group(1)
+        code = re.search(r"\((C751[0-5])\)", line)
+        if code:
+            named = re.search(r"function '(\S+?)'", line)
+            out.setdefault(named.group(1) if named else entry,
+                           set()).add(code.group(1))
+    return sorted((k, sorted(v)) for k, v in out.items())
 
 
 def main(argv=None):
@@ -93,13 +113,16 @@ def main(argv=None):
                     f"{tag}head_dim 256 causal S=1024 16/16", sq=1024,
                     skv=1024, h=16, hkv=16, d=256, causal=True, dtype=dt,
                     seed=76))
-        # the 2-byte wide kernel's shapes: 16/16 in fp16, Gemma-2-9B's
-        # 16/8 and llama2-7b's served 32/32 in both 2-byte types, and
-        # head_dims 144 and 192 at 32/8
+        # the wide kernels' shapes: 16/16 in fp16, Gemma-2-9B's 16/8 and
+        # llama2-7b's served 32/32 in every type, and head_dims 144 and
+        # 192 at 32/8
+        f32 = torch.float32
         shapes = [(f16, "fp16 ", 256, 16, 16)] + [
             (dt, tag, 256, h, hkv) for h, hkv in ((16, 8), (32, 32))
             for dt, tag in ((bf16, ""), (f16, "fp16 "))] + [
-            (bf16, "", d, 32, 8) for d in (144, 192)]
+            (dt, tag, d, 32, 8) for d in (144, 192)
+            for dt, tag in ((bf16, ""), (f32, "fp32 "))] + [
+            (f32, "fp32 ", 256, h, hkv) for h, hkv in ((16, 8), (32, 32))]
         for dt, tag, d, h, hkv in shapes:
             name = f"{tag}head_dim {d} causal S=1024 {h}/{hkv}"
             cases[f"flash {name}"] = (
@@ -122,8 +145,13 @@ def main(argv=None):
                                                       for r in rs)
         return out
 
+    serialized = {}
+    for name in build_s:
+        for entry, codes in wgmma_serialized(build.ptxas_report(name)):
+            serialized.setdefault(name, {})[entry] = codes
     print(json.dumps({
         "card": card, "root": str(root), "build_s": build_s,
+        "wgmma_serialized": serialized,
         "kernel_ms": {n: medians(rs) for n, rs in recs.items()},
         "paged_registers_bf16_d128": [
             {k: e.get(k) for k in ("group", "chunked", "registers",

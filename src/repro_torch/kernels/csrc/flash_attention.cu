@@ -29,8 +29,10 @@
 //   for the reference's fp32 tolerance of 2e-5); TMA + wgmma as in bf16.
 // - D 144 to 256: wide::flash_kernel_wide (bf16, fp16; 256-wide tiles,
 //   a producer warpgroup, the softmax under the P·V product, a block a
-//   pair of 64-row q units) and f32::flash_fp32_kernel_wide (the two
-//   warpgroups splitting D), each described where it is defined.
+//   pair of 64-row q units) and f32::flash_fp32_kernel_wide (3xTF32, a
+//   producer warpgroup that loads and splits each tile, two consumers
+//   splitting D, the softmax under the P·V product), each described
+//   where it is defined.
 //
 // What bounds the bf16 kernel on this card: at the serving path's
 // prefill shapes (B 1, Sq = Skv = 64 ... 2048, H 32, D 128, causal) the
@@ -64,7 +66,8 @@
 //   arrive as zeros.  The maps are encoded on the host at every call
 //   through cuTensorMapEncodeTiled, found with cudaGetDriverEntryPoint,
 //   so the library needs no -lcuda.  A barrier wait of over a second
-//   traps: a lost arrival fails the launch instead of holding the card.
+//   traps (out of line, wait_failed): a lost arrival fails the launch
+//   instead of holding the card.
 // - Warpgroups 1 and 2 own 64 q rows each.  S = Q·K^T is wgmma m64n128k16
 //   with both operands in shared memory, accumulated in registers.  The
 //   online softmax runs in registers (each thread holds two rows of its
@@ -148,14 +151,36 @@ __device__ __forceinline__ uint64_t now_ns() {
   return t;
 }
 
-// Spin until the barrier's phase of the given parity has completed.  A
-// wait of over a second means a lost arrival: trap, so that the launch
-// fails instead of holding the card.
+// A lost barrier arrival: trap, so that the launch fails instead of
+// holding the card.  A function of its own: a trap inlined in a kernel's
+// body keeps ptxas from giving the consumers of a 384-thread kernel the
+// registers of their setmaxnreg (it then spills and serialises every
+// wgmma, C7512), and every kernel here waits through mbar_wait.  It
+// does not return: a wait that could go on past it cost
+// flash_fp32_kernel 9 registers and 5% of its time.
+__device__ __noinline__ __attribute__((noreturn)) void wait_failed() {
+  __trap();
+  __builtin_unreachable();
+}
+
+// The same trap, declared to return.  wide::flash_kernel_wide waits
+// through it: with wait_failed it ran about 1% slower at its served
+// shape (32/32 heads of 256), and a returning trap costs it no
+// registers, as it does flash_fp32_kernel.
+__device__ __noinline__ void wait_failed_returning() { __trap(); }
+
+// Spin until the barrier's phase of the given parity has completed; a
+// wait of over a second traps (out of line, through
+// wait_failed_returning where kReturning).
+template <bool kReturning = false>
 __device__ __forceinline__ void mbar_wait(uint32_t bar, int parity) {
   if (mbar_try_wait(bar, parity)) return;
   const uint64_t t0 = now_ns();
   while (!mbar_try_wait(bar, parity))
-    if (now_ns() - t0 > 1000000000ull) __trap();
+    if (now_ns() - t0 > 1000000000ull) {
+      if constexpr (kReturning) wait_failed_returning();
+      else wait_failed();
+    }
 }
 
 __device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
@@ -673,7 +698,7 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch,
 //   completes.  A consumer frees K once S has retired and V once P·V
 //   has.  Shared memory: Q 2 x 32 KB + K 2 x 32 KB + V 3 x 32 KB = 224 KB.
 //   ptxas gives the consumer code its 232 registers only if no trap is
-//   inlined in the kernel (wide::wait calls one out of line); with one,
+//   inlined in the kernel (wait calls one out of line); with one,
 //   it spilled 1 KB and serialised every wgmma (C7512).
 // - The unit of work is 64 q rows, one consumer warpgroup's rows.  A
 //   block takes a pair of units of one (head, batch), the longer unit b
@@ -817,18 +842,9 @@ __device__ __forceinline__ int key_tiles(int qlast, int skv, int causal) {
   return n;
 }
 
-// A lost barrier arrival: trap, so that the launch fails instead of
-// holding the card.  A function of its own: a trap inlined in the
-// kernel's body keeps ptxas from giving the consumers the registers of
-// their setmaxnreg (it then spills and serialises every wgmma, C7512).
-__device__ __noinline__ void wait_failed() { __trap(); }
-
-// mbar_wait with the trap out of line.
+// mbar_wait, its trap declared to return (wait_failed_returning).
 __device__ __forceinline__ void wait(uint32_t bar, int parity) {
-  if (mbar_try_wait(bar, parity)) return;
-  const uint64_t t0 = now_ns();
-  while (!mbar_try_wait(bar, parity))
-    if (now_ns() - t0 > 1000000000ull) wait_failed();
+  mbar_wait<true>(bar, parity);
 }
 
 // The K and V rings, at fixed offsets from the shared base (the one
@@ -1520,25 +1536,12 @@ __device__ __forceinline__ void wgmma_tf32_rs_n32(float (&d)[16],
       : "memory");
 }
 
-// S (64 x 16) += A (64 x 8, smem) * B (16 x 8, smem)^T in TF32, both
-// K-major with the 128-byte swizzle.
-__device__ __forceinline__ void wgmma_tf32_ss_n16(float (&d)[8], uint64_t da,
-                                                  uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, %10, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
-      "{%0, %1, %2, %3, %4, %5, %6, %7}, "
-      "%8, %9, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
-        "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "l"(da), "l"(db), "r"(1)
-      : "memory");
-}
-
-// S (64 x 16) += A (64 x 8, TF32 registers) * B (16 x 8, smem)^T.
+// S (64 x 16) (+)= A (64 x 8, TF32 registers) * B (16 x 8, smem)^T;
+// scale_d 0 overwrites S.
 __device__ __forceinline__ void wgmma_tf32_rs_n16(float (&d)[8],
                                                   const uint32_t (&a)[4],
-                                                  uint64_t db) {
+                                                  uint64_t db,
+                                                  int scale_d = 1) {
   asm volatile(
       "{\n.reg .pred p;\nsetp.ne.b32 p, %13, 0;\n"
       "wgmma.mma_async.sync.aligned.m64n16k8.f32.tf32.tf32 "
@@ -1546,7 +1549,7 @@ __device__ __forceinline__ void wgmma_tf32_rs_n16(float (&d)[8],
       "{%8, %9, %10, %11}, %12, p, 1, 1;\n}\n"
       : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]),
         "+f"(d[5]), "+f"(d[6]), "+f"(d[7])
-      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(1)
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "l"(db), "r"(scale_d)
       : "memory");
 }
 
@@ -1927,59 +1930,100 @@ int launch(const void* q, const void* k, const void* v, void* out, int batch,
 }
 
 // ---------------------------------------------------------------------------
-// fp32 at head_dims 144 to 256: flash_fp32_kernel_wide, the two warpgroups
-// splitting D.
+// fp32 at head_dims 144 to 256: flash_fp32_kernel_wide, 3xTF32 with a
+// producer warpgroup, the two consumer warpgroups splitting D.
 //
 // The D-128 shape does not widen: at D 256 its q tile alone takes 128 KB
-// and every thread would hold 128 registers of O and 128 of Q's lo.  Here
-// warpgroup w owns the columns [128 w, 128 w + 128) of Q, K, V and O for
-// all 64 rows of a q block:
-// - One block (256 threads) per (64-row q tile, head, batch), the longest
-//   rows first; 16-key tiles.  Thread 0 issues the TMA loads: Q once, and
-//   each tile's K straight into its stage of a 2-stage ring and its V
-//   into one raw tile, boxes of 32 fp32 columns (only those that hold a
-//   column below the head_dim dv, a runtime value: one kernel serves
-//   every multiple of 16 from 144 to 256).  The block zeroes Q's and K's
-//   boxes past dv once, so the products run their full width with no
-//   branch around a wgmma.
-// - K's hi is K as it landed, which the tensor core reads truncated to
-//   TF32, as it reads Q's; its lo, x - trunc(x) rounded to TF32, is
-//   written beside it in the stage.  V is split into a transposed hi and
-//   lo, Vᵀ, whose 128-byte rows hold 32 keys: the first 16 are stage 0's
-//   tile, the last 16 stage 1's, so each stage's k-steps are the 32-byte
-//   steps of flash_fp32_kernel's 32-key rows (and its key order 0 2 4 6
-//   1 3 5 7 within a group of 8 lets P feed wgmma from registers).  Tile
-//   t + 1 is split while tile t's P·V runs; the block's barrier after it
-//   frees the stage and the raw V tile for the loads of tile t + 2.
-// - Each warpgroup keeps the lo of its 128 columns of Q in registers and
-//   takes S over its half of the k-depth as m64n16k8 products (3xTF32,
-//   the small products first); the two partial S (64 x 16 fp32, 4 KB
-//   each) are added through shared memory, each warpgroup adding the
-//   other's to its own, so both hold the same S and take the same online
-//   softmax.  O += P·V is m64n128k8 on the warpgroup's 128 rows of Vᵀ.
-// - Shared memory: Q 64 KB, the K ring (raw and lo) 64 KB, Vᵀ hi and lo
-//   64 KB, the raw V tile 16 KB, the S exchange 8 KB: 216 KB.  Registers:
-//   O 64, Q's lo 64, P 16 a thread.
-constexpr int kWideBM = 64;       // q rows per block, all of them in each warpgroup
-constexpr int kWideBN = 16;       // keys per tile: half a row of Vᵀ
+// and every thread would hold 128 registers of O and 128 of Q's lo.  So
+// a block takes 64 q rows, and consumer warpgroup c owns the columns
+// [128 c, 128 c + 128) of Q, K, V and O for all of them.  What bounds it
+// on this card: the 3xTF32 products (the bound of PERF.md), and, per
+// 16-key tile, the shared memory that the products, the split and the
+// exchanges move (about 270 KB a tile at 128 bytes a clock, against
+// about 1540 clocks of TF32 products).  The design:
+// - Three warpgroups (384 threads).  Warpgroup 0 is the producer
+//   (setmaxnreg 72; the consumers take 216, the 168 a thread that 384
+//   threads launch with, moved; consumers spilled at 208, the splitters
+//   at 56).  Its lane 0 issues every TMA load: Q once, then each 16-key
+//   tile's K into its stage of a 3-stage K ring and its V into its stage
+//   of a 2-stage ring, each as soon as the consumers have freed the
+//   stage, polling both rings so that neither waits behind the other.
+//   Its three other warps split each K tile as it lands: K's lo beside K
+//   in its stage, published through an mbarrier of their 96 arrivals,
+//   each after the thread's proxy fence.
+// - No transpose: TF32 wgmma reads B only K-major, and V as stored is
+//   not (its keys are rows), so the consumers take Oᵀ = Vᵀ·Pᵀ, whose B is
+//   Pᵀ, K-major as P is computed (a q row's keys).  Vᵀ is the A operand:
+//   each thread reads its fragments of the tile straight from the TMA
+//   tile (16 words) and splits them in registers.  P, split, goes to a
+//   buffer of the consumer's own, 128-byte rows of 32 keys (tile t at
+//   bytes 64 (t % 2)), with the rows' rescale factors beside it.
+// - Boxes of 32 fp32 columns (128 bytes, the 128-byte swizzle); only
+//   those that hold a column below the head_dim dv, a runtime value, are
+//   loaded (one kernel serves every multiple of 16 from 144 to 256).  The
+//   block zeroes Q's, K's and V's boxes past dv once, so every product
+//   runs its full width with no branch around a wgmma.
+// - K's hi is K as it landed, read by the tensor core truncated to TF32,
+//   as Q's is.  A K stage holds each box's 16 rows of K followed by its
+//   16 rows of K's lo, so that one m64n32k8 product per k-step takes
+//   Q_hi·K_hi and Q_hi·K_lo together: Q's 2 KB k-step is read from shared
+//   memory once a tile instead of twice.  Q's lo (x - trunc(x), rounded)
+//   sits in registers, the A of an m64n16k8 Q_lo·K_hi (Q's hi there too
+//   would take the consumers past their registers).  Each consumer sums
+//   its half of the k-depth as hi·hi + (hi·lo + lo·hi); the two partial S
+//   (64 x 16, 4 KB each) are traded through the first box of each
+//   consumer's half of the K stage, which only its own product reads, one
+//   named barrier of the two consumers a tile; each adds the other's to
+//   its own in the same order, so both hold the same S and take the same
+//   online softmax.  Oᵀ += Vᵀ·Pᵀ is two m64n64k8 products a k-step.
+// - A consumer's round issues S of tile t and the P·V of the tile before
+//   it as two groups, takes the exchange, the softmax and P's store once
+//   S has retired (wait_group 1) while P·V still runs, then rescales Oᵀ
+//   and reads V's fragments of tile t.  One S site and one P·V site: the
+//   first round multiplies zeros, and the last takes S of the last tile
+//   again, discarded.
+// - O leaves through the consumer's half of the Q tile (idle by then),
+//   Oᵀ written into it as O's rows, then stored 16 bytes a thread.
+// - Shared memory: Q 64 KB, the K ring 3 x 32 KB, the V ring 2 x 16 KB,
+//   P 2 x 16 KB: 224 KB.  Registers of a consumer: Oᵀ 64, Q's lo 64, S 24
+//   (n32 and n16 sums), V's fragments 32.  One block a (64-row q tile,
+//   head, batch), the longest rows first.
+// Left for later (PERF.md): the splitters' shared-memory reads and the
+// consumers' stores of P wait behind the products' reads, and a round's
+// softmax, P store and fragment loads leave the tensor cores idle; two S
+// accumulators, S of tile t + 1 under the softmax of t, would overlap
+// them.
+constexpr int kWideBM = 64;       // q rows per block, all of them in each consumer
+constexpr int kWideBN = 16;       // keys per tile
+constexpr int kWideKStages = 3;   // depth of the K ring
+constexpr int kWideVStages = 2;   // depth of the raw V ring
+constexpr int kWideThreads = 384; // producer warpgroup + two consumers
+constexpr int kWideConsumerWarps = 8;
+constexpr int kWideSplitters = 96;   // the producer's three splitting warps
+constexpr int kBatch = 4;            // a splitting thread's loads in flight
 
 // Dynamic shared memory, byte offsets from a 1024-byte aligned base.
 struct WideSmem {
   static constexpr int D = 256;                   // columns of the tiles
   static constexpr int BOXES = D / kBoxCols;
   static constexpr int QBOX = kWideBM * 128;      // one box of the q tile
-  static constexpr int KBOX = kWideBN * 128;      // one box of a K or V tile
-  static constexpr int KT = BOXES * KBOX;         // a K tile (or K's lo, raw V)
-  static constexpr int VT = D * 128;              // Vᵀ hi or lo: 32 keys a row
+  static constexpr int KROWS = kWideBN * 128;     // one box's 16 rows
+  static constexpr int KBOX = 2 * KROWS;          // K's rows, then K's lo
+  static constexpr int KSTAGE = BOXES * KBOX;
+  static constexpr int RAW = BOXES * KROWS;       // a V tile, as landed
+  static constexpr int PBUF = kWideBM * 128;      // P hi or lo: 32 keys a row
   static constexpr int Q = 0;                     // the q tile, as landed
-  static constexpr int RING = Q + BOXES * QBOX;   // per stage: K, K's lo
-  static constexpr int STAGE = 2 * KT;
-  static constexpr int VT_HI = RING + kStages * STAGE;   // Vᵀ hi, Vᵀ lo
-  static constexpr int RAW_V = VT_HI + 2 * VT;
-  static constexpr int X = RAW_V + KT;            // partial S, per thread
-  static constexpr int BAR = X + kThreads * 32;   // q, raw
-  static constexpr int BYTES = BAR + 16 + 1024;
+  static constexpr int K = Q + BOXES * QBOX;      // the K ring
+  static constexpr int V = K + kWideKStages * KSTAGE;   // the V ring
+  static constexpr int P = V + kWideVStages * RAW;      // per consumer: hi, lo
+  static constexpr int ROWS = P + 2 * 2 * PBUF;   // per consumer: 64 floats
+  static constexpr int BAR = ROWS + 2 * kWideBM * 4;
+  // q, K landed, K split and K free of each K stage, V landed and V
+  // free of each V stage
+  static constexpr int BARS = 1 + 3 * kWideKStages + 2 * kWideVStages;
+  static constexpr int BYTES = BAR + 8 * BARS + 1024;
 };
+static_assert(WideSmem::BYTES <= 232448, "one block an SM");
 
 // x - trunc(x) rounded to TF32: the lo of an operand whose hi is its own
 // bits truncated, as the tensor core reads them.
@@ -1996,7 +2040,150 @@ __device__ __forceinline__ int wide_key_tiles(int qlast, int skv, int causal) {
   return n;
 }
 
-__global__ void __launch_bounds__(kThreads, 1)
+// The barriers, at fixed offsets from the shared base: tile t's K stage
+// is t % kWideKStages and its V stage t % kWideVStages; a stage's
+// barriers complete once a wrap.
+struct WideBars {
+  uint32_t bar;   // base + WideSmem::BAR
+
+  __device__ __forceinline__ uint32_t q() const { return bar; }
+  __device__ __forceinline__ uint32_t k_landed(int t) const {
+    return bar + 8 * (1 + t % kWideKStages);
+  }
+  __device__ __forceinline__ uint32_t k_split(int t) const {
+    return bar + 8 * (1 + kWideKStages + t % kWideKStages);
+  }
+  __device__ __forceinline__ uint32_t k_free(int t) const {
+    return bar + 8 * (1 + 2 * kWideKStages + t % kWideKStages);
+  }
+  __device__ __forceinline__ uint32_t v_landed(int t) const {
+    return bar + 8 * (1 + 3 * kWideKStages + t % kWideVStages);
+  }
+  __device__ __forceinline__ uint32_t v_free(int t) const {
+    return bar + 8 * (1 + 3 * kWideKStages + kWideVStages + t % kWideVStages);
+  }
+  // the phase of tile t's use of its K or V stage
+  static __device__ __forceinline__ int k_lap(int t) {
+    return (t / kWideKStages) & 1;
+  }
+  static __device__ __forceinline__ int v_lap(int t) {
+    return (t / kWideVStages) & 1;
+  }
+};
+
+// Every consumer warp arrives once it is done with a stage.
+__device__ __forceinline__ void warp_frees(uint32_t bar) {
+  __syncwarp();
+  if (threadIdx.x % 32 == 0) mbar_arrive(bar);
+}
+
+// Keeps an A operand in its registers: before the fence, so that the
+// compiler computes it there, and after the product has retired.
+__device__ __forceinline__ void hold4(const uint32_t (&a)[4]) {
+#pragma unroll
+  for (int j = 0; j < 4; ++j) asm volatile("" ::"r"(a[j]) : "memory");
+}
+
+__device__ __forceinline__ void st2(uint32_t a, uint32_t x, uint32_t y) {
+  asm volatile("st.shared.v2.b32 [%0], {%1, %2};\n" ::"r"(a), "r"(x), "r"(y)
+               : "memory");
+}
+
+__device__ __forceinline__ float2 ld2(uint32_t a) {
+  float2 v;
+  asm volatile("ld.shared.v2.f32 {%0, %1}, [%2];\n"
+               : "=f"(v.x), "=f"(v.y) : "r"(a) : "memory");
+  return v;
+}
+
+// The producer warpgroup's TMA thread: Q once, then the K and V tiles of
+// the block's sweep into their rings, each as soon as its stage is free
+// (the consumers done with the tile a ring's depth before), whichever
+// comes first.  It waits apart from the splitting warps.
+__device__ __forceinline__ void wide_load(
+    const CUtensorMap* tq, const CUtensorMap* tk, const CUtensorMap* tv,
+    uint32_t base, int n, int boxes, int head, int kvh, int b, int q0) {
+  using L = WideSmem;
+  const WideBars br{base + L::BAR};
+  const auto load_k = [&](int t) {
+    const uint32_t dst = base + L::K + (t % kWideKStages) * L::KSTAGE;
+    mbar_expect_tx(br.k_landed(t), boxes * L::KROWS);
+    for (int x = 0; x < boxes; ++x)
+      tma_load(dst + x * L::KBOX, tk, br.k_landed(t), x * kBoxCols, kvh,
+               t * kWideBN, b);
+  };
+  const auto load_v = [&](int t) {
+    const uint32_t dst = base + L::V + (t % kWideVStages) * L::RAW;
+    mbar_expect_tx(br.v_landed(t), boxes * L::KROWS);
+    for (int x = 0; x < boxes; ++x)
+      tma_load(dst + x * L::KROWS, tv, br.v_landed(t), x * kBoxCols, kvh,
+               t * kWideBN, b);
+  };
+  mbar_expect_tx(br.q(), boxes * L::QBOX);
+  for (int x = 0; x < boxes; ++x)
+    tma_load(base + L::Q + x * L::QBOX, tq, br.q(), x * kBoxCols, head, q0,
+             b);
+  int tk_ = min(n, kWideKStages), tv_ = min(n, kWideVStages);
+  for (int t = 0; t < tk_; ++t) load_k(t);
+  for (int t = 0; t < tv_; ++t) load_v(t);
+  uint64_t t0 = now_ns();
+  while (tk_ < n || tv_ < n) {
+    bool moved = false;
+    if (tk_ < n &&
+        mbar_try_wait(br.k_free(tk_), WideBars::k_lap(tk_ - kWideKStages))) {
+      load_k(tk_++);
+      moved = true;
+    }
+    if (tv_ < n &&
+        mbar_try_wait(br.v_free(tv_), WideBars::v_lap(tv_ - kWideVStages))) {
+      load_v(tv_++);
+      moved = true;
+    }
+    if (moved)
+      t0 = now_ns();
+    else if (now_ns() - t0 > 1000000000ull)
+      wait_failed();
+  }
+}
+
+// The producer warpgroup's three splitting warps (thread w of their 96):
+// each tile's K lo beside K in its stage, published to the consumers
+// (96 arrivals, each after the thread's proxy fence).
+__device__ __forceinline__ void wide_split(uint32_t base, int w, int n,
+                                           int boxes) {
+  using L = WideSmem;
+#pragma unroll 1
+  for (int t = 0; t < n; ++t) {
+    const uint32_t tb = opaque(base);
+    const WideBars br{tb + L::BAR};
+    const uint32_t kst = tb + L::K + (t % kWideKStages) * L::KSTAGE;
+    mbar_wait(br.k_landed(t), WideBars::k_lap(t));
+    // kBatch 16-byte loads in flight, then their stores
+#pragma unroll 1
+    for (int f0 = w; f0 < boxes * 128; f0 += kBatch * kWideSplitters) {
+      float4 k4[kBatch];
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int f = f0 + u * kWideSplitters;
+        if (f < boxes * 128)
+          k4[u] = lds4(kst + (f / 128) * L::KBOX + 16 * (f % 128));
+      }
+#pragma unroll
+      for (int u = 0; u < kBatch; ++u) {
+        const int f = f0 + u * kWideSplitters;
+        if (f < boxes * 128)
+          sts4(kst + (f / 128) * L::KBOX + 16 * (f % 128) + L::KROWS,
+               make_uint4(lo_of_truncated(k4[u].x), lo_of_truncated(k4[u].y),
+                          lo_of_truncated(k4[u].z),
+                          lo_of_truncated(k4[u].w)));
+      }
+    }
+    fence_async_shared();
+    mbar_arrive(br.k_split(t));
+  }
+}
+
+__global__ void __launch_bounds__(kWideThreads, 1)
 flash_fp32_kernel_wide(const __grid_constant__ CUtensorMap tq,
                        const __grid_constant__ CUtensorMap tk,
                        const __grid_constant__ CUtensorMap tv,
@@ -2005,293 +2192,353 @@ flash_fp32_kernel_wide(const __grid_constant__ CUtensorMap tq,
                        float softcap) {
   using L = WideSmem;
   extern __shared__ __align__(1024) unsigned char smem_f32w[];
-  const uint32_t base = (smem_addr(smem_f32w) + 1023u) & ~1023u;
-  const uint32_t q_full = base + L::BAR;
-  const uint32_t raw_full = q_full + 8;
-
   const int head = blockIdx.x;
   const int b = blockIdx.y;
   const int q0 = (gridDim.z - 1 - blockIdx.z) * kWideBM;  // longest rows first
-  const int kvh = head / (h / hkv);
-  const int n_tiles = wide_key_tiles(q0 + kWideBM - 1, skv, causal);
+  const int n = wide_key_tiles(q0 + kWideBM - 1, skv, causal);
   const int boxes = (dv + kBoxCols - 1) / kBoxCols;   // boxes with live columns
-  const auto load_raw = [&](int t) {
-    const uint32_t k_dst = base + L::RING + (t % kStages) * L::STAGE;
-    mbar_expect_tx(raw_full, 2 * boxes * L::KBOX);
-    for (int x = 0; x < boxes; ++x) {
-      tma_load(k_dst + x * L::KBOX, &tk, raw_full, x * kBoxCols, kvh,
-               t * kWideBN, b);
-      tma_load(base + L::RAW_V + x * L::KBOX, &tv, raw_full, x * kBoxCols,
-               kvh, t * kWideBN, b);
+  {
+    const uint32_t base = (smem_addr(smem_f32w) + 1023u) & ~1023u;
+    const WideBars br{base + L::BAR};
+    if (threadIdx.x == 0) {
+      mbar_init(br.q(), 1);
+      for (int s = 0; s < kWideKStages; ++s) {
+        mbar_init(br.k_landed(s), 1);
+        mbar_init(br.k_split(s), kWideSplitters);
+        mbar_init(br.k_free(s), kWideConsumerWarps);
+      }
+      for (int s = 0; s < kWideVStages; ++s) {
+        mbar_init(br.v_landed(s), 1);
+        mbar_init(br.v_free(s), kWideConsumerWarps);
+      }
+      asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
     }
-  };
-
-  if (threadIdx.x == 0) {
-    mbar_init(q_full, 1);
-    mbar_init(raw_full, 1);
-    asm volatile("fence.mbarrier_init.release.cluster;\n" ::: "memory");
-    mbar_expect_tx(q_full, boxes * L::QBOX);
-    for (int x = 0; x < boxes; ++x)
-      tma_load(base + L::Q + x * L::QBOX, &tq, q_full, x * kBoxCols, head, q0,
-               b);
-    load_raw(0);
-  }
-  // Zeros in the boxes past dv (never loaded): Q's, and K's of both
-  // stages (whose lo the splits then take as zeros).
-  for (int i = threadIdx.x; i < (L::BOXES - boxes) * L::QBOX / 16;
-       i += kThreads)
-    sts4(base + L::Q + boxes * L::QBOX + 16 * i, make_uint4(0, 0, 0, 0));
-  for (int i = threadIdx.x; i < kStages * (L::BOXES - boxes) * L::KBOX / 16;
-       i += kThreads) {
-    const int st = i / ((L::BOXES - boxes) * L::KBOX / 16);
-    const int off = i % ((L::BOXES - boxes) * L::KBOX / 16);
-    sts4(base + L::RING + st * L::STAGE + boxes * L::KBOX + 16 * off,
-         make_uint4(0, 0, 0, 0));
+    // Zeros where no load or split writes: Q's boxes past dv, both K
+    // stages' (K and its lo), every V stage's, and both consumers' P
+    // buffers (the first round multiplies a zero P).
+    const int qpad = (L::BOXES - boxes) * L::QBOX / 16;
+    const int kpad = (L::BOXES - boxes) * L::KBOX / 16;
+    const int vpad = (L::BOXES - boxes) * L::KROWS / 16;
+    const int ppad = 4 * L::PBUF / 16;
+    for (int i = threadIdx.x;
+         i < qpad + kWideKStages * kpad + kWideVStages * vpad + ppad;
+         i += kWideThreads) {
+      uint32_t a;
+      int j = i;
+      if (j < qpad) {
+        a = base + L::Q + boxes * L::QBOX + 16 * j;
+      } else if ((j -= qpad) < kWideKStages * kpad) {
+        a = base + L::K + (j / kpad) * L::KSTAGE + boxes * L::KBOX +
+            16 * (j % kpad);
+      } else if ((j -= kWideKStages * kpad) < kWideVStages * vpad) {
+        a = base + L::V + (j / vpad) * L::RAW + boxes * L::KROWS +
+            16 * (j % vpad);
+      } else {
+        a = base + L::P + 16 * (j - kWideVStages * vpad);
+      }
+      sts4(a, make_uint4(0, 0, 0, 0));
+    }
+    fence_async_shared();
   }
   __syncthreads();
 
-  // Splits tile t (landed) into its stage, this thread's share of it:
-  // K's lo beside K, and V's columns into Vᵀ hi and lo at the stage's 16
-  // positions of each row; the block's barrier after it makes the stage
-  // whole.
-  const auto split_tile = [&](int t) {
-    const uint32_t tb = opaque(base);
-    const int st = t % kStages;
-    const uint32_t k_raw = tb + L::RING + st * L::STAGE;
-    const uint32_t raw_v = tb + L::RAW_V;
-    mbar_wait(raw_full, t & 1);
-    constexpr int kSteps = L::KT / 16 / kThreads;
-    float4 x[kSteps];
-#pragma unroll
-    for (int n = 0; n < kSteps; ++n)
-      x[n] = lds4(k_raw + 16 * (threadIdx.x + kThreads * n));
-#pragma unroll
-    for (int n = 0; n < kSteps; ++n) {
-      const uint4 lo = {lo_of_truncated(x[n].x), lo_of_truncated(x[n].y),
-                        lo_of_truncated(x[n].z), lo_of_truncated(x[n].w)};
-      sts4(k_raw + L::KT + 16 * (threadIdx.x + kThreads * n), lo);
-    }
-    // Vᵀ: item (dq, grp, half) reads keys 8 grp + half + 2m (m < 4) of
-    // columns 4 dq .. 4 dq + 3 and writes them as positions 4 half ..
-    // 4 half + 3 of the stage's key group grp in those four rows of Vᵀ.
-    const int it = threadIdx.x;
-    const int half = it & 1;
-    const int grp = (it >> 1) & 1;
-    const int dq = it >> 2;
-    if (4 * dq < dv) {
-      float4 v[4];
-#pragma unroll
-      for (int m = 0; m < 4; ++m) {
-        const int key = 8 * grp + half + 2 * m;
-        v[m] = lds4(raw_v + (dq / 8) * L::KBOX + key * 128 +
-                    (((dq % 8) ^ (key % 8)) << 4));
-      }
-#pragma unroll
-      for (int i = 0; i < 4; ++i) {
-        const int d = 4 * dq + i;
-        const uint32_t off = tb + L::VT_HI + d * 128 +
-                             (((2 * (2 * st + grp) + half) ^ (d % 8)) << 4);
-        uint4 hi, lo;
-        split(component(v[0], i), hi.x, lo.x);
-        split(component(v[1], i), hi.y, lo.y);
-        split(component(v[2], i), hi.z, lo.z);
-        split(component(v[3], i), hi.w, lo.w);
-        sts4(off, hi);
-        sts4(off + L::VT, lo);
-      }
-    }
-  };
-  // The split stage made visible to wgmma, and the stage of tile `next`
-  // and the raw V tile free: their loads go out.
-  const auto tiles_split = [&](int next) {
-    fence_async_shared();
-    __syncthreads();
-    if (threadIdx.x == 0 && next < n_tiles) load_raw(next);
-  };
+  const int wg = wide::warpgroup();
+  if (wg == 0) {
+    asm volatile("setmaxnreg.dec.sync.aligned.u32 72;\n");
+    const uint32_t base = (smem_addr(smem_f32w) + 1023u) & ~1023u;
+    if (threadIdx.x >= 32)
+      wide_split(base, threadIdx.x - 32, n, boxes);
+    else if (threadIdx.x == 0)
+      wide_load(&tq, &tk, &tv, base, n, boxes, head, head / (h / hkv), b,
+                q0);
+    return;
+  }
 
-  // Warpgroup wg owns columns [128 wg, 128 wg + 128) of every row; a
-  // thread holds rows row0 and row0 + 8, and in each 8-column block of a
-  // product the columns cq and cq + 1.
-  const int wg = threadIdx.x / 128;
+  // Consumer c.  S's layout: a thread holds q rows row0 and row0 + 8, and
+  // in each 8-key block the keys cq and cq + 1.  Oᵀ's (this consumer's 128
+  // columns of O as two m64n64 products, Vᵀ times Pᵀ): in m-tile mt the
+  // columns d = 128 c + 64 mt + row0 and + 8, and in each 8-row block of
+  // q the rows cq and cq + 1.
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 216;\n");
+  const int c = wg - 1;
   const int wt = threadIdx.x % 128;
-  const int warp = wt / 32;
-  const int lane = threadIdx.x % 32;
-  const int row0 = warp * 16 + lane / 4;
-  const int quad = lane % 4;
+  const int row0 = (wt / 32) * 16 + (wt % 32) / 4;
+  const int quad = wt % 4;
   const int cq = 2 * quad;
   const float sl = (softcap > 0.f ? 1.f : scale) * kLog2e;
+  // the last key each of the thread's two q rows attends
+  int last[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i)
+    last[i] = causal ? min(q0 + row0 + 8 * i, skv - 1) : skv - 1;
 
-  split_tile(0);
-  tiles_split(1);
-
-  // The lo of this warpgroup's columns of Q, in the A fragments of
-  // Q_lo·K_hi (its k-step kk is the block's 16 wg + kk).
-  mbar_wait(q_full, 0);
+  // The lo of this consumer's columns of Q, in the A fragments of
+  // Q_lo·K_hi (its k-step kk is the block's 16 c + kk).
+  const uint32_t base0 = (smem_addr(smem_f32w) + 1023u) & ~1023u;
+  mbar_wait(base0 + L::BAR, 0);
   uint32_t q_lo[16][4];
 #pragma unroll
   for (int kk = 0; kk < 16; ++kk) {
-    const int g = 16 * wg + kk;
+    const int g = 16 * c + kk;
 #pragma unroll
     for (int r = 0; r < 4; ++r) {
       const int row = row0 + 8 * (r & 1);
       const int chunk = 2 * (g % 4) + (r >> 1);
       q_lo[kk][r] =
-          lo_of_truncated(lds(base + L::Q + (g / 4) * L::QBOX + row * 128 +
+          lo_of_truncated(lds(base0 + L::Q + (g / 4) * L::QBOX + row * 128 +
                               ((chunk ^ (row % 8)) << 4) + 4 * quad));
     }
+    hold4(q_lo[kk]);
   }
 
-  float o[64];
+  float o[2][32];   // Oᵀ, unnormalised
 #pragma unroll
-  for (int i = 0; i < 64; ++i) o[i] = 0.f;
+  for (int i = 0; i < 32; ++i) o[0][i] = o[1][i] = 0.f;
   float m[2] = {-INFINITY, -INFINITY};
   float l[2] = {0.f, 0.f};
-
-  for (int t = 0; t < n_tiles; ++t) {
-    const int stage = t % kStages;
-    const int kv0 = t * kWideBN;
-    const uint32_t tb = opaque(base);
-    const uint32_t k_hi = tb + L::RING + stage * L::STAGE;
-    const uint32_t k_lo = k_hi + L::KT;
-    // this warpgroup's 128 rows of Vᵀ, at the stage's 16 positions
-    const uint32_t vt_hi = tb + L::VT_HI + wg * 128 * 128 + 64 * stage;
-    const uint32_t vt_lo = vt_hi + L::VT;
-
-    // Partial S over this warpgroup's columns, the small products
-    // (Q_hi·K_lo, Q_lo·K_hi) first, then Q_hi·K_hi; the k-steps past dv
-    // add zeros.
-    float s[kWideBN / 2];
+  float alpha[2] = {1.f, 1.f};
+  // Vᵀ of the tile before, split: A fragments [m-tile][8-key step]
+  uint32_t v_hi[2][2][4], v_lo[2][2][4];
 #pragma unroll
-    for (int i = 0; i < kWideBN / 2; ++i) s[i] = 0.f;
-    const uint32_t q_wg = tb + L::Q + 4 * wg * L::QBOX;
-    const uint32_t kb_wg = 4 * wg * L::KBOX;
+  for (int i = 0; i < 16; ++i) (&v_hi[0][0][0])[i] = (&v_lo[0][0][0])[i] = 0u;
+  float s[kWideBN / 2];
+  float hh[16], lh[8];
+#pragma unroll
+  for (int i = 0; i < 16; ++i) hh[i] = 0.f;
+#pragma unroll
+  for (int i = 0; i < 8; ++i) lh[i] = 0.f;
+  // this consumer's P hi and lo (tile t at the 64 bytes 64 (t % 2) of
+  // each 128-byte q row) and its rows' factors
+  const uint32_t p_hi_buf = base0 + L::P + 2 * c * L::PBUF;
+  const uint32_t rows_buf = base0 + L::ROWS + c * kWideBM * 4;
+
+  int prev = -1;   // the first round's P·V multiplies zeros
+#pragma unroll 1
+  for (int t = 0;; ++t) {
+    const bool past = t >= n;
+    const int tk = past ? n - 1 : t;
+    const uint32_t tb = opaque(base0);
+    const WideBars br{tb + L::BAR};
+    mbar_wait(br.k_split(tk), WideBars::k_lap(tk));
+    const uint32_t qc = tb + L::Q + 4 * c * L::QBOX;
+    const uint32_t kc = tb + L::K + (tk % kWideKStages) * L::KSTAGE +
+                        4 * c * L::KBOX;
+    const uint32_t pp = opaque(p_hi_buf) + 64 * (prev & 1);
+
+    // S over this consumer's half of the k-depth: Q_hi·[K_hi; K_lo] in
+    // one m64n32 sum (keys in columns 0-15, their lo products in 16-31),
+    // Q_lo·K_hi in an m64n16 one; the k-steps past dv add zeros.  Every
+    // register a product reads is pinned before the fence.
+    keep(o[0]);
+    keep(o[1]);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        hold4(v_hi[mt][ks]);
+        hold4(v_lo[mt][ks]);
+      }
     wgmma_fence();
 #pragma unroll
     for (int kk = 0; kk < 16; ++kk) {
-      const uint32_t qa = q_wg + (kk / 4) * L::QBOX + (kk % 4) * 32;
-      const uint32_t kb = kb_wg + (kk / 4) * L::KBOX + (kk % 4) * 32;
-      wgmma_tf32_ss_n16(s, sw128_desc(qa, 16, 1024),
-                        sw128_desc(k_lo + kb, 16, 1024));
-      wgmma_tf32_rs_n16(s, q_lo[kk], sw128_desc(k_hi + kb, 16, 1024));
-    }
-#pragma unroll
-    for (int kk = 0; kk < 16; ++kk) {
-      const uint32_t qa = q_wg + (kk / 4) * L::QBOX + (kk % 4) * 32;
-      const uint32_t kb = kb_wg + (kk / 4) * L::KBOX + (kk % 4) * 32;
-      wgmma_tf32_ss_n16(s, sw128_desc(qa, 16, 1024),
-                        sw128_desc(k_hi + kb, 16, 1024));
+      const uint32_t kb = kc + (kk / 4) * L::KBOX + (kk % 4) * 32;
+      wgmma_tf32_ss_n32(
+          hh, sw128_desc(qc + (kk / 4) * L::QBOX + (kk % 4) * 32, 16, 1024),
+          sw128_desc(kb, 16, 1024), kk > 0);
+      wgmma_tf32_rs_n16(lh, q_lo[kk], sw128_desc(kb, 16, 1024), kk > 0);
     }
     wgmma_commit();
-    wgmma_wait0();
-    keep(s);
+    // Oᵀ += Vᵀ·Pᵀ of the tile before, the small products first: an 8-key
+    // step moves 32 bytes along P's rows
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        wgmma_tf32_rs_n64(o[mt], v_hi[mt][ks],
+                          sw128_desc(pp + L::PBUF + 32 * ks, 16, 1024));
+        wgmma_tf32_rs_n64(o[mt], v_lo[mt][ks],
+                          sw128_desc(pp + 32 * ks, 16, 1024));
+      }
+#pragma unroll
+    for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt)
+        wgmma_tf32_rs_n64(o[mt], v_hi[mt][ks],
+                          sw128_desc(pp + 32 * ks, 16, 1024));
+    wgmma_commit();
+    wide::wgmma_wait1();
+    keep(hh);
+    keep(lh);
+    if (past) warp_frees(br.k_free(tk));
 
-    // S = the two partials: a thread's fragment sits at the same place in
-    // both warpgroups, so it trades with its twin thread; both add in
-    // the same order (a + b = b + a), so both hold the same S.
-    const uint32_t x_own = tb + L::X + (wg * 128 + wt) * 32;
-    const uint32_t x_twin = tb + L::X + ((1 - wg) * 128 + wt) * 32;
-    sts4(x_own, make_uint4(__float_as_uint(s[0]), __float_as_uint(s[1]),
-                           __float_as_uint(s[2]), __float_as_uint(s[3])));
-    sts4(x_own + 16, make_uint4(__float_as_uint(s[4]), __float_as_uint(s[5]),
-                                __float_as_uint(s[6]), __float_as_uint(s[7])));
-    __syncthreads();
-    {
-      const float4 a = lds4(x_twin);
-      const float4 c = lds4(x_twin + 16);
-      s[0] += a.x; s[1] += a.y; s[2] += a.z; s[3] += a.w;
-      s[4] += c.x; s[5] += c.y; s[6] += c.z; s[7] += c.w;
-    }
-
-    // Online softmax in registers: s[4j + e] is row row0 + 8 (e / 2),
-    // key kv0 + 8 j + cq + e % 2.
-    if (softcap > 0.f) {
+    if (!past) {
+      // S = this consumer's partial + the other's, traded through the
+      // first box of each consumer's half of the K stage, which its own
+      // product has done reading: partial j (keys 8 j .. 8 j + 7) of
+      // thread wt at (j, wt), 16 bytes apart
+      const uint32_t x = tb + L::K + (tk % kWideKStages) * L::KSTAGE;
 #pragma unroll
       for (int i = 0; i < kWideBN / 2; ++i)
-        s[i] = tanhf(s[i] * scale / softcap) * softcap;
-    }
-    const bool edge = (causal && kv0 + kWideBN - 1 > q0) || kv0 + kWideBN > skv;
-    float mx[2] = {-INFINITY, -INFINITY};
+        s[i] = hh[i] + (hh[i + 8] + lh[i]);
 #pragma unroll
-    for (int j = 0; j < kWideBN / 8; ++j) {
+      for (int j = 0; j < 2; ++j)
+        sts4(x + 4 * c * L::KBOX + (j * 128 + wt) * 16,
+             make_uint4(__float_as_uint(s[4 * j]),
+                        __float_as_uint(s[4 * j + 1]),
+                        __float_as_uint(s[4 * j + 2]),
+                        __float_as_uint(s[4 * j + 3])));
+      asm volatile("bar.sync 1, 256;\n" ::: "memory");
 #pragma unroll
-      for (int e = 0; e < 4; ++e) {
-        float x = s[4 * j + e] * sl;
-        if (edge) {
-          const int qpos = q0 + row0 + 8 * (e / 2);
-          const int kpos = kv0 + 8 * j + cq + e % 2;
-          if (skv <= kpos || (causal && qpos < kpos)) x = -INFINITY;
-        }
-        s[4 * j + e] = x;
-        mx[e / 2] = fmaxf(mx[e / 2], x);
+      for (int j = 0; j < 2; ++j) {
+        const float4 y = lds4(x + 4 * (1 - c) * L::KBOX + (j * 128 + wt) * 16);
+        s[4 * j] += y.x;
+        s[4 * j + 1] += y.y;
+        s[4 * j + 2] += y.z;
+        s[4 * j + 3] += y.w;
       }
-    }
-    float mu[2];
-#pragma unroll
-    for (int i = 0; i < 2; ++i) {
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
-      mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
-      const float m_new = fmaxf(m[i], mx[i]);
-      mu[i] = m_new == -INFINITY ? 0.f : m_new;   // a row with no key yet
-      const float alpha = exp2_approx(m[i] - mu[i]);
-      m[i] = m_new;
-      l[i] *= alpha;
-#pragma unroll
-      for (int j = 0; j < 16; ++j) {
-        o[4 * j + 2 * i] *= alpha;
-        o[4 * j + 2 * i + 1] *= alpha;
+      // the stage free once both partials are read (the K of tile n - 1
+      // is held for the last round); the writes ordered before TMA's
+      if (t + 1 < n) {
+        fence_async_shared();
+        warp_frees(br.k_free(tk));
       }
-    }
-    // P split into the A fragments of the 8-key steps, as in
-    // flash_fp32_kernel.
-    uint32_t p_hi[kWideBN / 8][4], p_lo[kWideBN / 8][4];
-#pragma unroll
-    for (int kk = 0; kk < kWideBN / 8; ++kk) {
-#pragma unroll
-      for (int r = 0; r < 4; ++r) {
-        const int e = 2 * (r & 1) + (r >> 1);
-        const float p = exp2_approx(s[4 * kk + e] - mu[e / 2]);
-        l[e / 2] += p;
-        split(p, p_hi[kk][r], p_lo[kk][r]);
-      }
-    }
 
-    // O += P V, the small products first: an 8-key step moves 32 bytes
-    // along Vᵀ's rows.  The next tile is split while it runs.
-    keep(o);
-    wgmma_fence();
+      // Online softmax in registers: s[4j + e] is row row0 + 8 (e / 2),
+      // key 16 t + 8 j + cq + e % 2; P in fp32 in place.
+      if (softcap > 0.f) {
 #pragma unroll
-    for (int kk = 0; kk < kWideBN / 8; ++kk) {
-      pv_tf32<128>(o, p_hi[kk], vt_lo + 32 * kk);
-      pv_tf32<128>(o, p_lo[kk], vt_hi + 32 * kk);
+        for (int i = 0; i < kWideBN / 2; ++i)
+          s[i] = tanhf(s[i] * scale / softcap) * softcap;
+      }
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int i = 0; i < kWideBN / 2; ++i) {
+        const int kpos = t * kWideBN + 8 * (i / 4) + cq + i % 2;
+        s[i] = kpos > last[(i / 2) % 2] ? -INFINITY : s[i] * sl;
+        mx[(i / 2) % 2] = fmaxf(mx[(i / 2) % 2], s[i]);
+      }
+      float mu[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        const float m_new = fmaxf(m[i], mx[i]);
+        mu[i] = m_new == -INFINITY ? 0.f : m_new;   // a row with no key yet
+        alpha[i] = exp2_approx(m[i] - mu[i]);
+        m[i] = m_new;
+        l[i] *= alpha[i];
+      }
+#pragma unroll
+      for (int i = 0; i < kWideBN / 2; ++i) {
+        s[i] = exp2_approx(s[i] - mu[(i / 2) % 2]);
+        l[(i / 2) % 2] += s[i];
+      }
+      // P of tile t, split, into this consumer's buffer (Pᵀ's K-major
+      // rows: q row, its 16 keys at bytes 64 (t % 2)), and the rows'
+      // factors beside it
+      const uint32_t pw = opaque(p_hi_buf);
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        const int q = row0 + 8 * i;
+#pragma unroll
+        for (int j = 0; j < 2; ++j) {
+          const int k = 8 * j + cq;
+          const uint32_t a = pw + q * 128 +
+                             (((4 * (t & 1) + k / 4) ^ (q % 8)) << 4) +
+                             4 * (k % 4);
+          uint32_t h0, l0, h1, l1;
+          split(s[4 * j + 2 * i], h0, l0);
+          split(s[4 * j + 2 * i + 1], h1, l1);
+          st2(a, h0, h1);
+          st2(a + L::PBUF, l0, l1);
+        }
+        if (quad == 0) wide::st_f32(rows_buf + 4 * q, alpha[i]);
+      }
+      fence_async_shared();
+      asm volatile("bar.sync %0, 128;\n" ::"r"(2 + c) : "memory");
     }
-#pragma unroll
-    for (int kk = 0; kk < kWideBN / 8; ++kk)
-      pv_tf32<128>(o, p_hi[kk], vt_hi + 32 * kk);
-    wgmma_commit();
-    if (t + 1 < n_tiles) split_tile(t + 1);
     wgmma_wait0();
-    keep(o);
-    tiles_split(t + 2);
+    keep(o[0]);
+    keep(o[1]);
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks) {
+        hold4(v_hi[mt][ks]);
+        hold4(v_lo[mt][ks]);
+      }
+    if (past) break;
+    // Oᵀ's columns q take their rows' factor; then Vᵀ of tile t into the
+    // A fragments (register r: column d = row0 + 8 (r & 1), key quad + 4
+    // (r >> 1) of the 8-key step), split, and its V stage free
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      const float2 f = ld2(opaque(rows_buf) + 4 * (8 * j + cq));
+#pragma unroll
+      for (int mt = 0; mt < 2; ++mt) {
+        o[mt][4 * j] *= f.x;
+        o[mt][4 * j + 1] *= f.y;
+        o[mt][4 * j + 2] *= f.x;
+        o[mt][4 * j + 3] *= f.y;
+      }
+    }
+    mbar_wait(br.v_landed(t), WideBars::v_lap(t));
+    const uint32_t vr = tb + L::V + (t % kWideVStages) * L::RAW;
+#pragma unroll
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int ks = 0; ks < 2; ++ks)
+#pragma unroll
+        for (int r = 0; r < 4; ++r) {
+          const int d = 128 * c + 64 * mt + row0 + 8 * (r & 1);
+          const int key = 8 * ks + quad + 4 * (r >> 1);
+          split(lds(vr + (d / 32) * L::KROWS + key * 128 +
+                    ((((d % 32) / 4) ^ (key % 8)) << 4) + 4 * (d % 4)),
+                v_hi[mt][ks][r], v_lo[mt][ks][r]);
+        }
+    warp_frees(br.v_free(t));
+    prev = t;
   }
 
-  // Epilogue: O / l, rows past Sq and columns past dv not stored.
+  // Epilogue: l over the quad, into the rows' buffer; Oᵀ / l into this
+  // consumer's half of the Q tile (which its products have done
+  // reading) as O's rows of 128 columns; then the rows below Sq and the
+  // columns below dv to out, 16 bytes a thread.
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
     l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
   }
+  asm volatile("bar.sync %0, 128;\n" ::"r"(2 + c) : "memory");
+  if (quad == 0) {
+    wide::st_f32(rows_buf + 4 * row0, 1.f / l[0]);
+    wide::st_f32(rows_buf + 4 * (row0 + 8), 1.f / l[1]);
+  }
+  asm volatile("bar.sync %0, 128;\n" ::"r"(2 + c) : "memory");
+  const uint32_t stage = base0 + L::Q + 4 * c * L::QBOX;   // 64 rows of 512 B
 #pragma unroll
-  for (int i = 0; i < 2; ++i) {
-    const int qpos = q0 + row0 + 8 * i;
-    if (qpos >= sq) continue;
-    const float inv = 1.f / l[i];
-    float* dst =
-        out + (((size_t)b * sq + qpos) * h + head) * dv + 128 * wg + cq;
+  for (int j = 0; j < 8; ++j) {
+    const float2 f = ld2(rows_buf + 4 * (8 * j + cq));
 #pragma unroll
-    for (int j = 0; j < 16; ++j)
-      if (128 * wg + 8 * j < dv)
-        *reinterpret_cast<float2*>(dst + 8 * j) =
-            make_float2(o[4 * j + 2 * i] * inv, o[4 * j + 2 * i + 1] * inv);
+    for (int mt = 0; mt < 2; ++mt)
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        const int q = 8 * j + cq + e % 2;
+        const int d = 64 * mt + row0 + 8 * (e / 2);
+        wide::st_f32(stage + q * 512 + 4 * (d ^ (4 * (q % 8))),
+               o[mt][4 * j + e] * (e % 2 ? f.y : f.x));
+      }
+  }
+  asm volatile("bar.sync %0, 128;\n" ::"r"(2 + c) : "memory");
+#pragma unroll 4
+  for (int i = wt; i < kWideBM * 32; i += 128) {
+    const int q = i / 32;
+    const int d = 4 * (i % 32);
+    if (q0 + q < sq && 128 * c + d < dv) {
+      *reinterpret_cast<float4*>(
+          out + (((size_t)b * sq + q0 + q) * h + head) * dv + 128 * c + d) =
+          lds4(stage + q * 512 + 4 * (d ^ (4 * (q % 8))));
+    }
   }
 }
 
@@ -2311,7 +2558,7 @@ inline int launch_wide(const void* q, const void* k, const void* v, void* out,
       smem);
   if (err != cudaSuccess) return static_cast<int>(err);
   const dim3 grid(h, batch, (sq + kWideBM - 1) / kWideBM);
-  flash_fp32_kernel_wide<<<grid, kThreads, smem, stream>>>(
+  flash_fp32_kernel_wide<<<grid, kWideThreads, smem, stream>>>(
       tq, tk, tv, static_cast<float*>(out), sq, skv, h, hkv, dv, causal,
       scale, softcap);
   return static_cast<int>(cudaGetLastError());

@@ -33,8 +33,12 @@ tolerance; up to head_dim 128, 128-row q tiles over two warpgroups,
 every thread of which splits its share of each raw 32-key K/V tile into
 hi/lo K and a transposed hi/lo Vᵀ while the tile before it is
 multiplied; from 144 to 256 (``flash_fp32_kernel_wide``) 64-row q tiles
-and 16-key tiles, the two warpgroups splitting head_dim between them and
-adding their partial scores through shared memory.  There is no padding
+and 16-key tiles: a producer warpgroup loads each tile and splits it
+(K's lo stacked under K, so that one product takes Q's hi against both;
+V into a transposed hi/lo) into rings that mbarriers hand over, and two
+consumer warpgroups split head_dim between them, trade their partial
+scores through shared memory and take a tile's softmax while the P·V
+product of the tile before it runs.  There is no padding
 copy: a head_dim that is not a multiple of 16, or above 256, raises on a
 CUDA tensor.  The fp32 plain version serves the CPU
 and the comparisons.  ``flash_attention`` runs ``flash_attention_ref``

@@ -15,9 +15,11 @@ the plain version on the card in tests/test_torch_kernels_cuda.py.
 The fp32 CUDA kernel takes each product as three TF32 products (3xTF32).
 A model of that arithmetic on the CPU (``cvt.rna.tf32.f32`` as integer
 bit operations, Q's hi as its bits truncated, which is what the kernel's
-tensor cores read, and K's too above head_dim 128) is held to the JAX reference on every fp32 case the
-reference holds to 2e-5, within 2e-5; with the hi·hi product alone it
-reads past 2e-5, which is why the kernel takes three.
+tensor cores read, and K's too above head_dim 128, where each half of
+head_dim sums its three products apart and the halves are added after)
+is held to the JAX reference on every fp32 case the reference holds to
+2e-5, within 2e-5; with the hi·hi product alone it reads past 2e-5,
+which is why the kernel takes three.
 
 The bf16/fp16 kernel at head_dims 144 to 256 pairs 64-row q units in
 its blocks by a rule ``ops.wide_schedule`` states in Python: every unit
@@ -332,6 +334,7 @@ def _planted_texts():
             if name == "flash_attention"]
     out += [(f, old) for f, (old, _, _) in mod.FP32_FAULTS.items()]
     out += [(f, old) for f, (old, _, _) in mod.WIDE_FAULTS.items()]
+    out += [(f, old) for f, (old, _, _) in mod.WIDE_FP32_FAULTS.items()]
     return out + [("flash-reads-past-the-kv-end", mod.KV_TAIL_FAULT[1])]
 
 
@@ -492,19 +495,42 @@ def _tf32_product(eq, a, b, products):
         + big
 
 
+#: the columns of head_dim each consumer warpgroup of the D-split kernel
+#: (head_dims above 128) sums S over
+D_SPLIT = 128
+
+
+def _scores_d_split(q, k, products):
+    """S of the D-split kernel: each consumer sums its 128 columns as
+    hi·hi + (hi·lo + lo·hi) (hi·hi and hi·lo one stacked product, lo·hi
+    another), K's hi as it landed, truncated like Q's; the two partials
+    are added after."""
+    parts = []
+    for c in (slice(0, D_SPLIT), slice(D_SPLIT, None)):
+        qs, ks = _split(q[..., c], _tf32_trunc), _split(k[..., c], _tf32_trunc)
+        hh = torch.einsum("bqhd,bkhd->bhqk", qs[0], ks[0])
+        if products == 3:
+            hh = hh + (torch.einsum("bqhd,bkhd->bhqk", qs[0], ks[1])
+                       + torch.einsum("bqhd,bkhd->bhqk", qs[1], ks[0]))
+        parts.append(hh)
+    return parts[0] + parts[1]
+
+
 def _attention_tf32(q, k, v, *, causal, softcap=0.0, products=3):
     """The fp32 kernel's arithmetic on fp32 (B,S,H,D) tensors: Q's hi is
     its bits truncated to TF32, V and P are split with cvt.rna, and K too
-    up to head_dim 128; above 128 the D-split kernel reads K's hi as it
-    landed, truncated like Q's.  The softmax is fp32 (unnormalised P,
-    divided by its row sum at the end)."""
+    up to head_dim 128, where S is one sum, (hi·lo + lo·hi) + hi·hi;
+    above 128 as ``_scores_d_split``.  The softmax is fp32 (unnormalised
+    P, divided by its row sum at the end)."""
     b, sq, h, d = q.shape
     skv, hkv = k.shape[1], k.shape[2]
     k = k.repeat_interleave(h // hkv, dim=2)
     v = v.repeat_interleave(h // hkv, dim=2)
-    k_hi = _tf32_trunc if d > 128 else _tf32_rna
-    s = _tf32_product("bqhd,bkhd->bhqk", _split(q, _tf32_trunc),
-                      _split(k, k_hi), products) * d ** -0.5
+    if d > D_SPLIT:
+        s = _scores_d_split(q, k, products) * d ** -0.5
+    else:
+        s = _tf32_product("bqhd,bkhd->bhqk", _split(q, _tf32_trunc),
+                          _split(k), products) * d ** -0.5
     if softcap:
         s = torch.tanh(s / softcap) * softcap
     if causal:
@@ -570,6 +596,25 @@ def test_one_tf32_product_misses_the_fp32_tolerance():
     print(f"\nworst |error| over the 2e-5 allowance: three products "
           f"{max(three):.3f}, one product {min(one):.1f}-{max(one):.1f}")
     assert max(three) <= 1.0 < max(one), (three, one)
+
+
+@pytest.mark.parametrize("d", [144, 256])
+def test_d_split_scores_are_one_sum_reordered(d):
+    """Above head_dim 128 the kernel sums S in two halves of head_dim,
+    each as hi·hi + (hi·lo + lo·hi), and adds the halves; that is the
+    one-sum model's products in another order, so the two agree within
+    fp32 rounding of a score (a few 2^-24 of the largest partial sum),
+    far below what one dropped product would move."""
+    rng = np.random.RandomState(11)
+    q, k = (torch.from_numpy(rng.randn(1, 64, 2, d).astype(np.float32))
+            for _ in range(2))
+    split = _scores_d_split(q, k, 3)
+    one = _tf32_product("bqhd,bkhd->bhqk", _split(q, _tf32_trunc),
+                        _split(k, _tf32_trunc), 3)
+    scale = torch.einsum("bqhd,bkhd->bhqk", q.abs(), k.abs())
+    assert ((split - one).abs() <= 2 ** -20 * scale).all()
+    hi_only = _scores_d_split(q, k, 1)
+    assert ((split - hi_only).abs() > 2 ** -16 * scale).any()
 
 
 def test_tf32_rounding_model():

@@ -38,7 +38,7 @@ but for the rounding of P and of the output.
 
 Above head_dim 128 (Gemma's 256, every multiple of 16 from 144) the
 flash kernels run their wide shapes (bf16 and fp16 in 256-wide tiles;
-fp32 with the two warpgroups splitting D) and paged a warp of 32 lanes
+fp32 with a producer warpgroup and two consumers splitting D) and paged a warp of 32 lanes
 a row: ``PAGED_WIDE`` and ``FLASH_WIDE`` take every such head_dim in
 each dtype, paged at groups 1, 2, 5, 8, 16/1 and 32/1, flash causal,
 non-causal with a ragged Skv and soft-capped, and the reference's
@@ -48,7 +48,11 @@ wide kernel also runs llama2-7b's served prefill at head_dim 256
 unit; ``test_relative_limit_catches_a_wide_kernel_fault`` plants a fault
 of its V ring and of each pairing of q units (``WIDE_FAULTS``) at the
 served shape or 16/16, and ``test_wide_grid_follows_the_schedule`` holds the grid
-the library launches to ``flash.wide_schedule``.
+the library launches to ``flash.wide_schedule``.  The fp32 wide kernel
+also runs a sweep of one 16-key tile and a ragged Skv of 333, and
+``test_fp32_limits_catch_a_wide_kernel_fault`` plants a fault of its V
+ring, of its S exchange and of its split products (``WIDE_FP32_FAULTS``)
+at causal S 1024 with 16/16 heads of 256.
 
 Both attention kernels take head_dim 80 (stablelm-3b, zamba2-2.7b's
 shared block) in padded tiles and lanes: flash in its D-128 tiles, paged
@@ -550,6 +554,11 @@ FLASH_WIDE = [
     (1, 2048, 2048, 32, 8, 256, True, 0.0, torch.bfloat16),
     (3, 1000, 1000, 16, 8, 192, True, 0.0, torch.bfloat16),
     (1, 64, 64, 16, 16, 256, True, 0.0, torch.bfloat16),
+    # the fp32 kernel's 16-key tiles: a sweep of one tile (causal, and
+    # non-causal with Skv 10), and Skv 333 (20 tiles and 13 keys) with B 2
+    (1, 16, 16, 4, 4, 256, True, 0.0, torch.float32),
+    (1, 8, 10, 4, 2, 160, False, 0.0, torch.float32),
+    (2, 100, 333, 8, 4, 224, False, 0.0, torch.float32),
 ]
 
 
@@ -952,6 +961,66 @@ def test_fp32_limits_catch_a_planted_fault(cuda, fault, tmp_path,
     print(f"\n{fault}: sound {sound}, planted {planted}; caught by the "
           f"{limit} limit ({bar:.0e}; elementwise reads error over "
           f"2e-5 + 2e-5 |want|)")
+    assert sound[limit] <= bar < planted[limit]
+
+
+#: planted faults of the fp32 kernel at head_dims 144 to 256
+#: (``flash_fp32_kernel_wide``), each held at causal S 1024 with 16/16
+#: heads of 256: the consumers read V's fragments from the other stage of
+#: its ring, and add their own partial S twice (each caught by the fp32
+#: row limit); one of the three TF32 products of P·V dropped (V's lo
+#: times P's hi), caught by the reference's elementwise 2e-5.  (text
+#: replaced, its replacement, the limit that catches it)
+WIDE_FP32_FAULTS = {
+    "flash-fp32-wide-ring-stage-off-by-one": (
+        "const uint32_t vr = tb + L::V + (t % kWideVStages) * L::RAW;",
+        "const uint32_t vr = tb + L::V + ((t + 1) % kWideVStages) * L::RAW;",
+        "row"),
+    "flash-fp32-wide-trades-s-with-itself": (
+        "lds4(x + 4 * (1 - c) * L::KBOX + (j * 128 + wt) * 16)",
+        "lds4(x + 4 * c * L::KBOX + (j * 128 + wt) * 16)", "row"),
+    "flash-fp32-wide-drops-a-split-product": (
+        "        wgmma_tf32_rs_n64(o[mt], v_lo[mt][ks],\n"
+        "                          sw128_desc(pp + 32 * ks, 16, 1024));\n",
+        "", "elementwise"),
+}
+
+
+def _fp32_wide_case(device):
+    """The fp32 kernel at causal S 1024 with 16/16 heads of 256: (kernel
+    output, plain output), every row of every head."""
+    rng = np.random.RandomState(8)
+    q, k, v = (torch.from_numpy(rng.randn(1, 1024, 16, 256)
+                                .astype(np.float32)).to(device)
+               for _ in range(3))
+    return flash.flash_attention(q, k, v), _flash_plain(q, k, v)
+
+
+@pytest.mark.parametrize("fault", sorted(WIDE_FP32_FAULTS))
+def test_fp32_limits_catch_a_wide_kernel_fault(cuda, fault, tmp_path,
+                                               monkeypatch):
+    """The sound fp32 kernel at head_dim 256 reads within the fp32 row
+    limit and the reference's elementwise 2e-5; a copy of its source with
+    a fault of its V ring, its S exchange or its split products planted
+    reads past the limit named beside the fault."""
+    old, new, limit = WIDE_FP32_FAULTS[fault]
+    got, want = _fp32_wide_case(cuda)
+    sound = {"row": float(_row_rel_err(got, want).max()),
+             "elementwise": _elementwise_ratio(got, want)}
+    assert sound["row"] <= REL_TOL[torch.float32]
+    assert sound["elementwise"] <= 1.0
+    src = (build.CSRC / "flash_attention.cu").read_text()
+    assert src.count(old) == 1
+    (tmp_path / "flash_attention.cu").write_text(src.replace(old, new))
+    monkeypatch.setattr(build, "CSRC", tmp_path)
+    monkeypatch.setattr(build, "BUILD_DIR", tmp_path / "lib")
+    monkeypatch.setattr(build, "_loaded", {})
+    got, want = _fp32_wide_case(cuda)
+    planted = {"row": float(_row_rel_err(got, want).max()),
+               "elementwise": _elementwise_ratio(got, want)}
+    bar = {"row": REL_TOL[torch.float32], "elementwise": 1.0}[limit]
+    print(f"\n{fault}: sound {sound}, planted {planted}; caught by the "
+          f"{limit} limit ({bar:.0e})")
     assert sound[limit] <= bar < planted[limit]
 
 
